@@ -5,19 +5,40 @@
 Drives ``consensuscruncher_tpu_torch`` on the card and exits non-zero on any
 failure; no phase's failure is caught.  Phases:
 
-1. the card's name and power limit (``nvidia-smi``);
-2. build the vote kernel from ``consensuscruncher_tpu_torch/csrc``, timed;
-3. each kernel against its plain PyTorch version on the card, exactly:
-   random dense and stream batches, edge shapes, a family of more than 1000
-   members, more families than one grid dimension holds (still one launch);
-   then the kernel's time, the plain version's time and the bound at the
-   main path's shape (the largest early batch of the phase-5 input, its
-   live families only, as the SSCS stage votes it);
-4. ``consensus --scorrect True`` on the committed ``test/data`` BAMs, every
-   digest of ``test/golden.json`` checked;
+1. the card's name and power limit, its SM count and top SM clock
+   (``nvidia-smi``), from which the INT32 rate of the bounds follows;
+2. build ``csrc/consensus_vote.cu`` (the SSCS vote and the fused duplex
+   vote), timed, with each kernel's registers and spills;
+3. each kernel against its plain PyTorch version on the card, exactly
+   (``torch.equal``), one launch per wrapper call:
+   - the SSCS vote (B1): random dense and stream batches, edge shapes, a
+     family of more than 1000 members, more families than one grid
+     dimension holds; then its time at the main path's shape (the largest
+     early batch of the phase-5 input, its live families only);
+   - the fused duplex vote (B2): dense batches with PAD tails, size-0
+     slots on strand A, on B and on both, F = 1, 7 and 8 of 10 at cutoff
+     0.7, a first-seen tie with a demoted member, a stream batch with a
+     1,500-member family, more than 65,535 pairs, three configs; then its
+     time at the JAX package's shapes: dense ``B8192_F16_L100`` and
+     ``B65536_F8_L100`` (``tools/tpu_device_bench.py`` inputs) and the
+     stage loop of ``tools/tpu_stage_row.py`` (eight batches of 8,192
+     pairs, L 128, pack4), prestaged on the card — beside its plain
+     version and the unfused chain (B1 per strand + ``duplex_vote``), each
+     over the same batches; every stage step's output and stats are held
+     against the plain version and a numpy count;
+4. ``consensus --scorrect True`` on the committed ``test/data`` BAMs with
+   residency on (the default), every digest of ``test/golden.json``
+   checked; ``sample.bam`` also with ``--residency False``, whose BAMs must
+   be byte-identical to the resident run's;
 5. the same command on a simulated BAM (``--fragments`` duplex fragments,
-   seed 42, ``ref_len = 40 * fragments``): wall time, families/s, reads/s,
-   and the vote kernel's launch count, which must be > 0.
+   seed 42, ``ref_len = 40 * fragments``), residency on: wall time,
+   families/s, reads/s, the SSCS kernel's launches (> 0) and the resident
+   duplex votes (pairs and rescues, each > 0); then four more runs of it,
+   ``--residency`` off, on, on, off, with their step walls, each writing
+   the same BAMs;
+6. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
+   its kernel launches counted (> 0) and its outputs equal to the
+   prestaged loop's.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,8 +47,10 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -42,7 +65,9 @@ sys.path.insert(0, REPO)
 
 from consensuscruncher_tpu_torch.cli import main as cli_main  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import open_batch_source  # noqa: E402
-from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote, cuda_lib  # noqa: E402
+from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote, cuda_lib, residency  # noqa: E402
+from consensuscruncher_tpu_torch.ops.duplex import duplex_vote  # noqa: E402
+from consensuscruncher_tpu_torch.ops.packing import build_codebook4, pack4  # noqa: E402
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
@@ -51,12 +76,25 @@ from consensuscruncher_tpu_torch.utils.phred import N, PAD  # noqa: E402
 from consensuscruncher_tpu_torch.utils.simulate import SimConfig, simulate_bam_fast  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
-CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, the CUDA-core rate
+INT32_LANES_PER_SM = 64  # Hopper runs int32 adds, compares and selects on 64 lanes per SM
 
-# The main path's one hand-written kernel, and the TPU kernel it replaces.
-KERNEL = "consensus_vote"
-KERNEL_SOURCE = "consensuscruncher_tpu_torch/csrc/consensus_vote.cu"
-KERNEL_REPLACES = "consensuscruncher_tpu/ops/consensus_pallas.py:139"
+# The vote's integer work, in int32 operations: per member-position folded
+# (qual test, select, count, first-seen, agree test, qual add), per output
+# position finalized (max, argmin over first-seen, cutoff, cap), and per
+# pair-position combined into the DCS (agree tests, select, add, min).
+FOLD_OPS, FINALIZE_OPS, COMBINE_OPS = 6, 30, 6
+
+VOTE = {"name": "consensus_vote", "route": "cuda",
+        "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
+        "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:139"}
+FUSED = {"name": "duplex_members", "route": "cuda",
+         "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
+         "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:163"}
+NO_LIBRARY = "no single PyTorch call computes this majority vote"
+
+BINNED = np.array([2, 12, 23, 37], np.uint8)  # tools/tpu_stage_row.py's quals
+DENSE_SHAPES = {"B8192_F16_L100": (8192, 16, 100), "B65536_F8_L100": (65536, 8, 100)}
+STAGE_PAIRS, STAGE_L, STAGE_BATCHES = 8192, 128, 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,21 +130,65 @@ def kernel_device_ms(fn, name: str, reps: int = 50) -> float | None:
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
-def phase_card() -> str:
+def kernel_ms(fn, name: str, reps: int) -> dict:
+    """The kernel's time per launch: the profiler's device time when the
+    profiler sees the card, else CUDA events over back-to-back launches
+    (which can measure the host's launch rate instead); both reported."""
+    events_ms = cuda_ms(fn, reps)
+    profiler_ms = kernel_device_ms(fn, name)
+    return {"ms": profiler_ms if profiler_ms is not None else events_ms,
+            "profiler_ms": profiler_ms, "events_ms": events_ms}
+
+
+def bound(bytes_moved: int, ops: int, rates: dict) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    against int32 operations over the INT32 rate, the larger of the two."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rates["int32_ops_per_s"] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def phase_card() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    return smi
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {"card": smi, "sms": sms, "max_sm_mhz": float(clock),
+             "int32_ops_per_s": INT32_LANES_PER_SM * sms * float(clock) * 1e6,
+             "hbm_bytes_per_s": HBM_BYTES_PER_S}
+    emit("card", **rates)
+    return rates
 
 
 def phase_build() -> None:
     t = time.perf_counter()
-    so = cuda_lib.build(KERNEL)
+    so = cuda_lib.build("consensus_vote")
     build_s = time.perf_counter() - t
     with open(so + ".log") as fh:
-        ptxas = [ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
-    emit("build", kernel=KERNEL, seconds=build_s, ptxas=ptxas)
+        log = fh.read()
+    kernels: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if entry:
+            current = next((k for k in ("vote_members_kernel", "duplex_members_kernel")
+                            if k in entry.group(1)), None)
+        elif current and "registers" in line:
+            kernels.setdefault(current, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        elif current and "spill" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            kernels.setdefault(current, {}).update(spill_stores=int(stores),
+                                                   spill_loads=int(loads))
+    if set(kernels) != {"vote_members_kernel", "duplex_members_kernel"}:
+        raise AssertionError(f"ptxas report lacks a kernel: {kernels}\n{log}")
+    emit("build", source=VOTE["source"], seconds=build_s, ptxas=kernels)
 
 
 def _check_equal(name, got: torch.Tensor, want: torch.Tensor, errs: list) -> None:
@@ -116,6 +198,14 @@ def _check_equal(name, got: torch.Tensor, want: torch.Tensor, errs: list) -> Non
     if not torch.equal(got, want):
         raise AssertionError(f"kernel disagrees with the plain version on {name} "
                              f"(max abs err {err})")
+
+
+CONFIGS = [consensus_vote.ConsensusConfig(),
+           consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=20),
+           consensus_vote.ConsensusConfig(cutoff=0.9, qual_threshold=30, qual_cap=45)]
+
+
+# ---------------------------------------------------------------- SSCS vote
 
 
 def _stream_case(rng, nf, max_size, length, dev, zero_frac=0.1):
@@ -151,12 +241,9 @@ def main_path_batch(bam: str):
         reader.close()
 
 
-def phase_kernels(dev, sim_bam: str) -> dict:
+def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
     rng = np.random.default_rng(7)
     errs: list[int] = []
-    configs = [consensus_vote.ConsensusConfig(),
-               consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=20),
-               consensus_vote.ConsensusConfig(cutoff=0.9, qual_threshold=30, qual_cap=45)]
     # random stream batches, a >1000-member family, more families than one
     # grid dimension (65535) holds, single-member families
     cases = {
@@ -166,7 +253,7 @@ def phase_kernels(dev, sim_bam: str) -> dict:
         "stream_F1": _stream_case(rng, 512, 1, 64, dev, zero_frac=0),
     }
     for name, (bases, quals, sizes) in cases.items():
-        for cfg in configs:
+        for cfg in CONFIGS:
             for length in (bases.shape[1], bases.shape[1] - 5):
                 before = consensus_vote.launches
                 got = consensus_vote.vote_members(bases, quals, sizes, cfg, length=length)
@@ -186,7 +273,7 @@ def phase_kernels(dev, sim_bam: str) -> dict:
     dense_b[0, :7] = 0
     dense_b[1, :3, 0], dense_q[1, :3, 0], dense_s[1] = [2, 3, 1], [30, 30, 10], 3
     dense_b[2:10], dense_q[2:10], dense_s[2:10] = PAD, 0, 0
-    for cfg in configs:
+    for cfg in CONFIGS:
         got = consensus_vote.consensus_batch(torch.from_numpy(dense_b).to(dev),
                                              torch.from_numpy(dense_q).to(dev), dense_s, cfg)
         flat = (torch.from_numpy(dense_b).reshape(b * f, length).to(dev),
@@ -195,7 +282,7 @@ def phase_kernels(dev, sim_bam: str) -> dict:
             *flat, torch.from_numpy(dense_s), cfg,
             starts=torch.arange(b, dtype=torch.int64) * f)
         _check_equal(f"dense/{cfg}", torch.stack(got), want, errs)
-        if cfg == configs[0]:  # 7 of 10 passes at 0.7; empty slots are all N
+        if cfg == CONFIGS[0]:  # 7 of 10 passes at 0.7; empty slots are all N
             assert int(got[0][0].max()) == 0 and int(got[0][2:10].min()) == N
 
     # the main path's shape: a full batch of the simulated input, decoded on
@@ -224,69 +311,405 @@ def phase_kernels(dev, sim_bam: str) -> dict:
     def plain():
         consensus_vote.vote_members_plain(bases, quals, sizes, cfg, length=out_len)
 
-    # in turns (kernel, plain, plain, kernel) within this one call.  CUDA
-    # events over back-to-back bare launches can measure the host's launch
-    # rate (a ctypes call per launch) rather than the kernel, so the
-    # kernel's time is the profiler's device time per launch when the
-    # profiler sees the card, and the events' time otherwise.
-    events_ms = cuda_ms(kernel, 500)
+    # in turns (kernel, plain, plain, kernel) within this one call
+    first = kernel_ms(kernel, "vote_members_kernel", 500)
     plain_ms = cuda_ms(plain, 20)
     plain_ms_again = cuda_ms(plain, 20)
-    events_ms_again = cuda_ms(kernel, 500)
+    again = kernel_ms(kernel, "vote_members_kernel", 500)
     call_ms = cuda_ms(call, 200)
-    profiler_ms = kernel_device_ms(kernel, "vote_members_kernel")
-    ms = profiler_ms if profiler_ms is not None else min(events_ms, events_ms_again)
     nf, m = int(sizes.shape[0]), int(batch.n_members)
     # least work: each live member-position read once (base + qual), each
     # live family's output written once (base + qual), its size read once
     # (int32; the starts are derived from the sizes)
-    bytes_moved = 2 * m * out_len + 2 * nf * out_len + 4 * nf
-    # integer work: ~6 ops per member-position (qual test, select, count,
-    # first-seen, agree test, qual add) + ~30 per output position (finalize)
-    ops = 6 * m * out_len + 30 * nf * out_len
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
     row = {
-        "ms": ms, "profiler_ms": profiler_ms, "events_ms": events_ms,
-        "events_ms_again": events_ms_again, "call_ms": call_ms,
+        "ms": min(first["ms"], again["ms"]), "runs": [first, again], "call_ms": call_ms,
         "plain_ms": plain_ms, "plain_ms_again": plain_ms_again,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **bound(2 * m * out_len + 2 * nf * out_len + 4 * nf,
+                FOLD_OPS * m * out_len + FINALIZE_OPS * nf * out_len, rates),
         "max_abs_err": max(errs), "comparisons": len(errs),
         "shape": {"wire": wire, "families": nf, "members": m, "L": int(bases.shape[1]),
-                  "out_len": out_len, "bytes": bytes_moved},
+                  "out_len": out_len},
     }
-    emit("kernels", kernel="consensus_vote", **row)
+    emit("kernels", kernel=VOTE["name"], **row)
     return row
+
+
+# --------------------------------------------------------- fused duplex vote
+
+
+def _dense_strand(rng, b, f, length, empty=()):
+    bases = rng.integers(0, 4, (b, f, length)).astype(np.uint8)
+    quals = rng.integers(2, 41, (b, f, length)).astype(np.uint8)
+    sizes = rng.integers(1, f + 1, b).astype(np.int32)
+    sizes[list(empty)] = 0
+    for i in range(b):
+        bases[i, sizes[i]:] = PAD
+        quals[i, sizes[i]:] = 0
+    return bases, quals, sizes
+
+
+def _fused_dense_cases(rng):
+    """The dense edge cases of tests/test_pallas.py, at card-sized batches."""
+    cases = {}
+    for b, f, length in ((512, 16, 100), (1000, 4, 33), (3, 2, 64)):
+        cases[f"dense_{b}x{f}x{length}"] = (*_dense_strand(rng, b, f, length),
+                                            *_dense_strand(rng, b, f, length))
+    for name, ea, eb in (("size0_a", range(0, 256, 2), ()), ("size0_b", (), range(0, 256, 3)),
+                         ("size0_both", range(0, 256, 2), range(0, 256, 2))):
+        cases[name] = (*_dense_strand(rng, 256, 8, 100, ea), *_dense_strand(rng, 256, 8, 100, eb))
+    ones = np.ones(256, np.int32)
+    cases["F1"] = (rng.integers(0, 4, (256, 1, 100)).astype(np.uint8),
+                   rng.integers(2, 41, (256, 1, 100)).astype(np.uint8), ones,
+                   rng.integers(0, 4, (256, 1, 100)).astype(np.uint8),
+                   rng.integers(2, 41, (256, 1, 100)).astype(np.uint8), ones.copy())
+    for winners in (7, 8):  # 7 and 8 of 10 at cutoff 0.7
+        ba = np.zeros((16, 10, 64), np.uint8)
+        ba[:, winners:] = 2
+        qa = np.full((16, 10, 64), 30, np.uint8)
+        tens = np.full(16, 10, np.int32)
+        cases[f"cutoff_{winners}_of_10"] = (ba, qa, tens, ba.copy(), qa.copy(), tens.copy())
+    tie_b = np.array([[[2, 0], [3, 0], [1, 0], [PAD, PAD]]] * 64, np.uint8)
+    tie_q = np.array([[[30, 30], [30, 30], [10, 30], [0, 0]]] * 64, np.uint8)
+    threes = np.full(64, 3, np.int32)
+    cases["tie_demoted"] = (tie_b, tie_q, threes, tie_b[:, [1, 0, 2, 3]].copy(), tie_q,
+                            threes.copy())
+    return cases
+
+
+def _fused_check(name, got, want, errs):
+    _check_equal(name, torch.stack(list(got)) if isinstance(got, tuple) else got, want, errs)
+
+
+def phase_fused_cases(dev) -> list[int]:
+    rng = np.random.default_rng(17)
+    errs: list[int] = []
+    t = torch.from_numpy
+    for name, (ba, qa, sa, bb, qb, sb) in _fused_dense_cases(rng).items():
+        b, f, length = ba.shape
+        starts = torch.arange(b, dtype=torch.int64) * f
+        for cfg in CONFIGS:
+            before = consensus_vote.fused_launches
+            got = consensus_vote.duplex_batch(t(ba).to(dev), t(qa).to(dev), sa,
+                                              t(bb).to(dev), t(qb).to(dev), sb, cfg)
+            assert consensus_vote.fused_launches == before + 1  # one launch per call
+            want = consensus_vote.duplex_members_plain(
+                t(ba).reshape(b * f, length).to(dev), t(qa).reshape(b * f, length).to(dev),
+                t(sa), t(bb).reshape(b * f, length).to(dev),
+                t(qb).reshape(b * f, length).to(dev), t(sb), cfg,
+                starts_a=starts, starts_b=starts)
+            _fused_check(f"{name}/{cfg}", got, want, errs)
+            if name == "cutoff_7_of_10" and cfg == CONFIGS[0]:
+                assert int(got[4].max()) == 0  # 7 of 10 passes on both strands
+            if name.startswith("size0") and name != "size0_b":
+                assert bool((got[4][::2] == N).all())  # a missing strand: DCS N
+    # stream form: one member stream, strand A families then strand B's, with
+    # a 1,500-member family, and more pairs than one grid dimension holds
+    for name, n_pairs, max_size, length in (("stream_family_1500", 5, 8, 96),
+                                            ("stream_70000_pairs", 70000, 3, 40)):
+        sizes = rng.integers(0, max_size + 1, 2 * n_pairs).astype(np.int32)
+        if name == "stream_family_1500":
+            sizes[[0, n_pairs + 1]] = [1500, 1200]
+        m = int(sizes.sum()) + 7
+        bases = t(rng.choice(6, (m, length), p=[.3, .2, .2, .2, .06, .04]).astype(np.uint8)).to(dev)
+        quals = t(rng.integers(0, 42, (m, length), dtype=np.uint8)).to(dev)
+        starts = torch.cumsum(t(sizes).long(), 0) - t(sizes).long()
+        args = (bases, quals, t(sizes[:n_pairs]), bases, quals, t(sizes[n_pairs:]))
+        for cfg in CONFIGS:
+            for vote_len in (length, length - 5):
+                before = consensus_vote.fused_launches
+                got = consensus_vote.duplex_members(*args, cfg, vote_len,
+                                                    starts[:n_pairs], starts[n_pairs:])
+                assert consensus_vote.fused_launches == before + 1
+                want = consensus_vote.duplex_members_plain(*args, cfg, vote_len,
+                                                           starts[:n_pairs], starts[n_pairs:])
+                _fused_check(f"{name}/{cfg}/L={vote_len}", got, want, errs)
+    emit("fused_cases", comparisons=len(errs), max_abs_err=max(errs))
+    return errs
+
+
+class _Strands:
+    """Two strands on the card as the bare launches take them."""
+
+    def __init__(self, dev, ba, qa, sa, bb, qb, sb, starts_a, starts_b):
+        self.args = []
+        for bases, quals, sizes, starts in ((ba, qa, sa, starts_a), (bb, qb, sb, starts_b)):
+            self.args.append((bases, quals, torch.as_tensor(sizes).to(dev, torch.int32),
+                              torch.as_tensor(starts).to(dev, torch.int64)))
+        self.host = [(ba, qa, torch.as_tensor(sa), torch.as_tensor(starts_a)),
+                     (bb, qb, torch.as_tensor(sb), torch.as_tensor(starts_b))]
+
+    def kernel(self, cfg, length):
+        return consensus_vote.launch_duplex_kernel(*self.args[0], *self.args[1], cfg, length)
+
+    def plain(self, cfg, length):
+        (ba, qa, sa, st_a), (bb, qb, sb, st_b) = self.host
+        return consensus_vote.duplex_members_plain(ba, qa, sa, bb, qb, sb, cfg, length,
+                                                   st_a, st_b)
+
+    def chain(self, cfg, length):
+        """The unfused chain: the SSCS kernel per strand, then the duplex
+        combine (the port's counterpart of the JAX bench's resident_chain)."""
+        va = consensus_vote.launch_kernel(*self.args[0], cfg, length)
+        vb = consensus_vote.launch_kernel(*self.args[1], cfg, length)
+        return (va, vb, *duplex_vote(va[0], va[1], vb[0], vb[1], qual_cap=int(cfg.qual_cap)))
+
+
+def _fused_timing(strands: _Strands, length, live_members, pairs, rates, errs, label,
+                  plain_reps=5):
+    """Time the bare fused launch against its plain version and the chain,
+    in turns (kernel, plain, chain, chain, plain, kernel), and bound it."""
+    cfg = consensus_vote.ConsensusConfig()
+    got = strands.kernel(cfg, length)
+    _check_equal(label, got, strands.plain(cfg, length), errs)
+    va, vb, dcs_b, dcs_q = strands.chain(cfg, length)
+    _check_equal(f"{label}/chain", torch.stack([va[0], va[1], vb[0], vb[1], dcs_b, dcs_q]),
+                 got, errs)
+    first = kernel_ms(lambda: strands.kernel(cfg, length), "duplex_members_kernel", 200)
+    plain_ms = cuda_ms(lambda: strands.plain(cfg, length), plain_reps)
+    chain_ms = cuda_ms(lambda: strands.chain(cfg, length), 50)
+    chain_ms_again = cuda_ms(lambda: strands.chain(cfg, length), 50)
+    plain_ms_again = cuda_ms(lambda: strands.plain(cfg, length), plain_reps)
+    again = kernel_ms(lambda: strands.kernel(cfg, length), "duplex_members_kernel", 200)
+    # least work: each live member-position of both strands read once (base +
+    # qual), the six output planes written once, the 2P sizes read once
+    return {
+        "ms": min(first["ms"], again["ms"]), "runs": [first, again],
+        "plain_ms": min(plain_ms, plain_ms_again), "plain_runs": [plain_ms, plain_ms_again],
+        "chain_ms": min(chain_ms, chain_ms_again), "chain_runs": [chain_ms, chain_ms_again],
+        "library_ms": None, "library_note": NO_LIBRARY,
+        **bound(2 * live_members * length + 6 * pairs * length + 8 * pairs,
+                FOLD_OPS * live_members * length
+                + (2 * FINALIZE_OPS + COMBINE_OPS) * pairs * length, rates),
+    }
+
+
+def phase_fused_dense(dev, tag, rates, errs) -> dict:
+    """The JAX device bench's fused_pallas / resident_chain rows at one
+    shape: its inputs (seed 7), strand B from seed 11."""
+    b, f, length = DENSE_SHAPES[tag]
+    rng = np.random.default_rng(7)
+    ba = rng.integers(0, 4, (b, f, length)).astype(np.uint8)
+    qa = rng.integers(20, 41, (b, f, length)).astype(np.uint8)
+    sa = rng.integers(1, f + 1, (b,)).astype(np.int32)
+    rng = np.random.default_rng(11)
+    bb = rng.integers(0, 4, (b, f, length)).astype(np.uint8)
+    qb = rng.integers(20, 41, (b, f, length)).astype(np.uint8)
+    sb = rng.integers(1, f + 1, (b,)).astype(np.int32)
+    planes = [torch.from_numpy(x).reshape(b * f, length).to(dev) for x in (ba, qa, bb, qb)]
+    starts = torch.arange(b, dtype=torch.int64) * f
+    strands = _Strands(dev, planes[0], planes[1], sa, planes[2], planes[3], sb, starts, starts)
+    row = _fused_timing(strands, length, int(sa.sum() + sb.sum()), b, rates, errs,
+                        f"dense/{tag}")
+    row["shape"] = {"B": b, "F": f, "L": length, "device_bytes": 4 * b * f * length}
+    emit("fused_timing", kernel=FUSED["name"], tag=tag, **row)
+    return row
+
+
+def stage_loop_batches():
+    """tools/tpu_stage_row.py's workload: eight batches of 8,192 duplex
+    pairs, geometric mean-4 family sizes clipped at 16, every 16th strand-B
+    slot empty, L 128, quals from four bins (seed 23)."""
+    rng = np.random.default_rng(23)
+    batches = []
+    for _ in range(STAGE_BATCHES):
+        sizes_a = np.minimum(1 + rng.geometric(1.0 / 4.0, STAGE_PAIRS), 16).astype(np.int32)
+        sizes_b = np.minimum(1 + rng.geometric(1.0 / 4.0, STAGE_PAIRS), 16).astype(np.int32)
+        sizes_b[::16] = 0
+        seg = np.concatenate([sizes_a, sizes_b])
+        m = int(seg.sum())
+        rows = rng.integers(0, 4, (m, STAGE_L)).astype(np.uint8)
+        qrows = BINNED[rng.integers(0, 4, (m, STAGE_L))]
+        batches.append((sizes_a, sizes_b, rows, qrows))
+    return build_codebook4(BINNED), batches
+
+
+def _check_step(i, step_out, plain, sizes_a, sizes_b, errs) -> None:
+    """One ``segment_duplex_step(packed_out=True)`` output on the host
+    against the plain version's six planes of the same batch: the packed
+    SSCS pair and both quals exactly, the DCS derived from them equal to the
+    plain DCS, and the stats equal to a numpy count of the plain planes."""
+    packed, qa, qb, stats = step_out
+    sscs_a, pqa, sscs_b, pqb, dcs, dq = plain
+    want_packed = sscs_a | sscs_b << 3
+    for name, got, want in (("packed", packed, want_packed), ("qa", qa, pqa), ("qb", qb, pqb)):
+        _check_equal(f"stage/batch{i}/step_{name}", torch.from_numpy(got),
+                     torch.from_numpy(want), errs)
+    derived = consensus_segment.derive_host_outputs(packed, qa, qb, sizes_a, sizes_b)
+    _check_equal(f"stage/batch{i}/derived", torch.from_numpy(np.stack(derived)),
+                 torch.from_numpy(plain), errs)
+    both = (sizes_a > 0) & (sizes_b > 0)
+    want_stats = [int(((sizes_a > 0) | (sizes_b > 0)).sum()), int(both.sum()),
+                  int((dcs[both] == N).sum()), int(dq[both].astype(np.int64).sum())]
+    if stats.tolist() != want_stats:
+        raise AssertionError(f"stage batch {i}: step stats {stats.tolist()} != "
+                             f"numpy count {want_stats}")
+
+
+def phase_fused_stage(dev, rates, errs, book, batches) -> tuple[dict, list]:
+    """The stage loop prestaged on the card: packed batches and codebook
+    uploaded first, then eight ``segment_duplex_step`` calls (unpack + one
+    fused launch + stats each) back to back, outputs fetched at the end."""
+    step = consensus_segment.segment_duplex_step(STAGE_PAIRS, STAGE_L, packed_out=True)
+    book_d = torch.from_numpy(book).to(dev)
+    staged = [(torch.from_numpy(pack4(rows, qrows, book)).to(dev),
+               torch.from_numpy(np.concatenate([sa, sb])))
+              for sa, sb, rows, qrows in batches]
+    torch.cuda.synchronize()
+    outs = [step(p, s, book_d) for p, s in staged]  # warm
+    torch.cuda.synchronize()
+    loop_ms = cuda_ms(lambda: [step(p, s, book_d) for p, s in staged], 5)
+    reference = [[x.cpu().numpy() for x in o] for o in outs]
+
+    # per launch: the bare kernel over each batch's unpacked planes; each
+    # step's output (the packed SSCS pair, the quals, the stats) is held
+    # against the plain version on the same planes and a numpy count
+    strands, live = [], 0
+    cfg = consensus_vote.ConsensusConfig()
+    for i, ((sa, sb, _rows, _qrows), (packed, sizes)) in enumerate(zip(batches, staged)):
+        bases, quals = consensus_segment.unpack4_device(packed, book_d, STAGE_L)
+        starts = torch.cumsum(sizes.long(), 0) - sizes.long()
+        s = _Strands(dev, bases, quals, sa, bases, quals, sb,
+                     starts[:STAGE_PAIRS], starts[STAGE_PAIRS:])
+        strands.append(s)
+        live += int(sa.sum() + sb.sum())
+        plain = s.plain(cfg, STAGE_L)
+        _check_equal(f"stage/batch{i}", s.kernel(cfg, STAGE_L), plain, errs)
+        _check_step(i, reference[i], plain.cpu().numpy(), sa, sb, errs)
+    row = _fused_timing(strands[0], STAGE_L, int(batches[0][0].sum() + batches[0][1].sum()),
+                        STAGE_PAIRS, rates, errs, "stage/batch0")
+    row["batch0"] = {k: v for k, v in row.items() if k not in ("runs", "plain_runs",
+                                                               "chain_runs")}
+    # kernel, plain version and chain over all eight batches, per batch, in
+    # turns, so the time, the bound and both comparisons cover the same work
+    def eight():
+        return [s.kernel(cfg, STAGE_L) for s in strands]
+
+    def eight_plain():
+        return [s.plain(cfg, STAGE_L) for s in strands]
+
+    def eight_chain():
+        return [s.chain(cfg, STAGE_L) for s in strands]
+
+    def loop_kernel_ms():
+        events = cuda_ms(eight, 20) / STAGE_BATCHES
+        profiler = kernel_device_ms(eight, "duplex_members_kernel", 20)
+        return {"ms": profiler if profiler is not None else events,
+                "profiler_ms": profiler, "events_ms": events}
+
+    first = loop_kernel_ms()
+    plain_runs = [cuda_ms(eight_plain, 2) / STAGE_BATCHES]
+    chain_runs = [cuda_ms(eight_chain, 10) / STAGE_BATCHES,
+                  cuda_ms(eight_chain, 10) / STAGE_BATCHES]
+    plain_runs.append(cuda_ms(eight_plain, 2) / STAGE_BATCHES)
+    again = loop_kernel_ms()
+    row.update(ms=min(first["ms"], again["ms"]), runs=[first, again],
+               plain_ms=min(plain_runs), plain_runs=plain_runs,
+               chain_ms=min(chain_runs), chain_runs=chain_runs,
+               **bound(2 * live * STAGE_L // STAGE_BATCHES + 6 * STAGE_PAIRS * STAGE_L
+                       + 8 * STAGE_PAIRS,
+                       (FOLD_OPS * live * STAGE_L) // STAGE_BATCHES
+                       + (2 * FINALIZE_OPS + COMBINE_OPS) * STAGE_PAIRS * STAGE_L, rates))
+    families = sum(int((sa > 0).sum() + (sb > 0).sum()) for sa, sb, _r, _q in batches)
+    row.update(loop_ms=loop_ms, families=families, reads=live,
+               families_per_s_loop=families / (loop_ms / 1e3),
+               shape={"batches": STAGE_BATCHES, "pairs": STAGE_PAIRS, "L": STAGE_L,
+                      "wire": "pack4"})
+    emit("fused_timing", kernel=FUSED["name"], tag="stage_loop", **row)
+    return row, reference
+
+
+def phase_fused_path(dev, book, batches, reference) -> dict:
+    """The fused path as a user drives it: ``run_duplex_pipelined`` over
+    the stage-loop batches (chunks of 8,192 pairs, host pack4, pinned
+    uploads and downloads), counts set to 0 just before and read just after;
+    its outputs must equal the prestaged loop's."""
+    rows = np.concatenate([r[:int(sa.sum())] for sa, _sb, r, _q in batches]
+                          + [r[int(sa.sum()):] for sa, _sb, r, _q in batches])
+    qrows = np.concatenate([q[:int(sa.sum())] for sa, _sb, _r, q in batches]
+                           + [q[int(sa.sum()):] for sa, _sb, _r, q in batches])
+    sizes_a = np.concatenate([sa for sa, _sb, _r, _q in batches])
+    sizes_b = np.concatenate([sb for _sa, sb, _r, _q in batches])
+    torch.cuda.synchronize()
+    consensus_vote.launches = consensus_vote.fused_launches = 0
+    t = time.perf_counter()
+    out = consensus_segment.run_duplex_pipelined(rows, qrows, sizes_a, sizes_b, book,
+                                                 chunk_pairs=STAGE_PAIRS, device=dev)
+    wall = time.perf_counter() - t
+    launches = consensus_vote.fused_launches
+    if launches == 0:
+        raise AssertionError("the fused path never launched the fused kernel")
+    stats = np.zeros(4, np.int64)
+    for i, (pk, qa, qb, st) in enumerate(reference):
+        sl = slice(i * STAGE_PAIRS, (i + 1) * STAGE_PAIRS)
+        derived = consensus_segment.derive_host_outputs(pk, qa, qb, sizes_a[sl], sizes_b[sl])
+        for got, want in zip(out[:6], derived):
+            if not np.array_equal(got[sl], want):
+                raise AssertionError(f"pipelined run differs from the prestaged loop, batch {i}")
+        stats += st
+    if not np.array_equal(out[6], stats):
+        raise AssertionError(f"pipelined stats {out[6]} != prestaged {stats}")
+    row = {"wall_s": wall, "fused_launches": launches, "sscs_launches": consensus_vote.launches,
+           "pairs": int(sizes_a.shape[0]), "stats": out[6].tolist(),
+           "pairs_per_s": sizes_a.shape[0] / wall}
+    emit("fused_path", **row)
+    return row
+
+
+# ---------------------------------------------------------------- main path
+
+
+def _bam_sha256(base: str) -> dict:
+    out = {}
+    for root, _dirs, files in os.walk(base):
+        for f in files:
+            if f.endswith(".bam"):
+                with open(os.path.join(root, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(root, f), base)] = \
+                        hashlib.sha256(fh.read()).hexdigest()
+    return out
 
 
 def phase_goldens(dev) -> dict:
     golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
     out = {}
     consensus_vote.launches = 0
-    for bam, section, name in (("sample.bam", "consensus", "golden"),
-                               ("sample_adversarial.bam", "consensus_adversarial", "golden_adv"),
-                               ("sample_bcerr.bam", "consensus_bcerr_exact", "golden_bcerr")):
+    residency.pair_votes = residency.against_votes = 0
+    runs = (("sample.bam", "consensus", "golden", "True"),
+            ("sample.bam", "consensus", "golden", "False"),
+            ("sample_adversarial.bam", "consensus_adversarial", "golden_adv", "True"),
+            ("sample_bcerr.bam", "consensus_bcerr_exact", "golden_bcerr", "True"))
+    trees = {}
+    for bam, section, name, resident in runs:
         work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
         t = time.perf_counter()
         cli_main(["consensus", "-i", os.path.join(REPO, "test", "data", bam), "-o", work,
-                  "-n", name, "--scorrect", "True", "--device", dev.type])
+                  "-n", name, "--scorrect", "True", "--device", dev.type,
+                  "--residency", resident])
         wall = time.perf_counter() - t
         bad = golden_mismatches(os.path.join(work, name), golden[section])
+        trees[(bam, resident)] = _bam_sha256(os.path.join(work, name))
         shutil.rmtree(work)
         if bad:
-            raise AssertionError(f"{bam}: outputs diverge from {section} goldens: {bad}")
-        out[bam] = wall
-        emit("goldens", input=bam, digests=len(golden[section]), wall_s=wall)
+            raise AssertionError(f"{bam} (residency {resident}): outputs diverge from "
+                                 f"{section} goldens: {bad}")
+        out[f"{bam}/residency={resident}"] = wall
+        emit("goldens", input=bam, residency=resident, digests=len(golden[section]),
+             wall_s=wall)
+    if trees[("sample.bam", "True")] != trees[("sample.bam", "False")]:
+        raise AssertionError("sample.bam: --residency True and False wrote different BAMs")
     if consensus_vote.launches == 0:
         raise AssertionError("the golden runs never launched the vote kernel")
+    if residency.pair_votes == 0 or residency.against_votes == 0:
+        raise AssertionError("the golden runs never voted from the resident store")
+    emit("residency_parity", input="sample.bam", bams=len(trees[("sample.bam", "True")]),
+         identical=True)
     return out
 
 
-def _synced_timer(module, attr: str, acc: dict, key: str):
-    """Wrap ``module.attr`` so each call is bracketed by synchronises and
+def _synced_timer(owner, attr: str, acc: dict, key: str):
+    """Wrap ``owner.attr`` so each call is bracketed by synchronises and
     its wall added to ``acc[key]``; returns the restore function."""
-    fn = getattr(module, attr)
+    fn = getattr(owner, attr)
     acc[key] = 0.0
 
     def timed(*args, **kwargs):
@@ -297,26 +720,37 @@ def _synced_timer(module, attr: str, acc: dict, key: str):
         acc[key] += time.perf_counter() - t
         return out
 
-    setattr(module, attr, timed)
-    return lambda: setattr(module, attr, fn)
+    setattr(owner, attr, timed)
+    return lambda: setattr(owner, attr, fn)
 
 
-def phase_scale(dev, sim_bam: str, truth, work: str) -> dict:
-    # device-side walls: the SSCS unpack + vote calls, and the duplex votes
-    # of rescue and DCS (uploads and downloads included)
+def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
+    # device-side walls: the SSCS unpack + vote calls, the duplex votes of
+    # rescue and DCS by upload, and the resident ones by gather (transfers
+    # included)
     device_s: dict[str, float] = {}
-    restores = [_synced_timer(consensus_segment, "stream_vote", device_s, "vote_s"),
-                _synced_timer(dcs_maker, "duplex_batch_host", device_s, "duplex_s")]
-    consensus_vote.launches = 0
+    restores = [
+        _synced_timer(consensus_segment, "stream_vote", device_s, "vote_s"),
+        _synced_timer(dcs_maker, "duplex_batch_host", device_s, "duplex_upload_s"),
+        _synced_timer(residency.ResidentPlanes, "duplex_pairs", device_s, "resident_pairs_s"),
+        _synced_timer(residency.ResidentPlanes, "duplex_against", device_s,
+                      "resident_against_s"),
+    ]
+    consensus_vote.launches = consensus_vote.fused_launches = 0
+    residency.pair_votes = residency.against_votes = 0
     t = time.perf_counter()
     res = cli_main(["consensus", "-i", sim_bam, "-o", work, "-n", "sim",
                     "--scorrect", "True", "--device", dev.type])
     wall = time.perf_counter() - t
     launches = consensus_vote.launches
+    pair_votes, against_votes = residency.pair_votes, residency.against_votes
     for restore in restores:
         restore()
     if launches == 0:
         raise AssertionError("the main path never launched the vote kernel")
+    if pair_votes == 0 or against_votes == 0:
+        raise AssertionError(f"the main path voted too little from the resident store "
+                             f"(pairs {pair_votes}, rescues {against_votes})")
     stats = json.load(open(os.path.join(work, "sim", "sscs", "sim.sscs_stats.json")))
     dcs = json.load(open(os.path.join(work, "sim", "dcs", "sim.dcs_stats.json")))
     if stats["total_reads"] != truth.n_reads or stats.get("bad_reads", 0):
@@ -326,12 +760,48 @@ def phase_scale(dev, sim_bam: str, truth, work: str) -> dict:
     for key in ("all_sscs", "all_dcs"):
         if not os.path.exists(res[key] + ".bai"):
             raise AssertionError(f"{key} has no index")
-    row = {"wall_s": wall, "reads": stats["total_reads"], "families": stats["families"],
+    row = {"card": card, "wall_s": wall, "reads": stats["total_reads"],
+           "families": stats["families"],
            "families_per_s": stats["families"] / wall, "reads_per_s": stats["total_reads"] / wall,
            "sscs_written": stats["sscs_written"], "dcs_written": dcs["dcs_written"],
-           "vote_kernel_launches": launches, **device_s,
-           "device_calls_share": sum(device_s.values()) / wall, "steps_s": res["walls"]}
+           "dcs_pairs": dcs.get("pairs"), "vote_kernel_launches": launches,
+           "resident_pair_votes": pair_votes, "resident_against_votes": against_votes,
+           **device_s, "device_calls_share": sum(device_s.values()) / wall,
+           "steps_s": res["walls"]}
     emit("scale", **row)
+    return row
+
+
+RESIDENCY_TURNS = ("False", "True", "True", "False")
+STEPS = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_unique", "index")
+
+
+def phase_residency_walls(dev, sim_bam: str, work: str, card: str) -> dict:
+    """The phase-5 command again, uninstrumented, with ``--residency`` off
+    and on in turns (off, on, on, off): step walls per run, the least per
+    mode, and every run's BAMs byte-identical to the main path's run."""
+    want = _bam_sha256(os.path.join(work, "sim"))
+    runs = []
+    for turn, resident in enumerate(RESIDENCY_TURNS):
+        out = os.path.join(work, f"turn{turn}")
+        t = time.perf_counter()
+        res = cli_main(["consensus", "-i", sim_bam, "-o", out, "-n", "sim",
+                        "--scorrect", "True", "--device", dev.type, "--residency", resident])
+        wall = time.perf_counter() - t
+        if _bam_sha256(os.path.join(out, "sim")) != want:
+            raise AssertionError(f"--residency {resident} wrote other BAMs than the main run")
+        shutil.rmtree(out)
+        runs.append({"residency": resident, "wall_s": wall, "steps_s": res["walls"]})
+        emit("residency_turn", turn=turn, **runs[-1])
+    least = {mode: {step: min(r["steps_s"][step] for r in runs if r["residency"] == mode)
+                    for step in STEPS}
+             for mode in ("True", "False")}
+    for mode in least:
+        least[mode]["wall_s"] = min(r["wall_s"] for r in runs if r["residency"] == mode)
+    row = {"card": card, "turns": list(RESIDENCY_TURNS), "bams": len(want),
+           "least_on": least["True"], "least_off": least["False"],
+           "on_minus_off_s": {k: least["True"][k] - least["False"][k] for k in least["True"]}}
+    emit("residency_walls", **row)
     return row
 
 
@@ -346,7 +816,7 @@ def main() -> None:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    phase_card()
+    rates = phase_card()
     phase_build()
 
     os.makedirs(os.path.join(REPO, ".scratch"), exist_ok=True)
@@ -358,18 +828,31 @@ def main() -> None:
         truth = simulate_bam_fast(sim_bam, cfg)
         emit("simulate", fragments=args.fragments, reads=truth.n_reads,
              seconds=time.perf_counter() - t)
-        vote = phase_kernels(dev, sim_bam)
+        vote = phase_vote_kernel(dev, sim_bam, rates)
+        fused_errs = phase_fused_cases(dev)
+        shapes = {tag: phase_fused_dense(dev, tag, rates, fused_errs) for tag in DENSE_SHAPES}
+        book, batches = stage_loop_batches()
+        stage, reference = phase_fused_stage(dev, rates, fused_errs, book, batches)
         phase_goldens(dev)
-        scale = phase_scale(dev, sim_bam, truth, work)
+        scale = phase_scale(dev, sim_bam, truth, work, rates["card"])
+        phase_residency_walls(dev, sim_bam, work, rates["card"])
+        path = phase_fused_path(dev, book, batches, reference)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    kernels = [{
-        "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": scale["vote_kernel_launches"], "max_abs_err": vote["max_abs_err"],
-        "ms": vote["ms"], "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
-        "bound_by": vote["bound_by"], "library_ms": None,
-    }]
+    shapes["stage_loop"] = stage
+    kernels = [
+        {**VOTE, "launches": scale["vote_kernel_launches"], "max_abs_err": vote["max_abs_err"],
+         "ms": vote["ms"], "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
+         "bound_by": vote["bound_by"], "library_ms": None, "library_note": NO_LIBRARY},
+        {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
+         "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
+         "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+         "chain_ms": stage["chain_ms"],
+         "shapes": {tag: {k: row[k] for k in ("ms", "plain_ms", "chain_ms", "bound_ms",
+                                              "bound_by")}
+                    for tag, row in shapes.items()}},
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

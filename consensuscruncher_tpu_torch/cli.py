@@ -1,12 +1,14 @@
 """Command line of the PyTorch/CUDA port.
 
     python -m consensuscruncher_tpu_torch.cli consensus -i X.bam -o OUT \\
-        [--scorrect True] [--device cuda|cpu] ...
+        [--scorrect True] [--device cuda|cpu] [--residency True|False] ...
 
 Port of the staged path of ``consensuscruncher_tpu/cli.py:_consensus_impl``:
 SSCS -> singleton rescue -> rescued merge -> DCS -> all-unique merges ->
 BAI indexes, under ``<output>/<name>/{sscs,singleton,dcs,all_unique}``.
-The device votes run on the CUDA card unless ``--device cpu`` is given.
+The device votes run on the CUDA card unless ``--device cpu`` is given;
+the SSCS planes stay on the device for rescue and DCS unless
+``--residency False`` is given.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import os
 import sys
 import time
 
+from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.core.tags import DEFAULT_BDELIM
 from consensuscruncher_tpu_torch.device import device_name, resolve_device
 from consensuscruncher_tpu_torch.io.bai import index_bam
 from consensuscruncher_tpu_torch.io.bam import merge_bams
+from consensuscruncher_tpu_torch.ops.packing import resident_planes
 from consensuscruncher_tpu_torch.stages.dcs_maker import run_dcs
 from consensuscruncher_tpu_torch.stages.singleton_correction import run_singleton_correction
 from consensuscruncher_tpu_torch.stages.sscs_maker import run_sscs
@@ -51,16 +55,20 @@ def consensus(args) -> dict:
         walls[step] = now - t
         t = now
 
+    # Device-resident SSCS planes (on by default, as in the JAX package):
+    # rescue and DCS vote by gather on the device instead of uploading the
+    # SSCS planes again.  Outputs are byte-identical either way.
+    residency = resident_planes(device, DEFAULT_QUAL_CAP) if _bool(args.residency) else None
     sscs = run_sscs(args.input, os.path.join(dirs["sscs"], name), device,
                     cutoff=args.cutoff, qual_threshold=args.qualscore,
-                    bdelim=args.bdelim, level=level)
+                    bdelim=args.bdelim, level=level, residency=residency)
     mark("sscs")
     sscs_parts = [sscs.sscs_bam]
     dcs_input = sscs.sscs_bam
     if scorrect:
         corr = run_singleton_correction(sscs.singleton_bam, sscs.sscs_bam,
                                         os.path.join(dirs["singleton"], name),
-                                        device, level=level)
+                                        device, level=level, residency=residency)
         mark("singleton_correction")
         sscs_parts += [corr.sscs_rescue_bam, corr.singleton_rescue_bam, corr.remaining_bam]
         # DCS pairs SSCSes plus rescued singletons: a corrected singleton can
@@ -73,7 +81,8 @@ def consensus(args) -> dict:
         mark("merge_rescued")
     else:
         sscs_parts.append(sscs.singleton_bam)
-    dcs = run_dcs(dcs_input, os.path.join(dirs["dcs"], name), device, level=level)
+    dcs = run_dcs(dcs_input, os.path.join(dirs["dcs"], name), device, level=level,
+                  residency=residency)
     mark("dcs")
 
     # all-unique merges: SSCS path = every molecule's best single-strand
@@ -124,6 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the votes run (default cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
+    c.add_argument("--residency", default="True",
+                   help="keep SSCS consensus planes on the device so rescue and "
+                        "DCS vote by gather instead of uploading them again "
+                        "(default True). Byte-identical outputs; 'False' "
+                        "uploads every duplex vote")
     c.set_defaults(func=consensus)
     return p
 

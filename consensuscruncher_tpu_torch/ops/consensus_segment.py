@@ -1,13 +1,19 @@
-"""Member-stream SSCS vote: wire encode on the host, unpack + vote on the card.
+"""Member-stream votes: wire encode on the host, unpack + vote on the card.
 
 Port of the stream-wire half of ``consensuscruncher_tpu/ops/
 consensus_segment.py``.  A batch's families ship as a flat ``(M, L)``
 member stream (every real read exactly once, packed per
 :func:`encode_member_batch`) plus per-family ``sizes``; the device unpacks
-the wire with torch bit ops and votes every family with the CUDA kernel of
-``ops.consensus_vote`` (its plain version on the CPU).  The kernel handles
-any family size, so the JAX package's 512-member gather cap and its
+the wire with torch bit ops and votes every family with the CUDA kernels of
+``ops.consensus_vote`` (their plain versions on the CPU).  The kernels
+handle any family size, so the JAX package's 512-member gather cap and its
 segment-scatter fallback have no counterpart here.
+
+Two users: the SSCS stage (:func:`consensus_blocks_stream_batched`, the
+SSCS vote), and the fused SSCS+DCS API (:func:`segment_duplex_step`,
+:func:`run_duplex_pipelined`, the fused duplex vote), whose member stream
+holds strand A's families in slots ``0..n-1`` and strand B's in
+``n..2n-1``.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.device import resolve_device
 from consensuscruncher_tpu_torch.io import native
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
@@ -35,6 +42,7 @@ from consensuscruncher_tpu_torch.parallel.batching import (
     QUAL_FILL_SENTINEL,
     bucket_member_blocks,
 )
+from consensuscruncher_tpu_torch.utils.phred import N
 
 
 def encode_member_batch(batch):
@@ -115,26 +123,261 @@ def _out_len(batch) -> int | None:
     return -(-out_len // 8) * 8 or None
 
 
-def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.device):
+def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.device,
+                             on_device_batch=None):
     """MemberBatch iterable -> one ``(keys, lengths, out_bases, out_quals)``
     host tuple per batch (the ``(n_real, out_len)`` result planes; callers
     slice rows by ``lengths``).  Serial: encode, upload, vote, download.
     Only the ``n_real`` live families are voted, not the zero-size slots
     that pad the batch's family count to a power of two (the JAX
-    package's shape buckets; the port compiles nothing per shape)."""
+    package's shape buckets; the port compiles nothing per shape).
+
+    ``on_device_batch(batch, planes)`` is called with the stacked
+    ``(2, n_real, out_len)`` vote output while it is still on ``device``,
+    before the download: the residency capture point (``ops.residency``)."""
     for batch in batches:
         wire, a, b = encode_member_batch(batch)
         n = batch.n_real
-        out = stream_vote(wire, torch.from_numpy(a).to(device),
-                          torch.from_numpy(b).to(device),
-                          torch.from_numpy(batch.sizes[:n]), config,
-                          _out_len(batch)).cpu().numpy()
+        planes = stream_vote(wire, torch.from_numpy(a).to(device),
+                             torch.from_numpy(b).to(device),
+                             torch.from_numpy(batch.sizes[:n]), config,
+                             _out_len(batch))
+        if on_device_batch is not None:
+            on_device_batch(batch, planes)
+        out = planes.cpu().numpy()
         yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
 
 
 def consensus_blocks_stream_batched(items, config: ConsensusConfig,
-                                    device: torch.device):
+                                    device: torch.device, on_device_batch=None):
     """FamilyBlock items ``(block, fam_idx, keys)`` (see
     ``parallel.batching.bucket_member_blocks``) -> per-batch
-    ``(keys, lengths, out_bases, out_quals)`` tuples, voted on ``device``."""
-    yield from _run_member_batch_stream(bucket_member_blocks(items), config, device)
+    ``(keys, lengths, out_bases, out_quals)`` tuples, voted on ``device``;
+    ``on_device_batch`` is the residency capture hook (see
+    :func:`_run_member_batch_stream`)."""
+    yield from _run_member_batch_stream(bucket_member_blocks(items), config, device,
+                                        on_device_batch)
+
+
+# ------------------------------------------------- fused SSCS + DCS (B9)
+
+
+def build_member_stream(size_arrays: list[np.ndarray]):
+    """Host-side prep: per-family sizes -> (fam_ids, ranks, sizes) for the
+    slot layout ``concatenate(size_arrays)`` (strand A slots then strand B).
+
+    Returns int32 arrays; total members M = sizes.sum().  The member rows
+    themselves must be stacked by the caller in the same order (all of
+    family 0's reads, then family 1's, ...).
+    """
+    sizes = np.concatenate([np.asarray(s, dtype=np.int32) for s in size_arrays])
+    fam_ids = np.repeat(np.arange(sizes.size, dtype=np.int32), sizes)
+    # rank within family: global arange minus each family's start offset
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    ranks = np.arange(fam_ids.size, dtype=np.int32) - starts[fam_ids]
+    return fam_ids, ranks, sizes
+
+
+# The JAX package's largest gather-to-dense member capacity.  Kept for API
+# parity: the port's kernel takes any family size, so a capacity only
+# validates (a family larger than it raises) and never picks a program.
+MAX_DENSE_CAP = 512
+
+
+def pick_member_cap(sizes: np.ndarray) -> int | None:
+    """Next power of two >= the largest family size, or None past
+    :data:`MAX_DENSE_CAP` (the JAX package's segment-fallback signal)."""
+    max_size = int(np.max(sizes, initial=1))
+    if max_size > MAX_DENSE_CAP:
+        return None
+    return 1 << max(0, (max_size - 1).bit_length())
+
+
+def _duplex_stats(sizes_a: torch.Tensor, sizes_b: torch.Tensor, dcs_b: torch.Tensor,
+                  dcs_q: torch.Tensor) -> torch.Tensor:
+    """``[real, duplexes, n_count, q_sum]`` int32 on the planes' device:
+    pairs with any strand, pairs with both, N bases and the quality sum of
+    the DCS of the pairs with both."""
+    both = (sizes_a > 0) & (sizes_b > 0)
+    real = ((sizes_a > 0) | (sizes_b > 0)).sum()
+    n_count = ((dcs_b == N) & both[:, None]).sum()
+    q_sum = torch.where(both[:, None], dcs_q.to(torch.int64), 0).sum()
+    return torch.stack([real, both.sum(), n_count, q_sum]).to(torch.int32)
+
+
+def segment_duplex_step(num_pairs: int, length: int,
+                        config: ConsensusConfig = ConsensusConfig(),
+                        packed_out: bool = False,
+                        member_cap: int | None = None):
+    """The port of ``_compiled_segment_duplex``: a callable
+    ``(packed, sizes, codebook4)`` that unpacks a pack4 member stream
+    (``ops.packing.unpack4_device``) and votes both strands and their DCS
+    with one launch of the fused kernel.
+
+    Family slots: strand A of pair ``i`` is slot ``i``, strand B slot
+    ``num_pairs + i`` (size 0 = absent strand); the starts are the
+    exclusive cumsum of the ``2 * num_pairs`` sizes, so rows past
+    ``sizes.sum()`` (member-axis padding) are never read.  ``sizes`` may lie
+    on any device; the checks read it on the host.  Returns, on
+    ``packed``'s device, ``(sscs_a, qa, sscs_b, qb, dcs, dq, stats)``, or
+    with ``packed_out`` ``(sscs_a | sscs_b << 3, qa, qb, stats)`` — the DCS
+    is then derived on the host (:func:`derive_host_outputs`).  ``stats`` is
+    ``[real, duplexes, n_count, q_sum]`` int32.  ``member_cap`` only
+    validates: a family larger than it raises.
+    """
+    def step(packed, sizes, codebook4):
+        sizes = torch.as_tensor(sizes).to(device="cpu", dtype=torch.int64)
+        if sizes.shape != (2 * num_pairs,):
+            raise ValueError(f"expected {2 * num_pairs} family sizes, got "
+                             f"{tuple(sizes.shape)}")
+        if member_cap is not None and sizes.numel() and int(sizes.max()) > member_cap:
+            raise ValueError(f"member_cap={member_cap} < max family size "
+                             f"{int(sizes.max())}")
+        if 2 * packed.shape[-1] < length:
+            raise ValueError(f"pack4 rows of {packed.shape[-1]} bytes hold fewer "
+                             f"than {length} positions")
+        bases, quals = unpack4_device(packed, codebook4, length)
+        starts = torch.cumsum(sizes, 0) - sizes
+        n = num_pairs
+        out = consensus_vote.duplex_members(
+            bases, quals, sizes[:n], bases, quals, sizes[n:], config,
+            starts_a=starts[:n], starts_b=starts[n:])
+        on_dev = consensus_vote.upload(sizes, out.device, torch.int32)
+        stats = _duplex_stats(on_dev[:n], on_dev[n:], out[4], out[5])
+        if packed_out:
+            return out[0] | out[2] << 3, out[1], out[3], stats
+        return (*out, stats)
+
+    return step
+
+
+def derive_host_outputs(packed_bases, qa, qb, sizes_a, sizes_b,
+                        config: ConsensusConfig = ConsensusConfig()):
+    """Host-side inverse of ``packed_out=True``: unpack SSCS bases and
+    re-derive the DCS exactly as the device's duplex combine does (the DCS
+    is a pure elementwise function of the SSCS pair).
+
+    ``config`` must be the SAME ConsensusConfig the step was built with —
+    the qual cap feeds the duplex quality sum.
+
+    Returns ``(sscs_a, qa, sscs_b, qb, dcs, dq)`` uint8 arrays.
+    """
+    qual_cap = int(config.qual_cap)
+    packed_bases = np.asarray(packed_bases, dtype=np.uint8)
+    qa = np.asarray(qa, dtype=np.uint8)
+    qb = np.asarray(qb, dtype=np.uint8)
+    sscs_a = packed_bases & 7
+    sscs_b = packed_bases >> 3
+    both = (np.asarray(sizes_a) > 0) & (np.asarray(sizes_b) > 0)
+    agree = (sscs_a == sscs_b) & (sscs_a < N) & both[:, None]
+    dcs = np.where(agree, sscs_a, np.uint8(N)).astype(np.uint8)
+    qsum = qa.astype(np.int32) + qb.astype(np.int32)
+    dq = np.where(agree, np.minimum(qsum, qual_cap), 0).astype(np.uint8)
+    return sscs_a, qa, sscs_b, qb, dcs, dq
+
+
+def run_duplex_pipelined(rows, qrows, sizes_a, sizes_b, codebook4,
+                         config: ConsensusConfig = ConsensusConfig(), *,
+                         chunk_pairs: int = 4096,
+                         member_bucket: int = 32768,
+                         member_cap: int | None | str = "auto",
+                         device: torch.device | str | None = None):
+    """Chunked, double-buffered host-to-host SSCS+DCS over the member-stream
+    wire (port of the JAX package's ``run_duplex_pipelined``).
+
+    ``rows``/``qrows`` are the ``(M, L)`` member stream ordered by family
+    slot, strand A slots ``0..n-1`` then strand B slots (the
+    :func:`build_member_stream` layout); ``sizes_a``/``sizes_b`` the
+    per-pair strand family sizes.  Each chunk of ``chunk_pairs`` pairs is
+    padded to ``chunk_pairs`` slots (size-0 dummies) and its member axis to
+    a multiple of ``member_bucket`` (unreferenced rows, quals
+    ``codebook4[0]``), pack4-encoded on a background thread, uploaded
+    through pinned memory and voted by :func:`segment_duplex_step`; its
+    outputs come back through pinned buffers behind an event
+    (``parallel.prefetch.start_fetch``), so chunk *k*'s download waits only
+    for chunk *k*, after chunk *k+1* is queued.  ``device`` defaults to the
+    card.
+
+    Returns ``(sscs_a, qa, sscs_b, qb, dcs, dq, stats)`` host arrays —
+    bit-identical to the single-shot step on the same inputs.
+    """
+    from consensuscruncher_tpu_torch.parallel.prefetch import pipelined, prefetch, start_fetch
+
+    dev = resolve_device(device)
+    rows = np.asarray(rows, dtype=np.uint8)
+    qrows = np.asarray(qrows, dtype=np.uint8)
+    sizes_a = np.asarray(sizes_a, dtype=np.int32)
+    sizes_b = np.asarray(sizes_b, dtype=np.int32)
+    codebook4 = np.asarray(codebook4, dtype=np.uint8)
+    n_pairs = sizes_a.shape[0]
+    length = rows.shape[1]
+    if member_cap == "auto":
+        member_cap = pick_member_cap(np.concatenate([sizes_a, sizes_b]))
+    max_size = int(max(sizes_a.max(initial=0), sizes_b.max(initial=0)))
+    if member_cap is not None and max_size > member_cap:
+        raise ValueError(
+            f"member_cap={member_cap} < max family size {max_size} — "
+            "raise the cap or pass member_cap=None")
+
+    ends_a = np.cumsum(sizes_a, dtype=np.int64)
+    starts_a = ends_a - sizes_a
+    a_total = int(ends_a[-1]) if n_pairs else 0
+    ends_b = np.cumsum(sizes_b, dtype=np.int64) + a_total
+    starts_b = ends_b - sizes_b
+
+    step = segment_duplex_step(chunk_pairs, length, config, packed_out=True,
+                               member_cap=member_cap)
+    book = torch.from_numpy(codebook4).to(dev)
+    pinned = dev.type == "cuda"
+
+    def batches():  # runs on the prefetch thread: numpy and pinning only
+        for i0 in range(0, n_pairs, chunk_pairs):
+            i1 = min(i0 + chunk_pairs, n_pairs)
+            a0, a1 = int(starts_a[i0]), int(ends_a[i1 - 1])
+            b0, b1 = int(starts_b[i0]), int(ends_b[i1 - 1])
+            chunk_rows = np.concatenate([rows[a0:a1], rows[b0:b1]])
+            chunk_qrows = np.concatenate([qrows[a0:a1], qrows[b0:b1]])
+            m = chunk_rows.shape[0]
+            m_pad = max(member_bucket, -(-m // member_bucket) * member_bucket)
+            if m_pad != m:
+                pad = ((0, m_pad - m), (0, 0))
+                chunk_rows = np.pad(chunk_rows, pad)
+                chunk_qrows = np.pad(chunk_qrows, pad, constant_values=codebook4[0])
+            sizes = np.zeros(2 * chunk_pairs, np.int32)
+            sizes[: i1 - i0] = sizes_a[i0:i1]
+            sizes[chunk_pairs: chunk_pairs + (i1 - i0)] = sizes_b[i0:i1]
+            packed = torch.from_numpy(pack4(chunk_rows, chunk_qrows, codebook4))
+            yield i0, i1, packed.pin_memory() if pinned else packed, sizes
+
+    def dispatch(batch):
+        _i0, _i1, packed, sizes = batch
+        outs = step(packed.to(dev, non_blocking=True), sizes, book)
+        return start_fetch(*outs)
+
+    out_a = np.empty((n_pairs, length), np.uint8)
+    out_qa = np.empty((n_pairs, length), np.uint8)
+    out_b = np.empty((n_pairs, length), np.uint8)
+    out_qb = np.empty((n_pairs, length), np.uint8)
+    out_d = np.empty((n_pairs, length), np.uint8)
+    out_dq = np.empty((n_pairs, length), np.uint8)
+    stats = np.zeros(4, np.int64)
+
+    def fetch(batch, pending):
+        i0, i1, _packed, _sizes = batch
+        pk, qa, qb, st = pending.result()
+        k = i1 - i0
+        sa, qa_, sb, qb_, dcs, dq = derive_host_outputs(
+            pk[:k], qa[:k], qb[:k], sizes_a[i0:i1], sizes_b[i0:i1], config)
+        out_a[i0:i1], out_qa[i0:i1] = sa, qa_
+        out_b[i0:i1], out_qb[i0:i1] = sb, qb_
+        out_d[i0:i1], out_dq[i0:i1] = dcs, dq
+        stats[:] += st
+        yield None
+
+    stream = prefetch(batches())
+    try:
+        for _ in pipelined(stream, dispatch, fetch):
+            pass
+    finally:
+        stream.close()
+    return out_a, out_qa, out_b, out_qb, out_d, out_dq, stats

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so`` (git-ignored),
-then loaded with ``ctypes``.  The hash covers the source and the flags, so
-an edited kernel rebuilds and an unchanged one is reused.  Building happens
-at first use, never at import: machines without ``nvcc`` (the CPU test
-hosts) import every module and run the kernels' plain versions instead.
-A failed build raises; nothing falls back.
+then loaded with ``ctypes``.  The hash covers the source, every file it
+includes by a quoted path (``#include "x.cuh"``, followed recursively) and
+the flags, so an edited kernel or header rebuilds and an unchanged one is
+reused.  Building happens at first use, never at import: machines without
+``nvcc`` (the CPU test hosts) import every module and run the kernels'
+plain versions instead.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,12 +27,32 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def build_inputs(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every file it includes by a quoted path,
+    recursively (paths relative to the including file, as ``nvcc`` looks
+    them up first)."""
+    seen: list[str] = []
+    todo = [source_path(name)]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as fh:
+            text = fh.read()
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return seen
 
 
 def _nvcc() -> str:
@@ -45,8 +67,10 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Where ``name``'s shared library lives once built (content-keyed)."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as fh:
-        h.update(fh.read())
+    for path in build_inputs(name):
+        h.update(os.path.relpath(path, CSRC_DIR).encode() + b"\x00")
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -170,3 +170,19 @@ def unpack6_device(packed: torch.Tensor, codebook: torch.Tensor, length: int):
     idx = torch.stack([q4 & 0xF, q4 >> 4], dim=-1)
     return (bases.reshape(wide)[..., :length],
             _lookup(codebook, idx.reshape(wide)[..., :length]))
+
+
+# Device residency: the consensus planes the SSCS vote produces stay on the
+# device for rescue and DCS (implementation in ops.residency; this factory
+# is the wire-format module's entry point, as in the JAX package).
+
+
+def resident_planes(device: torch.device | str, qual_cap: int = 60):
+    """Create a per-run :class:`ops.residency.ResidentPlanes` store on
+    ``device``.  Thread it through ``run_sscs(residency=...)`` (capture),
+    ``run_singleton_correction(residency=...)`` and
+    ``run_dcs(residency=...)`` (gathers).  ``qual_cap`` must match the
+    stages' duplex cap."""
+    from consensuscruncher_tpu_torch.ops.residency import ResidentPlanes
+
+    return ResidentPlanes(device, qual_cap=qual_cap)

@@ -32,6 +32,7 @@ from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed,
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
 from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter
 from consensuscruncher_tpu_torch.ops.duplex import duplex_batch_host
+from consensuscruncher_tpu_torch.ops.residency import record_keys
 from consensuscruncher_tpu_torch.stages.grouping import duplex_pair_blocks
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
@@ -60,11 +61,37 @@ def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device):
     return duplex_batch_host(s1, q1, s2, q2, DEFAULT_QUAL_CAP, device)
 
 
+def _store_keys(sources, src_arr, row_arr, ps) -> np.ndarray:
+    """Store key per selected row (``ops.residency.record_keys``): qname
+    bytes + NUL + little-endian record flag — the keys ``ops.residency``
+    indexes consensus planes by.  The flag tells apart the R1/R2 records
+    that share a family qname in the SSCS BAM; the capture side
+    (``stages.sscs_maker``) builds the same key from the grouping block's
+    qname and template flag."""
+    parts = []
+    for si, batch in enumerate(sources):
+        m = np.nonzero(src_arr[ps] == si)[0]
+        if m.size:
+            rows = row_arr[ps[m]]
+            parts.append((m, record_keys(batch.buf, batch.qname_start[rows],
+                                         batch.l_qname[rows] - 1, batch.flag[rows])))
+    out = np.zeros(len(ps), dtype=np.dtype((np.bytes_, max(
+        [keys.itemsize for _m, keys in parts], default=1))))
+    for m, keys in parts:
+        out[m] = keys
+    return out
+
+
 def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
-                         device: torch.device) -> None:
+                         device: torch.device, resident=None) -> None:
     """Vectorized pairing (``grouping.duplex_pair_blocks``): unpaired reads
     pass through as raw blobs, pairs vote in one device batch per length
-    group, and duplex records assemble through the columnar record writer."""
+    group, and duplex records assemble through the columnar record writer.
+
+    ``resident``: the SSCS stage's ``ops.residency`` store.  Pairs whose
+    two members are both resident vote by gather on the card; the rest
+    vote by upload (:func:`_duplex_vote_batch`).  Identical bytes either
+    way."""
     header = reader.header
     for blk in duplex_pair_blocks(reader, header):
         # guard zero increments: stats only carry the counters a run touched
@@ -144,9 +171,25 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
             L = int(L)
             sel = lseqc == L
             ps = np.nonzero(sel)[0]
-            s1, q1 = member_rows(blk.pair_canon_src, blk.pair_canon_row, sel, L)
-            s2, q2 = member_rows(blk.pair_other_src, blk.pair_other_row, sel, L)
-            out_b, out_q = _duplex_vote_batch(s1, q1, s2, q2, device)
+            hit = np.zeros(len(ps), bool)
+            if resident is not None:
+                idx1 = resident.rows_for(_store_keys(
+                    blk.sources, blk.pair_canon_src, blk.pair_canon_row, ps), L)
+                idx2 = resident.rows_for(_store_keys(
+                    blk.sources, blk.pair_other_src, blk.pair_other_row, ps), L)
+                if idx1 is not None:
+                    hit = (idx1 >= 0) & (idx2 >= 0)
+            out_b = np.empty((len(ps), L), np.uint8)
+            out_q = np.empty_like(out_b)
+            if hit.any():
+                out_b[hit], out_q[hit] = resident.duplex_pairs(
+                    idx1[hit], idx2[hit], L, qual_cap=DEFAULT_QUAL_CAP)
+            if not hit.all():
+                miss = np.zeros_like(sel)
+                miss[ps[~hit]] = True
+                s1, q1 = member_rows(blk.pair_canon_src, blk.pair_canon_row, miss, L)
+                s2, q2 = member_rows(blk.pair_other_src, blk.pair_other_row, miss, L)
+                out_b[~hit], out_q[~hit] = _duplex_vote_batch(s1, q1, s2, q2, device)
             k = len(ps)
             # canon cigar bytes per pair, gathered per source batch
             cig_lens = ncigc[ps]
@@ -181,8 +224,10 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
 
 
 def run_dcs(sscs_bam: str, out_prefix: str, device: torch.device,
-            level: int = 6) -> DcsResult:
-    """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``."""
+            level: int = 6, residency=None) -> DcsResult:
+    """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``;
+    ``residency`` is the SSCS stage's plane store (or None: every pair
+    votes by upload)."""
     tracker = TimeTracker()
     stats = StageStats("DCS")
     paths = output_paths(out_prefix)
@@ -192,7 +237,8 @@ def run_dcs(sscs_bam: str, out_prefix: str, device: torch.device,
     rec_writer = ConsensusRecordWriter(dcs_writer)
     ok = False
     try:
-        _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device)
+        _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
+                             residency)
         rec_writer.flush()
         ok = True
     finally:

@@ -26,10 +26,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.io.bam import BamReader
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
 from consensuscruncher_tpu_torch.io.encode import encode_records
-from consensuscruncher_tpu_torch.stages.dcs_maker import _duplex_vote_batch
+from consensuscruncher_tpu_torch.stages.dcs_maker import _duplex_vote_batch, _store_keys
 from consensuscruncher_tpu_torch.stages.grouping import singleton_rescue_blocks
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
@@ -57,9 +58,16 @@ def output_paths(out_prefix: str) -> dict[str, str]:
     }
 
 
-def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device) -> None:
+def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
+                       resident=None) -> None:
     """RescueBlock decisions -> batched duplex votes -> columnar record
-    rebuild (original record + new seq/qual + appended XR tag)."""
+    rebuild (original record + new seq/qual + appended XR tag).
+
+    ``resident``: the SSCS stage's ``ops.residency`` store.  On the
+    singleton-vs-SSCS route a resident partner is gathered on the card
+    instead of uploaded, and the rescue output is registered in the store
+    under the singleton's key, so the later DCS pass gathers it too.
+    Misses vote by upload; identical bytes either way."""
     s_reader = open_batch_source(singleton_bam)
     x_reader = open_batch_source(sscs_bam)
     try:
@@ -144,8 +152,27 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device) -> None:
                     sel = rmask & (lseqc == L)
                     ps = np.nonzero(sel)[0]
                     s1m, q1m = member_mat(blk.rescue_src, blk.rescue_row, sel, L)
-                    s2m, q2m = member_mat(blk.partner_src, blk.partner_row, sel, L)
-                    out_b, out_q = _duplex_vote_batch(s1m, q1m, s2m, q2m, device)
+                    hit = np.zeros(len(ps), bool)
+                    if route == 0 and resident is not None:
+                        # singleton vs SSCS: the partner is an SSCS record,
+                        # so gather its planes from the store
+                        idx2 = resident.rows_for(_store_keys(
+                            blk.sources, blk.partner_src, blk.partner_row, ps), L)
+                        if idx2 is not None:
+                            hit = idx2 >= 0
+                    out_b, out_q = np.empty_like(s1m), np.empty_like(q1m)
+                    if hit.any():
+                        out_b[hit], out_q[hit] = resident.duplex_against(
+                            s1m[hit], q1m[hit], idx2[hit], L,
+                            register_keys=_store_keys(blk.sources, blk.rescue_src,
+                                                       blk.rescue_row, ps[hit]),
+                            qual_cap=DEFAULT_QUAL_CAP)
+                    if not hit.all():
+                        miss = np.zeros_like(sel)
+                        miss[ps[~hit]] = True
+                        s2m, q2m = member_mat(blk.partner_src, blk.partner_row, miss, L)
+                        out_b[~hit], out_q[~hit] = _duplex_vote_batch(
+                            s1m[~hit], q1m[~hit], s2m, q2m, device)
                     kk = len(ps)
                     # original qname / cigar / tag bytes, gathered per source
                     qn_start = np.empty(kk, np.int64)
@@ -215,8 +242,11 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device) -> None:
 
 
 def run_singleton_correction(singleton_bam: str, sscs_bam: str, out_prefix: str,
-                             device: torch.device, level: int = 6) -> SingletonResult:
-    """Exact complementary-tag rescue with the duplex votes on ``device``."""
+                             device: torch.device, level: int = 6,
+                             residency=None) -> SingletonResult:
+    """Exact complementary-tag rescue with the duplex votes on ``device``;
+    ``residency`` is the SSCS stage's plane store (or None: every rescue
+    votes by upload)."""
     tracker = TimeTracker()
     stats = StageStats("singleton_correction")
     all_paths = output_paths(out_prefix)
@@ -226,7 +256,7 @@ def run_singleton_correction(singleton_bam: str, sscs_bam: str, out_prefix: str,
     writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
     ok = False
     try:
-        _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device)
+        _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device, residency)
         ok = True
     finally:
         if not ok:

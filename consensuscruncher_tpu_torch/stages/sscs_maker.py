@@ -35,6 +35,7 @@ from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch
 from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter, RenameRetagWriter
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
+from consensuscruncher_tpu_torch.ops.residency import record_keys
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.utils.stats import (
@@ -74,8 +75,13 @@ def run_sscs(
     qual_threshold: int = 0,
     bdelim: str = tags_mod.DEFAULT_BDELIM,
     level: int = 6,
+    residency=None,
 ) -> SscsResult:
-    """Run the SSCS stage with the family votes on ``device``."""
+    """Run the SSCS stage with the family votes on ``device``.
+
+    ``residency``: an ``ops.packing.resident_planes`` store on ``device``;
+    every batch's vote planes are registered there before they are
+    downloaded, for rescue and DCS to gather."""
     tracker = TimeTracker()
     stats = StageStats("SSCS")
     hist = FamilySizeHistogram()
@@ -131,20 +137,26 @@ def run_sscs(
             if len(multi):
                 yield block, multi, [(block, int(j)) for j in multi]
 
-    def emit_batch(keys, lengths, out_b, out_q):
-        """Array-level consensus emission: one encode pass per same-block
-        run of a device batch (runs are contiguous — buckets fill in block
-        order)."""
+    def block_runs(keys):
+        """``(block, i, k, js)`` per same-block run ``keys[i:k]`` of a device
+        batch (runs are contiguous — buckets fill in block order); ``js``
+        are the run's family indices in ``block``."""
         n = len(keys)
-        lpad = out_b.shape[1]
-        flat_b, flat_q = out_b.reshape(-1), out_q.reshape(-1)
         i = 0
         while i < n:
             block = keys[i][0]
             k = i + 1
             while k < n and keys[k][0] is block:
                 k += 1
-            js = np.fromiter((keys[t][1] for t in range(i, k)), np.int64, k - i)
+            yield block, i, k, np.fromiter((keys[t][1] for t in range(i, k)), np.int64, k - i)
+            i = k
+
+    def emit_batch(keys, lengths, out_b, out_q):
+        """Array-level consensus emission: one encode pass per same-block
+        run of a device batch."""
+        lpad = out_b.shape[1]
+        flat_b, flat_q = out_b.reshape(-1), out_q.reshape(-1)
+        for block, i, k, js in block_runs(keys):
             rows = np.arange(i, k, dtype=np.int64)
             lens = lengths[i:k]
             codes_data, _ = gather_runs(flat_b, rows * lpad, lens)
@@ -171,12 +183,25 @@ def run_sscs(
                 tag_data, np.diff(tag_off),
             )
             stats.incr("sscs_written", k - i)
-            i = k
+
+    on_device_batch = None
+    if residency is not None:
+        def on_device_batch(batch, planes):
+            # row i of the planes is batch.keys[i]; the store key is the
+            # family's consensus qname + NUL + the record flag (LE), since
+            # R1 and R2 records share the qname.  Rescue and DCS build the
+            # same key from the BAM record (dcs_maker._store_keys).
+            keys = [record_keys(blk.qname_data, blk.qname_off[js],
+                                blk.qname_off[js + 1] - blk.qname_off[js],
+                                blk.tmpl_flag[js] & _KEEP_FLAGS)
+                    for blk, _i, _k, js in block_runs(batch.keys)]
+            residency.append(np.concatenate(keys) if keys else [], batch.lengths[:batch.n_real],
+                             planes, batch.n_real)
 
     ok = False
     try:
         for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
-                block_items(), cfg, device):
+                block_items(), cfg, device, on_device_batch):
             emit_batch(keys, lengths, out_b, out_q)
         rec_writer.flush()
         single_surgery.flush()

@@ -3,9 +3,10 @@
 - importing the port and running its CLI imports neither ``jax`` nor any
   module of the JAX package (checked in a fresh interpreter);
 - resolving the default device without CUDA raises instead of carrying on
-  on the CPU, and so does the duplex op when no device is named;
-- the vote wrapper never hands a CUDA tensor to the plain version: it
-  launches the kernel or raises.
+  on the CPU, and so do the duplex op and the pipelined fused runner when
+  no device is named;
+- the vote wrappers (SSCS and fused duplex) never hand a CUDA tensor to
+  the plain version: they launch the kernel or raise.
 """
 
 import json
@@ -25,6 +26,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import json, sys
 import consensuscruncher_tpu_torch
+import consensuscruncher_tpu_torch.ops.consensus_segment
+import consensuscruncher_tpu_torch.ops.residency
+import consensuscruncher_tpu_torch.parallel.prefetch
 from consensuscruncher_tpu_torch.cli import main
 main(["consensus", "-i", sys.argv[1], "-o", sys.argv[2], "--device", "cpu"])
 print(json.dumps(sorted(m for m in sys.modules
@@ -105,3 +109,41 @@ def test_kernel_launch_refuses_cpu_planes():
     with pytest.raises(ValueError, match="CUDA planes"):
         consensus_vote._launch(planes, planes, sizes, starts,
                                consensus_vote.ConsensusConfig(), 32)
+    with pytest.raises(ValueError, match="CUDA planes"):
+        consensus_vote._card_strand(planes, planes, sizes, starts)
+
+
+def test_fused_wrapper_on_cuda_tensor_never_runs_plain(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("plain duplex vote reached for a CUDA tensor")
+
+    def to_card(*a, **k):
+        raise RuntimeError("kernel launch reached")
+
+    monkeypatch.setattr(consensus_vote, "duplex_members_plain", plain)
+    monkeypatch.setattr(consensus_vote, "_card_strand", to_card)
+    planes = _CudaLike(torch.zeros((4, 32), dtype=torch.uint8))
+    sizes = torch.tensor([2, 2], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="kernel launch reached"):
+        consensus_vote.duplex_members(planes, planes, sizes, planes, planes, sizes)
+
+
+def test_fused_wrapper_refuses_mixed_devices():
+    planes = torch.zeros((4, 32), dtype=torch.uint8)
+    sizes = torch.tensor([2, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="one device"):
+        consensus_vote.duplex_members(planes, planes, sizes, _CudaLike(planes), planes,
+                                      sizes)
+
+
+def test_pipelined_runner_defaults_to_cuda(monkeypatch):
+    from consensuscruncher_tpu_torch.ops.consensus_segment import run_duplex_pipelined
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rows = np.zeros((2, 8), np.uint8)
+    args = (rows, rows + 30, np.ones(1, np.int32), np.ones(1, np.int32),
+            np.array([30, 30, 30, 30], np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_duplex_pipelined(*args)
+    out = run_duplex_pipelined(*args, device="cpu")
+    assert out[6].tolist() == [1, 1, 0, 8 * 60]
