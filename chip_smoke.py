@@ -7,25 +7,38 @@ failure; no phase's failure is caught.  Phases:
 
 1. the card's name and power limit, its SM count and top SM clock
    (``nvidia-smi``), from which the INT32 rate of the bounds follows;
-2. build ``csrc/consensus_vote.cu`` (the SSCS vote and the fused duplex
-   vote), timed, with each kernel's registers and spills;
-3. each kernel against its plain PyTorch version on the card, exactly
-   (``torch.equal``), one launch per wrapper call:
+2. build ``csrc/consensus_vote.cu`` (one kernel template: the SSCS vote
+   and the fused duplex vote, each on the raw, pack8, pack6 and pack4
+   wires), timed, with each instantiation's registers, spills and shared
+   memory;
+3. each kernel against its plain PyTorch version on the card (the torch
+   wire decode, then the plain vote), exactly (``torch.equal``), one launch
+   per wrapper call, the path its tiles took (staged, direct, mixed):
    - the SSCS vote (B1): random dense and stream batches, edge shapes, a
-     family of more than 1000 members, more families than one grid
-     dimension holds; then its time at the main path's shape (the largest
-     early batch of the phase-5 input, its live families only);
+     family of more than 1000 members, 70,000 families; on every wire, a
+     family straddling the planner's byte budget, size-0 families at tile
+     starts and ends, a family count that is not a multiple of the tile,
+     70,000 families, a 1,500-member family (the direct path) and rows of
+     L 100, three configs; then its time at the main path's shape (the
+     largest early batch of the phase-5 input, its live families only) on
+     the wire the main path ships: the kernel alone (profiler), the call
+     as the main path pays it (checks, tile plan, one upload, the launch),
+     the same kernel on the torch-unpacked raw planes, and the yardstick
+     of the earlier design's path (torch ``unpack_wire`` + the kernel);
    - the fused duplex vote (B2): dense batches with PAD tails, size-0
      slots on strand A, on B and on both, F = 1, 7 and 8 of 10 at cutoff
      0.7, a first-seen tie with a demoted member, a stream batch with a
-     1,500-member family, more than 65,535 pairs, three configs; then its
-     time at the JAX package's shapes: dense ``B8192_F16_L100`` and
-     ``B65536_F8_L100`` (``tools/tpu_device_bench.py`` inputs) and the
-     stage loop of ``tools/tpu_stage_row.py`` (eight batches of 8,192
-     pairs, L 128, pack4), prestaged on the card — beside its plain
-     version and the unfused chain (B1 per strand + ``duplex_vote``), each
-     over the same batches; every stage step's output and stats are held
-     against the plain version and a numpy count;
+     1,500-member family, more than 65,535 pairs, three configs; on every
+     wire, stream batches with a 1,500-member family and with 70,000 pairs,
+     planes, ``packed_out`` planes and stats; then its time at the JAX
+     package's shapes: dense ``B8192_F16_L100`` and ``B65536_F8_L100``
+     (``tools/tpu_device_bench.py`` inputs) and the stage loop of
+     ``tools/tpu_stage_row.py`` (eight batches of 8,192 pairs, L 128,
+     pack4), prestaged on the card: the bare launch, the step
+     (``segment_duplex_step``, ``loop_ms``), the unfused chain (torch
+     unpack4, B1 per strand, ``duplex_vote``) and the plain version, in
+     turns over the same eight batches; every stage step's output and stats
+     are held against the plain version and a numpy count;
 4. ``consensus --scorrect True`` on the committed ``test/data`` BAMs with
    residency on (the default), every digest of ``test/golden.json``
    checked; ``sample.bam`` also with ``--residency False``, whose BAMs must
@@ -67,7 +80,14 @@ from consensuscruncher_tpu_torch.cli import main as cli_main  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import open_batch_source  # noqa: E402
 from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote, cuda_lib, residency  # noqa: E402
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote  # noqa: E402
-from consensuscruncher_tpu_torch.ops.packing import build_codebook4, pack4  # noqa: E402
+from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
+    WIRES,
+    build_codebook4,
+    encode_wire,
+    pack4,
+    unpack4_device,
+    unpack_wire,
+)
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
@@ -91,8 +111,13 @@ FUSED = {"name": "duplex_members", "route": "cuda",
          "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
          "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:163"}
 NO_LIBRARY = "no single PyTorch call computes this majority vote"
+KERNEL = "vote_tiles_kernel"  # the profiler's name of both forms
+# wire bytes the kernel reads per live member-position voted
+WIRE_BYTES = {"raw": 2.0, "pack8": 1.0, "pack6": 0.75, "pack4": 0.5}
 
 BINNED = np.array([2, 12, 23, 37], np.uint8)  # tools/tpu_stage_row.py's quals
+# more families (or pairs) in one call than one grid dimension holds (65,535)
+MANY = 70_000
 DENSE_SHAPES = {"B8192_F16_L100": (8192, 16, 100), "B65536_F8_L100": (65536, 8, 100)}
 STAGE_PAIRS, STAGE_L, STAGE_BATCHES = 8192, 128, 8
 
@@ -167,26 +192,37 @@ def phase_card() -> dict:
 
 
 def phase_build() -> None:
+    """Build the kernels; report each instantiation of the template
+    (``<wire>/sscs`` and ``<wire>/duplex``): registers, spills, static and
+    dynamic shared memory per block."""
     t = time.perf_counter()
     so = cuda_lib.build("consensus_vote")
     build_s = time.perf_counter() - t
     with open(so + ".log") as fh:
         log = fh.read()
+    consensus_vote._library()  # loads the kernel's layouts
     kernels: dict[str, dict] = {}
     current = None
     for line in log.splitlines():
-        entry = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
-        if entry:
-            current = next((k for k in ("vote_members_kernel", "duplex_members_kernel")
-                            if k in entry.group(1)), None)
+        if "entry function" in line or "Function properties" in line:
+            # a noinline device function reports its own properties
+            entry = re.search(KERNEL + r"ILi(\d)ELb(\d)E", line)
+            if not entry:
+                current = None
+                continue
+            duplex = entry.group(2) == "1"
+            current = f"{WIRES[int(entry.group(1))]}/{'duplex' if duplex else 'sscs'}"
+            kernels.setdefault(current, {})["dynamic_smem_bytes"] = \
+                consensus_vote._layouts[duplex].smem_bytes
         elif current and "registers" in line:
-            kernels.setdefault(current, {})["registers"] = int(
-                re.search(r"Used (\d+) registers", line).group(1))
+            kernels[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
         elif current and "spill" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            kernels.setdefault(current, {}).update(spill_stores=int(stores),
-                                                   spill_loads=int(loads))
-    if set(kernels) != {"vote_members_kernel", "duplex_members_kernel"}:
+            kernels[current].update(spill_stores=int(stores), spill_loads=int(loads))
+    want = {f"{w}/{form}" for w in WIRES for form in ("sscs", "duplex")}
+    if set(kernels) != want or any("registers" not in k for k in kernels.values()):
         raise AssertionError(f"ptxas report lacks a kernel: {kernels}\n{log}")
     emit("build", source=VOTE["source"], seconds=build_s, ptxas=kernels)
 
@@ -249,7 +285,7 @@ def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
     cases = {
         "stream_random": _stream_case(rng, 4096, 8, 128, dev),
         "stream_family_1500": _stream_case(rng, 5, 1500, 96, dev, zero_frac=0),
-        "stream_70000_families": _stream_case(rng, 70000, 3, 40, dev),
+        "stream_70000_families": _stream_case(rng, MANY, 3, 40, dev),
         "stream_F1": _stream_case(rng, 512, 1, 64, dev, zero_frac=0),
     }
     for name, (bases, quals, sizes) in cases.items():
@@ -285,53 +321,153 @@ def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
         if cfg == CONFIGS[0]:  # 7 of 10 passes at 0.7; empty slots are all N
             assert int(got[0][0].max()) == 0 and int(got[0][2:10].min()) == N
 
-    # the main path's shape: a full batch of the simulated input, decoded on
-    # the card and voted over its live families, exactly as the SSCS stage does
+    wire_errs, wire_paths = phase_wire_cases(dev)
+    errs += wire_errs
+
+    # the main path's shape: a full batch of the simulated input on the wire
+    # the SSCS stage ships, voted over its live families as the stage does
     batch = main_path_batch(sim_bam)
     wire, a, w = consensus_segment.encode_member_batch(batch)
-    bases, quals = consensus_segment.unpack_wire(
-        wire, torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev))
-    bases, quals = bases.contiguous(), quals.contiguous()
+    a_d = torch.from_numpy(a).to(dev)
+    book = torch.from_numpy(w)                 # a codebook rides in the launch
+    book_d = book.to(dev)                      # the torch decode's lookup table
+    b_arg = book_d if wire == "raw" else book  # raw: the quals plane
     sizes = torch.from_numpy(batch.sizes[:batch.n_real])
     out_len = consensus_segment._out_len(batch)
     cfg = consensus_vote.ConsensusConfig()
-    got = consensus_vote.vote_members(bases, quals, sizes, cfg, length=out_len)
-    want = consensus_vote.vote_members_plain(bases, quals, sizes, cfg, length=out_len)
+    got = consensus_vote.vote_wire(wire, a_d, b_arg, sizes, cfg, length=out_len)
+    want = consensus_vote.vote_wire_plain(wire, a_d, book_d, sizes, cfg, length=out_len)
     _check_equal("main_path_batch", got, want, errs)
+    job = consensus_vote.prepare_wire(wire, a_d, b_arg, sizes, cfg, length=out_len)
+    bases, quals = (x.contiguous() for x in unpack_wire(wire, a_d, book_d))
+    raw_job = consensus_vote.prepare_wire("raw", bases, quals, sizes, cfg, length=out_len)
+    _check_equal("main_path_batch/raw_planes", raw_job()[0], want, errs)
 
-    sizes_d = sizes.to(dev, torch.int32)
-    starts_d = torch.cumsum(sizes_d, 0, dtype=torch.int64) - sizes_d
+    def kernel():  # the bare launch, its records and tiles already on the card
+        job()
 
-    def kernel():  # the bare launch, its arguments already on the card
-        consensus_vote.launch_kernel(bases, quals, sizes_d, starts_d, cfg, out_len)
+    def call():  # as the main path pays it: checks, tile plan, one upload, launch
+        consensus_segment.stream_vote(wire, a_d, b_arg, sizes, cfg, out_len)
 
-    def call():  # the wrapper as the main path pays it: checks, uploads, launch
-        consensus_vote.vote_members(bases, quals, sizes, cfg, length=out_len)
+    def unfused():  # the earlier design's path: torch decode, then the kernel on raw planes
+        unpack_wire(wire, a_d, book_d)
+        raw_job()
+
+    def unfused_call():
+        consensus_vote.vote_members(*unpack_wire(wire, a_d, book_d), sizes, cfg,
+                                    length=out_len)
 
     def plain():
-        consensus_vote.vote_members_plain(bases, quals, sizes, cfg, length=out_len)
+        consensus_vote.vote_wire_plain(wire, a_d, book_d, sizes, cfg, length=out_len)
 
-    # in turns (kernel, plain, plain, kernel) within this one call
-    first = kernel_ms(kernel, "vote_members_kernel", 500)
-    plain_ms = cuda_ms(plain, 20)
-    plain_ms_again = cuda_ms(plain, 20)
-    again = kernel_ms(kernel, "vote_members_kernel", 500)
-    call_ms = cuda_ms(call, 200)
+    # the launch's fixed cost: the same kernel on the batch's first tile only
+    one_tile = consensus_vote.prepare_wire(wire, a_d, b_arg, sizes[:job.plan.fams], cfg,
+                                           length=out_len)
+
+    # in turns within this one call
+    first = kernel_ms(kernel, KERNEL, 500)
+    one_tile_ms = kernel_ms(one_tile, KERNEL, 500)
+    raw_ms = kernel_ms(raw_job, KERNEL, 500)
+    unfused_runs = [cuda_ms(unfused, 200)]
+    plain_runs = [cuda_ms(plain, 20), cuda_ms(plain, 20)]
+    unfused_runs.append(cuda_ms(unfused, 200))
+    again = kernel_ms(kernel, KERNEL, 500)
+    call_runs = [cuda_ms(call, 200), cuda_ms(unfused_call, 200)]
+    call_runs += [cuda_ms(unfused_call, 200), cuda_ms(call, 200)]
     nf, m = int(sizes.shape[0]), int(batch.n_members)
-    # least work: each live member-position read once (base + qual), each
-    # live family's output written once (base + qual), its size read once
-    # (int32; the starts are derived from the sizes)
+    # least work: the wire bytes of each live member-position voted read
+    # once, each live family's output (base + qual) written once
     row = {
-        "ms": min(first["ms"], again["ms"]), "runs": [first, again], "call_ms": call_ms,
-        "plain_ms": plain_ms, "plain_ms_again": plain_ms_again,
-        **bound(2 * m * out_len + 2 * nf * out_len + 4 * nf,
+        "ms": min(first["ms"], again["ms"]), "runs": [first, again],
+        "raw_planes_ms": raw_ms["ms"], "one_tile_ms": one_tile_ms["ms"],
+        "unfused_ms": min(unfused_runs),
+        "unfused_runs": unfused_runs, "call_ms": min(call_runs[0], call_runs[3]),
+        "unfused_call_ms": min(call_runs[1], call_runs[2]), "call_runs": call_runs,
+        "plain_ms": min(plain_runs), "plain_runs": plain_runs,
+        **bound(int(WIRE_BYTES[wire] * m * out_len) + 2 * nf * out_len,
                 FOLD_OPS * m * out_len + FINALIZE_OPS * nf * out_len, rates),
         "max_abs_err": max(errs), "comparisons": len(errs),
+        "path": job.plan.summary(), "wire_case_paths": wire_paths,
         "shape": {"wire": wire, "families": nf, "members": m, "L": int(bases.shape[1]),
                   "out_len": out_len},
     }
     emit("kernels", kernel=VOTE["name"], **row)
     return row
+
+
+def _wire_planes(rng, wire, sizes, length, pad_rows=9):
+    """A member stream for ``sizes`` that ``wire`` can carry (ACGT on the
+    2-bit wires, A C G T N PAD on raw and pack8; quals from a codebook the
+    wire holds), encoded on the host."""
+    m = int(sizes.sum()) + pad_rows
+    top = 4 if wire in ("pack4", "pack6") else 6
+    bases = rng.integers(0, top, (m, length), dtype=np.uint8)
+    levels = {"raw": np.arange(42, dtype=np.uint8),
+              "pack8": np.arange(5, 41, 3, dtype=np.uint8),
+              "pack6": np.arange(8, 40, 2, dtype=np.uint8), "pack4": BINNED}[wire]
+    return encode_wire(wire, bases, rng.choice(levels, (m, length)).astype(np.uint8))
+
+
+def _wire_args(dev, wire, a, b):
+    """The kernel's arguments (a codebook stays on the host) and the plain
+    version's (everything on the card)."""
+    a_d, b_d = torch.from_numpy(np.ascontiguousarray(a)).to(dev), torch.from_numpy(b).to(dev)
+    return (a_d, b_d if wire == "raw" else torch.from_numpy(b)), (a_d, b_d)
+
+
+def _wire_edge_sizes(rng, case):
+    """``(sizes, length)`` of one tile-edge case."""
+    if case == "straddling_budget":  # families around half a stage's bytes
+        sizes = rng.integers(1, 6, 3000)
+        sizes[[10, 11, 500, 1500, 2999]] = [20, 30, 48, 64, 70]
+        return sizes, 128
+    if case == "zeros_at_tile_edges":
+        sizes = rng.integers(0, 4, 5000)
+        sizes[::37] = 0
+        sizes[:50] = 0
+        sizes[-50:] = 0
+        return sizes, 128
+    if case == "not_a_tile_multiple":  # a prime count of families
+        return rng.integers(1, 9, 4099), 128
+    if case == "families_70000":
+        return rng.integers(0, 4, MANY), 40
+    if case == "family_1500":  # over the packed tally: the direct path
+        sizes = rng.integers(0, 5, 400)
+        sizes[[0, 200]] = [1500, 257]
+        return sizes, 96
+    if case == "rows_L100":  # rows not a multiple of 16 bytes
+        return rng.integers(0, 7, 3000), 100
+    raise KeyError(case)
+
+
+WIRE_CASES = ("straddling_budget", "zeros_at_tile_edges", "not_a_tile_multiple",
+              "families_70000", "family_1500", "rows_L100")
+
+
+def phase_wire_cases(dev) -> tuple[list[int], dict]:
+    """B1 on every wire at the tile edges, against the plain version on the
+    card: three configs, two vote lengths, one launch per call."""
+    errs: list[int] = []
+    paths: dict[str, dict] = {}
+    for wire in WIRES:
+        for case in WIRE_CASES:
+            rng = np.random.default_rng(WIRES.index(wire) * 100 + WIRE_CASES.index(case))
+            sizes, length = _wire_edge_sizes(rng, case)
+            sizes = torch.from_numpy(sizes.astype(np.int64))
+            kargs, pargs = _wire_args(dev, wire, *_wire_planes(rng, wire, sizes.numpy(), length))
+            for cfg in CONFIGS:
+                for out_len in (length, length - 5):
+                    before = consensus_vote.launches
+                    got = consensus_vote.vote_wire(wire, *kargs, sizes, cfg, out_len)
+                    assert consensus_vote.launches == before + 1  # one launch per call
+                    want = consensus_vote.vote_wire_plain(wire, *pargs, sizes, cfg, out_len)
+                    _check_equal(f"{wire}/{case}/{cfg}/L={out_len}", got, want, errs)
+            paths[f"{wire}/{case}"] = consensus_vote.last_plan.summary()
+    if paths["pack6/family_1500"]["direct"] < 2:
+        raise AssertionError(f"the 1,500-member family did not take the direct path: "
+                             f"{paths['pack6/family_1500']}")
+    emit("wire_cases", comparisons=len(errs), max_abs_err=max(errs), paths=paths)
+    return errs, paths
 
 
 # --------------------------------------------------------- fused duplex vote
@@ -405,7 +541,7 @@ def phase_fused_cases(dev) -> list[int]:
     # stream form: one member stream, strand A families then strand B's, with
     # a 1,500-member family, and more pairs than one grid dimension holds
     for name, n_pairs, max_size, length in (("stream_family_1500", 5, 8, 96),
-                                            ("stream_70000_pairs", 70000, 3, 40)):
+                                            ("stream_70000_pairs", MANY, 3, 40)):
         sizes = rng.integers(0, max_size + 1, 2 * n_pairs).astype(np.int32)
         if name == "stream_family_1500":
             sizes[[0, n_pairs + 1]] = [1500, 1200]
@@ -423,61 +559,90 @@ def phase_fused_cases(dev) -> list[int]:
                 want = consensus_vote.duplex_members_plain(*args, cfg, vote_len,
                                                            starts[:n_pairs], starts[n_pairs:])
                 _fused_check(f"{name}/{cfg}/L={vote_len}", got, want, errs)
-    emit("fused_cases", comparisons=len(errs), max_abs_err=max(errs))
+    # every wire: planes, packed_out planes and stats against the plain
+    # version on the card (torch decode, plain votes, duplex_stats)
+    paths = {}
+    for wire in WIRES:
+        for name, n_pairs, length in (("family_1500", 3000, 128), ("pairs_70000", MANY, 40)):
+            sizes = np.concatenate([rng.integers(0, 8 if n_pairs < 10000 else 4, n_pairs),
+                                    rng.integers(0, 8 if n_pairs < 10000 else 4, n_pairs)])
+            sizes[n_pairs + 3::16] = 0
+            if name == "family_1500":
+                sizes[[0, n_pairs + 7]] = [1500, 300]
+            sizes = t(sizes.astype(np.int64))
+            kargs, pargs = _wire_args(dev, wire, *_wire_planes(rng, wire, sizes.numpy(), length))
+            for cfg in CONFIGS:
+                for packed_out in (False, True):
+                    before = consensus_vote.fused_launches
+                    got, stats = consensus_vote.duplex_wire(wire, *kargs, sizes, cfg, length - 3,
+                                                            packed_out=packed_out)
+                    assert consensus_vote.fused_launches == before + 1
+                    want, want_stats = consensus_vote.duplex_wire_plain(
+                        wire, *pargs, sizes, cfg, length - 3, packed_out=packed_out)
+                    label = f"{wire}/{name}/{cfg}/packed_out={packed_out}"
+                    _check_equal(label, got, want, errs)
+                    _check_equal(f"{label}/stats", stats, want_stats, errs)
+            paths[f"{wire}/{name}"] = consensus_vote.last_plan.summary()
+    emit("fused_cases", comparisons=len(errs), max_abs_err=max(errs), paths=paths)
     return errs
 
 
 class _Strands:
-    """Two strands on the card as the bare launches take them."""
+    """Two raw strands on the card as the bare launches take them: the fused
+    kernel's launch and, for the unfused chain, one SSCS launch per strand,
+    each planned and uploaded once at the default config."""
 
-    def __init__(self, dev, ba, qa, sa, bb, qb, sb, starts_a, starts_b):
-        self.args = []
-        for bases, quals, sizes, starts in ((ba, qa, sa, starts_a), (bb, qb, sb, starts_b)):
-            self.args.append((bases, quals, torch.as_tensor(sizes).to(dev, torch.int32),
-                              torch.as_tensor(starts).to(dev, torch.int64)))
+    def __init__(self, ba, qa, sa, bb, qb, sb, starts_a, starts_b, length):
+        cfg = consensus_vote.ConsensusConfig()
+        self.length = length
         self.host = [(ba, qa, torch.as_tensor(sa), torch.as_tensor(starts_a)),
                      (bb, qb, torch.as_tensor(sb), torch.as_tensor(starts_b))]
-
-    def kernel(self, cfg, length):
-        return consensus_vote.launch_duplex_kernel(*self.args[0], *self.args[1], cfg, length)
-
-    def plain(self, cfg, length):
         (ba, qa, sa, st_a), (bb, qb, sb, st_b) = self.host
-        return consensus_vote.duplex_members_plain(ba, qa, sa, bb, qb, sb, cfg, length,
-                                                   st_a, st_b)
+        self.job = consensus_vote.prepare_duplex_members(ba, qa, sa, bb, qb, sb, cfg, length,
+                                                         st_a, st_b)
+        self.sscs = [consensus_vote.prepare_wire("raw", b, q, sz, cfg, length, st)
+                     for b, q, sz, st in self.host]
 
-    def chain(self, cfg, length):
+    def kernel(self):
+        return self.job()[0]
+
+    def plain(self):
+        (ba, qa, sa, st_a), (bb, qb, sb, st_b) = self.host
+        return consensus_vote.duplex_members_plain(ba, qa, sa, bb, qb, sb,
+                                                   consensus_vote.ConsensusConfig(),
+                                                   self.length, st_a, st_b)
+
+    def chain(self):
         """The unfused chain: the SSCS kernel per strand, then the duplex
         combine (the port's counterpart of the JAX bench's resident_chain)."""
-        va = consensus_vote.launch_kernel(*self.args[0], cfg, length)
-        vb = consensus_vote.launch_kernel(*self.args[1], cfg, length)
-        return (va, vb, *duplex_vote(va[0], va[1], vb[0], vb[1], qual_cap=int(cfg.qual_cap)))
+        va, vb = (job()[0] for job in self.sscs)
+        return (va, vb, *duplex_vote(va[0], va[1], vb[0], vb[1],
+                                     qual_cap=int(consensus_vote.ConsensusConfig().qual_cap)))
 
 
 def _fused_timing(strands: _Strands, length, live_members, pairs, rates, errs, label,
                   plain_reps=5):
     """Time the bare fused launch against its plain version and the chain,
     in turns (kernel, plain, chain, chain, plain, kernel), and bound it."""
-    cfg = consensus_vote.ConsensusConfig()
-    got = strands.kernel(cfg, length)
-    _check_equal(label, got, strands.plain(cfg, length), errs)
-    va, vb, dcs_b, dcs_q = strands.chain(cfg, length)
+    got = strands.kernel()
+    _check_equal(label, got, strands.plain(), errs)
+    va, vb, dcs_b, dcs_q = strands.chain()
     _check_equal(f"{label}/chain", torch.stack([va[0], va[1], vb[0], vb[1], dcs_b, dcs_q]),
                  got, errs)
-    first = kernel_ms(lambda: strands.kernel(cfg, length), "duplex_members_kernel", 200)
-    plain_ms = cuda_ms(lambda: strands.plain(cfg, length), plain_reps)
-    chain_ms = cuda_ms(lambda: strands.chain(cfg, length), 50)
-    chain_ms_again = cuda_ms(lambda: strands.chain(cfg, length), 50)
-    plain_ms_again = cuda_ms(lambda: strands.plain(cfg, length), plain_reps)
-    again = kernel_ms(lambda: strands.kernel(cfg, length), "duplex_members_kernel", 200)
-    # least work: each live member-position of both strands read once (base +
-    # qual), the six output planes written once, the 2P sizes read once
+    first = kernel_ms(strands.kernel, KERNEL, 200)
+    plain_ms = cuda_ms(strands.plain, plain_reps)
+    chain_ms = cuda_ms(strands.chain, 50)
+    chain_ms_again = cuda_ms(strands.chain, 50)
+    plain_ms_again = cuda_ms(strands.plain, plain_reps)
+    again = kernel_ms(strands.kernel, KERNEL, 200)
+    # least work: each live member-position of both strands read once (raw
+    # wire: base + qual), the six output planes written once
     return {
         "ms": min(first["ms"], again["ms"]), "runs": [first, again],
         "plain_ms": min(plain_ms, plain_ms_again), "plain_runs": [plain_ms, plain_ms_again],
         "chain_ms": min(chain_ms, chain_ms_again), "chain_runs": [chain_ms, chain_ms_again],
-        "library_ms": None, "library_note": NO_LIBRARY,
-        **bound(2 * live_members * length + 6 * pairs * length + 8 * pairs,
+        "library_ms": None, "library_note": NO_LIBRARY, "path": strands.job.plan.summary(),
+        **bound(int(WIRE_BYTES["raw"] * live_members * length) + 6 * pairs * length,
                 FOLD_OPS * live_members * length
                 + (2 * FINALIZE_OPS + COMBINE_OPS) * pairs * length, rates),
     }
@@ -497,10 +662,12 @@ def phase_fused_dense(dev, tag, rates, errs) -> dict:
     sb = rng.integers(1, f + 1, (b,)).astype(np.int32)
     planes = [torch.from_numpy(x).reshape(b * f, length).to(dev) for x in (ba, qa, bb, qb)]
     starts = torch.arange(b, dtype=torch.int64) * f
-    strands = _Strands(dev, planes[0], planes[1], sa, planes[2], planes[3], sb, starts, starts)
+    strands = _Strands(planes[0], planes[1], sa, planes[2], planes[3], sb, starts, starts,
+                       length)
     row = _fused_timing(strands, length, int(sa.sum() + sb.sum()), b, rates, errs,
                         f"dense/{tag}")
-    row["shape"] = {"B": b, "F": f, "L": length, "device_bytes": 4 * b * f * length}
+    row["shape"] = {"B": b, "F": f, "L": length, "wire": "raw",
+                    "device_bytes": 4 * b * f * length}
     emit("fused_timing", kernel=FUSED["name"], tag=tag, **row)
     return row
 
@@ -546,74 +713,99 @@ def _check_step(i, step_out, plain, sizes_a, sizes_b, errs) -> None:
 
 
 def phase_fused_stage(dev, rates, errs, book, batches) -> tuple[dict, list]:
-    """The stage loop prestaged on the card: packed batches and codebook
-    uploaded first, then eight ``segment_duplex_step`` calls (unpack + one
-    fused launch + stats each) back to back, outputs fetched at the end."""
+    """The stage loop prestaged on the card: packed batches uploaded first,
+    then, in turns over the same eight batches: the bare fused launch, the
+    step (``segment_duplex_step``: checks, tile plan, one upload, one launch
+    that decodes pack4 and folds the stats), the unfused chain (torch
+    unpack4, the SSCS kernel per strand on the raw planes, ``duplex_vote``)
+    and the plain version (torch decode, plain votes, ``duplex_stats``)."""
     step = consensus_segment.segment_duplex_step(STAGE_PAIRS, STAGE_L, packed_out=True)
-    book_d = torch.from_numpy(book).to(dev)
+    book_h = torch.from_numpy(book)   # the kernel takes the codebook by value
+    book_d = book_h.to(dev)           # the torch decode's lookup table
+    cfg = consensus_vote.ConsensusConfig()
     staged = [(torch.from_numpy(pack4(rows, qrows, book)).to(dev),
                torch.from_numpy(np.concatenate([sa, sb])))
               for sa, sb, rows, qrows in batches]
     torch.cuda.synchronize()
-    outs = [step(p, s, book_d) for p, s in staged]  # warm
+    outs = [step(p, s, book_h) for p, s in staged]
     torch.cuda.synchronize()
-    loop_ms = cuda_ms(lambda: [step(p, s, book_d) for p, s in staged], 5)
     reference = [[x.cpu().numpy() for x in o] for o in outs]
 
-    # per launch: the bare kernel over each batch's unpacked planes; each
-    # step's output (the packed SSCS pair, the quals, the stats) is held
-    # against the plain version on the same planes and a numpy count
-    strands, live = [], 0
-    cfg = consensus_vote.ConsensusConfig()
+    # each step's output (the packed SSCS pair, the quals, the stats) is
+    # held against the plain version of the same batch and a numpy count;
+    # the bare launch and the chain against the step
+    jobs, chains, live = [], [], 0
     for i, ((sa, sb, _rows, _qrows), (packed, sizes)) in enumerate(zip(batches, staged)):
-        bases, quals = consensus_segment.unpack4_device(packed, book_d, STAGE_L)
-        starts = torch.cumsum(sizes.long(), 0) - sizes.long()
-        s = _Strands(dev, bases, quals, sa, bases, quals, sb,
-                     starts[:STAGE_PAIRS], starts[STAGE_PAIRS:])
-        strands.append(s)
+        job = consensus_vote.prepare_duplex_wire("pack4", packed, book_h, sizes, cfg, STAGE_L,
+                                                 packed_out=True)
+        jobs.append(job)
         live += int(sa.sum() + sb.sum())
-        plain = s.plain(cfg, STAGE_L)
-        _check_equal(f"stage/batch{i}", s.kernel(cfg, STAGE_L), plain, errs)
+        plain, plain_stats = consensus_vote.duplex_wire_plain("pack4", packed, book_d, sizes,
+                                                              cfg, STAGE_L)
         _check_step(i, reference[i], plain.cpu().numpy(), sa, sb, errs)
-    row = _fused_timing(strands[0], STAGE_L, int(batches[0][0].sum() + batches[0][1].sum()),
-                        STAGE_PAIRS, rates, errs, "stage/batch0")
-    row["batch0"] = {k: v for k, v in row.items() if k not in ("runs", "plain_runs",
-                                                               "chain_runs")}
-    # kernel, plain version and chain over all eight batches, per batch, in
-    # turns, so the time, the bound and both comparisons cover the same work
-    def eight():
-        return [s.kernel(cfg, STAGE_L) for s in strands]
+        _check_equal(f"stage/batch{i}/plain_stats", torch.from_numpy(reference[i][3]),
+                     plain_stats.cpu(), errs)
+        got, got_stats = job()
+        for k in range(3):
+            _check_equal(f"stage/batch{i}/bare{k}", got[k], outs[i][k], errs)
+        _check_equal(f"stage/batch{i}/bare_stats", got_stats, outs[i][3], errs)
+        bases, quals = unpack4_device(packed, book_d, STAGE_L)
+        starts = torch.cumsum(sizes.long(), 0) - sizes.long()
+        chain = _Strands(bases, quals, sa, bases, quals, sb, starts[:STAGE_PAIRS],
+                         starts[STAGE_PAIRS:], STAGE_L)
+        chains.append((packed, chain))
+        va, vb, dcs_b, dcs_q = chain.chain()
+        _check_equal(f"stage/batch{i}/chain", torch.stack([va[0], va[1], vb[0], vb[1], dcs_b,
+                                                           dcs_q]), plain, errs)
+    path = jobs[0].plan.summary()
 
-    def eight_plain():
-        return [s.plain(cfg, STAGE_L) for s in strands]
+    def bare():
+        return [job() for job in jobs]
 
-    def eight_chain():
-        return [s.chain(cfg, STAGE_L) for s in strands]
+    def loop():
+        return [step(p, s, book_h) for p, s in staged]
 
-    def loop_kernel_ms():
-        events = cuda_ms(eight, 20) / STAGE_BATCHES
-        profiler = kernel_device_ms(eight, "duplex_members_kernel", 20)
+    def chain():
+        out = []
+        for packed, c in chains:
+            unpack4_device(packed, book_d, STAGE_L)
+            out.append(c.chain())
+        return out
+
+    def plain():
+        return [consensus_vote.duplex_wire_plain("pack4", p, book_d, s, cfg, STAGE_L,
+                                                 packed_out=True) for p, s in staged]
+
+    def bare_ms():
+        events = cuda_ms(bare, 20) / STAGE_BATCHES
+        profiler = kernel_device_ms(bare, KERNEL, 20)
         return {"ms": profiler if profiler is not None else events,
                 "profiler_ms": profiler, "events_ms": events}
 
-    first = loop_kernel_ms()
-    plain_runs = [cuda_ms(eight_plain, 2) / STAGE_BATCHES]
-    chain_runs = [cuda_ms(eight_chain, 10) / STAGE_BATCHES,
-                  cuda_ms(eight_chain, 10) / STAGE_BATCHES]
-    plain_runs.append(cuda_ms(eight_plain, 2) / STAGE_BATCHES)
-    again = loop_kernel_ms()
-    row.update(ms=min(first["ms"], again["ms"]), runs=[first, again],
-               plain_ms=min(plain_runs), plain_runs=plain_runs,
-               chain_ms=min(chain_runs), chain_runs=chain_runs,
-               **bound(2 * live * STAGE_L // STAGE_BATCHES + 6 * STAGE_PAIRS * STAGE_L
-                       + 8 * STAGE_PAIRS,
-                       (FOLD_OPS * live * STAGE_L) // STAGE_BATCHES
-                       + (2 * FINALIZE_OPS + COMBINE_OPS) * STAGE_PAIRS * STAGE_L, rates))
+    # in turns: bare, step, chain, plain, plain, chain, step, bare (per batch)
+    first = bare_ms()
+    loop_runs = [cuda_ms(loop, 10) / STAGE_BATCHES]
+    chain_runs = [cuda_ms(chain, 10) / STAGE_BATCHES]
+    plain_runs = [cuda_ms(plain, 2) / STAGE_BATCHES, cuda_ms(plain, 2) / STAGE_BATCHES]
+    chain_runs.append(cuda_ms(chain, 10) / STAGE_BATCHES)
+    loop_runs.append(cuda_ms(loop, 10) / STAGE_BATCHES)
+    again = bare_ms()
+    pairs, per_batch = STAGE_PAIRS, live / STAGE_BATCHES
+    # least work per batch: the pack4 wire of each live member-position read
+    # once, the three packed_out planes written once
+    row = {"ms": min(first["ms"], again["ms"]), "runs": [first, again],
+           "loop_ms": min(loop_runs), "loop_runs": loop_runs,
+           "chain_ms": min(chain_runs), "chain_runs": chain_runs,
+           "plain_ms": min(plain_runs), "plain_runs": plain_runs,
+           "library_ms": None, "library_note": NO_LIBRARY, "path": path,
+           **bound(int(WIRE_BYTES["pack4"] * per_batch * STAGE_L) + 3 * pairs * STAGE_L,
+                   int(FOLD_OPS * per_batch * STAGE_L)
+                   + (2 * FINALIZE_OPS + COMBINE_OPS) * pairs * STAGE_L, rates)}
     families = sum(int((sa > 0).sum() + (sb > 0).sum()) for sa, sb, _r, _q in batches)
-    row.update(loop_ms=loop_ms, families=families, reads=live,
-               families_per_s_loop=families / (loop_ms / 1e3),
+    row.update(families=families, reads=live,
+               families_per_s_loop=families / (row["loop_ms"] * STAGE_BATCHES / 1e3),
                shape={"batches": STAGE_BATCHES, "pairs": STAGE_PAIRS, "L": STAGE_L,
-                      "wire": "pack4"})
+                      "wire": "pack4", "packed_out": True})
     emit("fused_timing", kernel=FUSED["name"], tag="stage_loop", **row)
     return row, reference
 
@@ -844,13 +1036,16 @@ def main() -> None:
     kernels = [
         {**VOTE, "launches": scale["vote_kernel_launches"], "max_abs_err": vote["max_abs_err"],
          "ms": vote["ms"], "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
-         "bound_by": vote["bound_by"], "library_ms": None, "library_note": NO_LIBRARY},
+         "bound_by": vote["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+         "unfused_ms": vote["unfused_ms"], "raw_planes_ms": vote["raw_planes_ms"],
+         "call_ms": vote["call_ms"], "unfused_call_ms": vote["unfused_call_ms"],
+         "path": vote["path"], "shape": vote["shape"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
-         "chain_ms": stage["chain_ms"],
+         "chain_ms": stage["chain_ms"], "loop_ms": stage["loop_ms"], "path": stage["path"],
          "shapes": {tag: {k: row[k] for k in ("ms", "plain_ms", "chain_ms", "bound_ms",
-                                              "bound_by")}
+                                              "bound_by", "path")}
                     for tag, row in shapes.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

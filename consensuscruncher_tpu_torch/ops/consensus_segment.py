@@ -1,13 +1,13 @@
-"""Member-stream votes: wire encode on the host, unpack + vote on the card.
+"""Member-stream votes: wire encode on the host, decode + vote on the card.
 
 Port of the stream-wire half of ``consensuscruncher_tpu/ops/
 consensus_segment.py``.  A batch's families ship as a flat ``(M, L)``
 member stream (every real read exactly once, packed per
-:func:`encode_member_batch`) plus per-family ``sizes``; the device unpacks
-the wire with torch bit ops and votes every family with the CUDA kernels of
-``ops.consensus_vote`` (their plain versions on the CPU).  The kernels
-handle any family size, so the JAX package's 512-member gather cap and its
-segment-scatter fallback have no counterpart here.
+:func:`encode_member_batch`) plus per-family ``sizes``; the CUDA kernels
+of ``ops.consensus_vote`` decode the wire and vote every family in one
+launch (their plain versions, after ``ops.packing.unpack_wire``, on the
+CPU).  The kernels handle any family size, so the JAX package's 512-member
+gather cap and its segment-scatter fallback have no counterpart here.
 
 Two users: the SSCS stage (:func:`consensus_blocks_stream_batched`, the
 SSCS vote), and the fused SSCS+DCS API (:func:`segment_duplex_step`,
@@ -34,9 +34,6 @@ from consensuscruncher_tpu_torch.ops.packing import (
     pack,
     pack4,
     pack6,
-    unpack4_device,
-    unpack6_device,
-    unpack_device,
 )
 from consensuscruncher_tpu_torch.parallel.batching import (
     QUAL_FILL_SENTINEL,
@@ -92,29 +89,16 @@ def encode_member_batch(batch):
     return "raw", rows, qf
 
 
-def unpack_wire(wire: str, a: torch.Tensor, b: torch.Tensor):
-    """Device-side decode of one wire batch -> ``(bases, quals)`` ``(M, L)``
-    uint8 planes on ``a``'s device."""
-    if wire == "raw":
-        return a, b
-    if wire == "pack8":
-        return unpack_device(a, b)
-    if wire == "pack6":  # 3/4 byte per position, lengths a multiple of 4
-        return unpack6_device(a, b, a.shape[-1] // 3 * 4)
-    if wire == "pack4":  # length buckets are multiples of 32
-        return unpack4_device(a, b, 2 * a.shape[-1])
-    raise ValueError(f"unknown wire {wire!r}")
-
-
 def stream_vote(wire: str, a: torch.Tensor, b: torch.Tensor, sizes,
                 config: ConsensusConfig = ConsensusConfig(),
                 out_len: int | None = None) -> torch.Tensor:
-    """The port of ``_stream_vote_fn``: decode the wire, vote every family.
-    Returns the stacked ``(2, NF, out_len)`` uint8 planes (consensus bases,
-    quals) on the wire's device; ``out_len=None`` keeps every position."""
-    bases, quals = unpack_wire(wire, a, b)
-    return consensus_vote.vote_members(bases, quals, torch.as_tensor(sizes),
-                                       config, length=out_len)
+    """The port of ``_stream_vote_fn``: decode the wire, vote every family
+    (one kernel launch on the card).  Returns the stacked ``(2, NF,
+    out_len)`` uint8 planes (consensus bases, quals) on the wire's device;
+    ``out_len=None`` keeps every position.  A packed wire's codebook ``b``
+    may stay on the host."""
+    return consensus_vote.vote_wire(wire, a, b, torch.as_tensor(sizes), config,
+                                    length=out_len)
 
 
 def _out_len(batch) -> int | None:
@@ -138,8 +122,10 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
     for batch in batches:
         wire, a, b = encode_member_batch(batch)
         n = batch.n_real
+        # the codebook of a packed wire rides in the kernel's arguments
+        b = torch.from_numpy(b)
         planes = stream_vote(wire, torch.from_numpy(a).to(device),
-                             torch.from_numpy(b).to(device),
+                             b.to(device) if wire == "raw" else b,
                              torch.from_numpy(batch.sizes[:n]), config,
                              _out_len(batch))
         if on_device_batch is not None:
@@ -193,32 +179,23 @@ def pick_member_cap(sizes: np.ndarray) -> int | None:
     return 1 << max(0, (max_size - 1).bit_length())
 
 
-def _duplex_stats(sizes_a: torch.Tensor, sizes_b: torch.Tensor, dcs_b: torch.Tensor,
-                  dcs_q: torch.Tensor) -> torch.Tensor:
-    """``[real, duplexes, n_count, q_sum]`` int32 on the planes' device:
-    pairs with any strand, pairs with both, N bases and the quality sum of
-    the DCS of the pairs with both."""
-    both = (sizes_a > 0) & (sizes_b > 0)
-    real = ((sizes_a > 0) | (sizes_b > 0)).sum()
-    n_count = ((dcs_b == N) & both[:, None]).sum()
-    q_sum = torch.where(both[:, None], dcs_q.to(torch.int64), 0).sum()
-    return torch.stack([real, both.sum(), n_count, q_sum]).to(torch.int32)
-
-
 def segment_duplex_step(num_pairs: int, length: int,
                         config: ConsensusConfig = ConsensusConfig(),
                         packed_out: bool = False,
                         member_cap: int | None = None):
     """The port of ``_compiled_segment_duplex``: a callable
-    ``(packed, sizes, codebook4)`` that unpacks a pack4 member stream
-    (``ops.packing.unpack4_device``) and votes both strands and their DCS
-    with one launch of the fused kernel.
+    ``(packed, sizes, codebook4)`` that votes both strands of a pack4 member
+    stream and their DCS, stats included, with one launch of the fused
+    kernel (which decodes the wire itself); on the card the step is the
+    checks, the tile plan, one upload of the sizes and tiles, the
+    allocations and that launch.
 
     Family slots: strand A of pair ``i`` is slot ``i``, strand B slot
     ``num_pairs + i`` (size 0 = absent strand); the starts are the
     exclusive cumsum of the ``2 * num_pairs`` sizes, so rows past
-    ``sizes.sum()`` (member-axis padding) are never read.  ``sizes`` may lie
-    on any device; the checks read it on the host.  Returns, on
+    ``sizes.sum()`` (member-axis padding) are never read.  ``sizes`` and
+    ``codebook4`` may lie on any device; the checks read them on the host
+    (a host codebook spares a device sync).  Returns, on
     ``packed``'s device, ``(sscs_a, qa, sscs_b, qb, dcs, dq, stats)``, or
     with ``packed_out`` ``(sscs_a | sscs_b << 3, qa, qb, stats)`` — the DCS
     is then derived on the host (:func:`derive_host_outputs`).  ``stats`` is
@@ -236,16 +213,8 @@ def segment_duplex_step(num_pairs: int, length: int,
         if 2 * packed.shape[-1] < length:
             raise ValueError(f"pack4 rows of {packed.shape[-1]} bytes hold fewer "
                              f"than {length} positions")
-        bases, quals = unpack4_device(packed, codebook4, length)
-        starts = torch.cumsum(sizes, 0) - sizes
-        n = num_pairs
-        out = consensus_vote.duplex_members(
-            bases, quals, sizes[:n], bases, quals, sizes[n:], config,
-            starts_a=starts[:n], starts_b=starts[n:])
-        on_dev = consensus_vote.upload(sizes, out.device, torch.int32)
-        stats = _duplex_stats(on_dev[:n], on_dev[n:], out[4], out[5])
-        if packed_out:
-            return out[0] | out[2] << 3, out[1], out[3], stats
+        out, stats = consensus_vote.duplex_wire("pack4", packed, codebook4, sizes,
+                                                config, length, packed_out=packed_out)
         return (*out, stats)
 
     return step
@@ -327,7 +296,7 @@ def run_duplex_pipelined(rows, qrows, sizes_a, sizes_b, codebook4,
 
     step = segment_duplex_step(chunk_pairs, length, config, packed_out=True,
                                member_cap=member_cap)
-    book = torch.from_numpy(codebook4).to(dev)
+    book = torch.from_numpy(codebook4)  # host: the kernel takes it by value
     pinned = dev.type == "cuda"
 
     def batches():  # runs on the prefetch thread: numpy and pinning only

@@ -1,19 +1,24 @@
 """The majority votes: CUDA kernels, plain PyTorch versions, launch counts.
 
-Two hand-written CUDA kernels in ``csrc/consensus_vote.cu``, sharing one
-vote (``csrc/vote_state.cuh``):
+One hand-written CUDA kernel template in ``csrc/consensus_vote.cu``, its
+vote in ``csrc/vote_state.cuh``, in two forms:
 
 - the SSCS vote, port of the TPU kernel ``consensuscruncher_tpu/ops/
-  consensus_pallas.py:_vote_kernel`` (:func:`vote_members`);
+  consensus_pallas.py:_vote_kernel`` (:func:`vote_wire`, and its raw
+  instantiation :func:`vote_members`);
 - the fused duplex vote, port of ``consensus_pallas.py:
   _fused_duplex_kernel``: both strands' SSCS votes and their DCS in one
-  launch (:func:`duplex_members`).
+  launch, with the stream step's stats (:func:`duplex_wire`, and its raw
+  two-strand instantiation :func:`duplex_members`).
 
-Both run over ragged member streams: family ``f``'s members are rows
-``starts[f] .. starts[f] + sizes[f] - 1`` of an ``(M, L)`` plane, with
+Both read a member-stream wire (``ops.packing.WIRES``: raw, pack8, pack6,
+pack4) and decode it in the kernel.  Family ``f``'s members are rows
+``starts[f] .. starts[f] + sizes[f] - 1`` of the wire's ``M`` rows, with
 ``starts`` the exclusive cumsum of ``sizes`` by default.  The dense
 ``(B, F, L)`` forms of the TPU kernels are the same streams with
 ``starts = arange(B) * F`` (:func:`consensus_batch`, :func:`duplex_batch`).
+Each call plans its tiles on the host (``ops.tiles``), uploads the family
+records and the tile table in one pinned copy, and launches the kernel once.
 
 Semantics (reference parity: ``ConsensusCruncher/consensus_helper.py:
 consensus_maker``, pinned in ``core/consensus_cpu.py``): low-qual members
@@ -24,9 +29,11 @@ else is ``(N, 0)``.  The duplex combine keeps a base iff both strands voted
 it and it is below N, with quality ``min(qa + qb, qual_cap)``.
 
 The wrappers launch the kernel for CUDA tensors (or raise) and run the
-plain version only for tensors on the CPU; :func:`launch_kernel` and
-:func:`launch_duplex_kernel` are the bare launches on arguments already on
-the card.
+plain version (:func:`vote_wire_plain`, :func:`duplex_wire_plain`: the torch
+decode ``ops.packing.unpack_wire``, then :func:`vote_members_plain` /
+:func:`duplex_members_plain` + :func:`duplex_stats`) only for tensors on the
+CPU.  :func:`prepare_wire` / :func:`prepare_duplex_wire` return the planned
+launch, so a caller can time the bare kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from consensuscruncher_tpu_torch.core.consensus_cpu import (
@@ -42,16 +50,24 @@ from consensuscruncher_tpu_torch.core.consensus_cpu import (
     DEFAULT_QUAL_THRESHOLD,
     cutoff_fraction,
 )
+from consensuscruncher_tpu_torch.ops import tiles
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote
+from consensuscruncher_tpu_torch.ops.packing import WIRES, unpack_wire, wire_width
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES
 
 # Kernel launches made on CUDA tensors since the last reset (one per call of
-# a C entry point, which launches its kernel exactly once): the SSCS vote,
+# the C entry point, which launches its kernel exactly once): the SSCS vote,
 # and the fused duplex vote.
 launches = 0
 fused_launches = 0
+# The ops.tiles.TilePlan of the last launch prepared (its summary() says
+# which path, staged, direct or mixed, the tiles took).
+last_plan: tiles.TilePlan | None = None
 
 _lib = None
+# the kernel's shapes per form, SSCS (False) and duplex (True): cct_tile_constants
+_layouts: dict[bool, tiles.Layout] = {}
+_grids: dict[tuple[int, int], int] = {}
 
 
 @dataclass(frozen=True)
@@ -86,151 +102,299 @@ def config_from_reference(ref) -> ConsensusConfig:
                            qual_cap=int(ref.qual_cap))
 
 
-def _checks(bases, quals, sizes, config, length, starts):
-    """Validate a vote's arguments on the host; returns the sizes (int64,
-    CPU), the starts (int64, CPU, or None for the exclusive cumsum) and the
-    vote length."""
-    if bases.dtype != torch.uint8 or quals.dtype != torch.uint8:
-        raise TypeError("bases and quals must be uint8")
-    if bases.dim() != 2 or bases.shape != quals.shape:
-        raise ValueError(f"bases/quals must be matching (M, L) planes, got "
-                         f"{tuple(bases.shape)} and {tuple(quals.shape)}")
-    length = bases.shape[1] if length is None else int(length)
-    if not 0 <= length <= bases.shape[1]:
-        raise ValueError(f"length {length} outside [0, {bases.shape[1]}]")
-    sizes = sizes.to(device="cpu", dtype=torch.int64)
+def _family_checks(rows, width, sizes, config, length, starts):
+    """Validate a vote's families against ``rows`` member rows of ``width``
+    positions on the host; returns the sizes (int64, CPU), the starts (int64,
+    CPU, or None for the exclusive cumsum) and the vote length."""
+    length = width if length is None else int(length)
+    if not 0 <= length <= width:
+        raise ValueError(f"length {length} outside [0, {width}]")
+    sizes = torch.as_tensor(sizes).to(device="cpu", dtype=torch.int64)
     if sizes.dim() != 1:
         raise ValueError("sizes must be 1-D")
     if starts is not None:
-        starts = starts.to(device="cpu", dtype=torch.int64)
+        starts = torch.as_tensor(starts).to(device="cpu", dtype=torch.int64)
+        if starts.shape != sizes.shape:
+            raise ValueError("starts and sizes must match")
     if sizes.numel():
         if int(sizes.min()) < 0:
             raise ValueError("family sizes must be >= 0")
         if starts is None:
-            outside = int(sizes.sum()) > bases.shape[0]
+            outside = int(sizes.sum()) > rows
         else:
-            outside = (int((starts + sizes).max()) > bases.shape[0]
-                       or int(starts.min()) < 0)
+            outside = int((starts + sizes).max()) > rows or int(starts.min()) < 0
         if outside:
             raise ValueError("family rows run outside the member planes")
         config.check_family_size(int(sizes.max()))
     return sizes, starts, length
 
 
+def _checks(bases, quals, sizes, config, length, starts):
+    """Validate a raw vote's planes and families (see :func:`_family_checks`)."""
+    if bases.dtype != torch.uint8 or quals.dtype != torch.uint8:
+        raise TypeError("bases and quals must be uint8")
+    if bases.dim() != 2 or bases.shape != quals.shape:
+        raise ValueError(f"bases/quals must be matching (M, L) planes, got "
+                         f"{tuple(bases.shape)} and {tuple(quals.shape)}")
+    return _family_checks(bases.shape[0], bases.shape[1], sizes, config, length, starts)
+
+
+def _wire_checks(wire, a, b, sizes, config, length, starts):
+    """Validate one wire batch (``a``, ``b`` as ``unpack_wire`` takes them)
+    and its families; returns as :func:`_family_checks`."""
+    if wire not in WIRES:
+        raise ValueError(f"unknown wire {wire!r}")
+    if wire == "raw":
+        return _checks(a, b, sizes, config, length, starts)
+    if a.dtype != torch.uint8 or a.dim() != 2:
+        raise TypeError(f"{wire} rows must be a 2-D uint8 tensor")
+    book = 4 if wire == "pack4" else 16
+    if torch.as_tensor(b).numel() != book:
+        raise ValueError(f"{wire} needs a codebook of {book} entries")
+    return _family_checks(a.shape[0], wire_width(wire, a), sizes, config, length, starts)
+
+
 def _exclusive_cumsum(sizes: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+
+
+def _default_starts(sizes, starts):
+    return _exclusive_cumsum(sizes) if starts is None else starts
+
+
+def duplex_stats(sizes_a: torch.Tensor, sizes_b: torch.Tensor, dcs_b: torch.Tensor,
+                 dcs_q: torch.Tensor) -> torch.Tensor:
+    """``[real, duplexes, n_count, q_sum]`` int32 on the planes' device:
+    pairs with any strand, pairs with both, N bases and the quality sum of
+    the DCS of the pairs with both (the plain version of the kernel's
+    stats)."""
+    sizes_a, sizes_b = sizes_a.to(dcs_b.device), sizes_b.to(dcs_b.device)
+    both = (sizes_a > 0) & (sizes_b > 0)
+    real = ((sizes_a > 0) | (sizes_b > 0)).sum()
+    n_count = ((dcs_b == N) & both[:, None]).sum()
+    q_sum = torch.where(both[:, None], dcs_q.to(torch.int64), 0).sum()
+    return torch.stack([real, both.sum(), n_count, q_sum]).to(torch.int32)
+
+
+# ------------------------------------------------------------ wire wrappers
+
+
+def vote_wire(wire: str, a: torch.Tensor, b, sizes,
+              config: ConsensusConfig = ConsensusConfig(), length: int | None = None,
+              starts: torch.Tensor | None = None) -> torch.Tensor:
+    """Vote every family of a member-stream wire batch.
+
+    ``wire`` names the layout (``ops.packing.WIRES``): ``a``/``b`` are the
+    raw ``(M, L)`` bases and quals planes, or the packed ``(M, W)`` rows and
+    their codebook (on any device; a host codebook spares a device sync);
+    ``sizes``: ``(NF,)`` family sizes (any device, 0 = empty slot);
+    ``length``: vote positions ``[0, length)`` only (default: every
+    position the rows hold); ``starts``: first row of each family (default:
+    exclusive cumsum of ``sizes``).  Returns a stacked ``(2, NF, length)``
+    uint8 tensor (consensus bases, consensus quals) on ``a``'s device; empty
+    slots come back all ``(N, 0)``.
+    """
+    if a.device.type == "cpu":
+        return vote_wire_plain(wire, a, b, sizes, config, length, starts)
+    return prepare_wire(wire, a, b, sizes, config, length, starts)()[0]
+
+
+def prepare_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
+                 length=None, starts=None) -> "TileLaunch":
+    """The checked, planned and uploaded launch of :func:`vote_wire` on
+    CUDA tensors; calling it launches the kernel once."""
+    sizes, starts, length = _wire_checks(wire, a, b, sizes, config, length, starts)
+    strand = _card_wire(wire, a, b, sizes, starts)
+    return _prepare(wire, [strand], _book(wire, b), config, length, duplex=False)
+
+
+def duplex_wire(wire: str, a: torch.Tensor, b, sizes,
+                config: ConsensusConfig = ConsensusConfig(), length: int | None = None,
+                starts: torch.Tensor | None = None, packed_out: bool = False):
+    """Fused SSCS + DCS vote of one member-stream wire batch.
+
+    ``wire``, ``a``, ``b`` as :func:`vote_wire`; ``sizes``: ``(2P,)`` family
+    slots, strand A of pair ``p`` in slot ``p`` and strand B in slot
+    ``P + p`` (size 0 = absent strand); ``starts`` default to the exclusive
+    cumsum of the ``2P`` sizes.  Returns ``(planes, stats)`` on ``a``'s
+    device: ``planes`` the ``(6, P, length)`` uint8 SSCS-a bases, SSCS-a
+    quals, SSCS-b bases, SSCS-b quals, DCS bases, DCS quals, or with
+    ``packed_out`` the ``(3, P, length)`` ``sscs_a | sscs_b << 3``, qa, qb;
+    ``stats`` the int32 ``[real, duplexes, n_count, q_sum]``.
+    """
+    if a.device.type == "cpu":
+        return duplex_wire_plain(wire, a, b, sizes, config, length, starts, packed_out)
+    return prepare_duplex_wire(wire, a, b, sizes, config, length, starts, packed_out)()
+
+
+def _pairs(sizes: torch.Tensor) -> int:
+    if sizes.shape[0] % 2:
+        raise ValueError(f"duplex slots must pair up, got {sizes.shape[0]} sizes")
+    return sizes.shape[0] // 2
+
+
+def prepare_duplex_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
+                        length=None, starts=None, packed_out=False) -> "TileLaunch":
+    """The checked, planned and uploaded launch of :func:`duplex_wire` on
+    CUDA tensors; calling it launches the kernel once."""
+    sizes, starts, length = _wire_checks(wire, a, b, sizes, config, length, starts)
+    n = _pairs(sizes)
+    contiguous = starts is None  # each strand's slots are then contiguous rows
+    starts = _default_starts(sizes, starts)
+    strands = [_card_wire(wire, a, b, sizes[:n], starts[:n], contiguous),
+               _card_wire(wire, a, b, sizes[n:], starts[n:], contiguous)]
+    return _prepare(wire, strands, _book(wire, b), config, length, duplex=True,
+                    packed_out=packed_out)
+
+
+# ------------------------------------------------------ raw instantiations
 
 
 def vote_members(bases: torch.Tensor, quals: torch.Tensor, sizes: torch.Tensor,
                  config: ConsensusConfig = ConsensusConfig(),
                  length: int | None = None,
                  starts: torch.Tensor | None = None) -> torch.Tensor:
-    """Vote every family of a member stream.
-
-    ``bases``/``quals``: ``(M, L)`` uint8 member planes on one device;
-    ``sizes``: ``(NF,)`` family sizes (any device, 0 = empty slot);
-    ``length``: vote positions ``[0, length)`` only (default ``L``);
-    ``starts``: first row of each family (default: exclusive cumsum of
-    ``sizes``, taken on the planes' device).  Returns a stacked
-    ``(2, NF, length)`` uint8 tensor (consensus bases, consensus quals) on
-    the planes' device; empty slots come back all ``(N, 0)``.
-    """
+    """:func:`vote_wire` on the raw wire: ``(M, L)`` uint8 ``bases`` and
+    ``quals`` planes on one device (rows may be strided).  Returns the
+    stacked ``(2, NF, length)`` uint8 planes on the planes' device."""
     if bases.device.type == "cpu":
         return vote_members_plain(bases, quals, sizes, config, length, starts)
+    return prepare_wire("raw", bases, quals, sizes, config, length, starts)()[0]
+
+
+def duplex_members(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
+                   bases_b: torch.Tensor, quals_b: torch.Tensor, sizes_b,
+                   config: ConsensusConfig = ConsensusConfig(),
+                   length: int | None = None,
+                   starts_a: torch.Tensor | None = None,
+                   starts_b: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused SSCS + DCS vote of ``P`` strand pairs on the raw wire.
+
+    Each strand is a member stream as :func:`vote_members` takes it
+    (``(M, L)`` uint8 planes, ``(P,)`` sizes, optional starts); pair ``p``
+    is family ``p`` of strand A with family ``p`` of strand B.  The stream
+    form passes one member stream as both strands, with ``starts_a`` and
+    ``starts_b`` picking its A and B families.  Returns a stacked
+    ``(6, P, length)`` uint8 tensor on the planes' device: SSCS-a bases,
+    SSCS-a quals, SSCS-b bases, SSCS-b quals, DCS bases, DCS quals.
+    """
+    if bases_a.device.type == "cpu":
+        strand_a, strand_b, length = _duplex_checks(
+            (bases_a, quals_a, sizes_a, starts_a), (bases_b, quals_b, sizes_b, starts_b),
+            config, length)
+        return duplex_members_plain(*strand_a[:3], *strand_b[:3], config, length,
+                                    strand_a[3], strand_b[3])
+    return prepare_duplex_members(bases_a, quals_a, sizes_a, bases_b, quals_b, sizes_b,
+                                  config, length, starts_a, starts_b)()[0]
+
+
+def prepare_duplex_members(bases_a, quals_a, sizes_a, bases_b, quals_b, sizes_b,
+                           config: ConsensusConfig = ConsensusConfig(), length=None,
+                           starts_a=None, starts_b=None) -> "TileLaunch":
+    """The checked, planned and uploaded launch of :func:`duplex_members` on
+    CUDA planes; calling it launches the kernel once."""
+    strand_a, strand_b, length = _duplex_checks(
+        (bases_a, quals_a, sizes_a, starts_a), (bases_b, quals_b, sizes_b, starts_b),
+        config, length)
+    strands = [_card_strand(*strand_a), _card_strand(*strand_b)]
+    return _prepare("raw", strands, _book("raw", None), config, length, duplex=True)
+
+
+def _duplex_checks(strand_a, strand_b, config, length):
+    """Validate both strands of a duplex vote on the host (each as
+    :func:`_checks` does, at one vote length; equal pair counts; one
+    device).  Returns the checked ``(bases, quals, sizes, starts)`` strands
+    and the length."""
+    bases_a, quals_a, sizes_a, starts_a = strand_a
+    bases_b, quals_b, sizes_b, starts_b = strand_b
+    if len({bases_a.device, quals_a.device, bases_b.device, quals_b.device}) != 1:
+        raise ValueError("both strands' planes must lie on one device")
+    if bases_a.dim() == 2 and length is None:
+        length = bases_a.shape[1]
+    sizes_a, starts_a, length = _checks(bases_a, quals_a, sizes_a, config, length, starts_a)
+    sizes_b, starts_b, length = _checks(bases_b, quals_b, sizes_b, config, length, starts_b)
+    if sizes_a.shape != sizes_b.shape:
+        raise ValueError(f"strands must pair up: {sizes_a.shape[0]} families "
+                         f"on strand A, {sizes_b.shape[0]} on strand B")
+    return ((bases_a, quals_a, sizes_a, starts_a),
+            (bases_b, quals_b, sizes_b, starts_b), length)
+
+
+def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
+                    config: ConsensusConfig = ConsensusConfig()):
+    """Dense form, the port of ``consensus_batch_pallas``: ``(B, F, L)``
+    uint8 planes + ``(B,)`` sizes -> ``(out_b, out_q)`` ``(B, L)`` uint8.
+    Member slots ``>= size`` are never read.  Same kernel, with family ``i``
+    at rows ``i * F ..`` of the flattened ``(B * F, L)`` stream."""
+    b, f, length = bases.shape
+    sizes = torch.as_tensor(fam_sizes).to(device="cpu", dtype=torch.int64)
+    starts = torch.arange(b, dtype=torch.int64) * f
+    if sizes.numel() and int(sizes.max()) > f:
+        raise ValueError(f"family size exceeds the member capacity {f}")
+    out = vote_members(bases.reshape(b * f, length), quals.reshape(b * f, length),
+                       sizes, config, starts=starts)
+    return out[0], out[1]
+
+
+def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
+                 bases_b: torch.Tensor, quals_b: torch.Tensor, sizes_b,
+                 config: ConsensusConfig = ConsensusConfig()):
+    """Dense form, the port of ``duplex_batch_pallas``: two ``(B, F, L)``
+    uint8 strand batches (pairs aligned on the batch axis) + ``(B,)`` sizes
+    each -> the six ``(B, L)`` uint8 planes ``(sscs_a_b, sscs_a_q,
+    sscs_b_b, sscs_b_q, dcs_b, dcs_q)``.  Member slots ``>= size`` are
+    never read; no family-major transpose and no batch padding."""
+    if not bases_a.shape == quals_a.shape == bases_b.shape == quals_b.shape:
+        raise ValueError(f"strand batches must share a shape, got "
+                         f"{tuple(bases_a.shape)} vs {tuple(bases_b.shape)}")
+    b, f, length = bases_a.shape
+    config.check_family_size(f)  # the int32 cutoff guard, as the TPU wrapper's
+    sizes = [torch.as_tensor(s).to(device="cpu", dtype=torch.int64)
+             for s in (sizes_a, sizes_b)]
+    if any(s.numel() and int(s.max()) > f for s in sizes):
+        raise ValueError(f"family size exceeds the member capacity {f}")
+    starts = torch.arange(b, dtype=torch.int64) * f
+    out = duplex_members(bases_a.reshape(b * f, length), quals_a.reshape(b * f, length),
+                         sizes[0], bases_b.reshape(b * f, length),
+                         quals_b.reshape(b * f, length), sizes[1], config,
+                         starts_a=starts, starts_b=starts)
+    return tuple(out)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def vote_wire_plain(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
+                    length=None, starts=None) -> torch.Tensor:
+    """Plain version of :func:`vote_wire` on any device: the torch decode
+    (``ops.packing.unpack_wire``), then :func:`vote_members_plain`."""
+    bases, quals = unpack_wire(wire, a, torch.as_tensor(b).to(a.device))
+    return vote_members_plain(bases, quals, sizes, config, length, starts)
+
+
+def duplex_wire_plain(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
+                      length=None, starts=None, packed_out=False):
+    """Plain version of :func:`duplex_wire` on any device: the torch
+    decode, :func:`duplex_members_plain` over the A and B slots, and
+    :func:`duplex_stats`."""
+    bases, quals = unpack_wire(wire, a, torch.as_tensor(b).to(a.device))
     sizes, starts, length = _checks(bases, quals, sizes, config, length, starts)
-    return _launch(bases, quals, sizes, starts, config, length)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from consensuscruncher_tpu_torch.ops import cuda_lib
-
-        lib = cuda_lib.load("consensus_vote")
-        lib.cct_vote_members.restype = ctypes.c_int
-        lib.cct_vote_members.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.cct_duplex_members.restype = ctypes.c_int
-        lib.cct_duplex_members.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.cct_error_string.restype = ctypes.c_char_p
-        lib.cct_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
-
-
-def upload(host: torch.Tensor, dev: torch.device, dtype) -> torch.Tensor:
-    """A small host tensor to ``dev`` as ``dtype``; to the card through
-    pinned memory, so the copy does not wait for the work already queued on
-    the stream (a pageable copy may wait for it)."""
-    host = host.to(dtype).contiguous()
-    if dev.type == "cpu":
-        return host
-    return host.pin_memory().to(dev, non_blocking=True)
-
-
-def _card_strand(bases, quals, sizes, starts):
-    """Checked CUDA planes + host ``sizes`` (and ``starts`` or None) ->
-    ``(bases, quals, sizes_d, starts_d)`` on the card, where the starts
-    default to the exclusive cumsum of the sizes."""
-    dev = bases.device
-    if dev.type != "cuda" or quals.device != dev:
-        raise ValueError(f"the vote kernels need CUDA planes on one device, got "
-                         f"{bases.device} and {quals.device}")
-    if bases.stride(1) != 1 or bases.stride() != quals.stride():
-        raise ValueError("member planes must be row-major with matching strides")
-    sizes_d = upload(sizes, dev, torch.int32)
-    starts_d = (_exclusive_cumsum(sizes_d) if starts is None
-                else upload(starts, dev, torch.int64))
-    return bases, quals, sizes_d, starts_d
-
-
-def _launch(bases, quals, sizes, starts, config, length):
-    """Checked host arguments -> the card; then launch the SSCS vote."""
-    return launch_kernel(*_card_strand(bases, quals, sizes, starts), config, length)
-
-
-def launch_kernel(bases, quals, sizes_d, starts_d, config, length):
-    """One kernel launch on arguments already checked and on the card:
-    ``sizes_d`` int32 and ``starts_d`` int64, both ``(NF,)``."""
-    global launches
-    nf = sizes_d.shape[0]
-    dev = bases.device
-    out = torch.empty((2, nf, length), dtype=torch.uint8, device=dev)
-    if nf == 0 or length == 0:
-        return out
-    num, den = config.cutoff_rational
-    lib = _library()
-    rc = lib.cct_vote_members(
-        bases.data_ptr(), quals.data_ptr(), starts_d.data_ptr(),
-        sizes_d.data_ptr(), nf, length, bases.stride(0), num, den,
-        int(config.qual_threshold), int(config.qual_cap),
-        out[0].data_ptr(), out[1].data_ptr(), length,
-        torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    if rc != 0:
-        raise RuntimeError(f"consensus_vote kernel launch failed: "
-                           f"{lib.cct_error_string(rc).decode()}")
-    return out
+    n = _pairs(sizes)
+    starts = _default_starts(sizes, starts)
+    out = duplex_members_plain(bases, quals, sizes[:n], bases, quals, sizes[n:],
+                               config, length, starts[:n], starts[n:])
+    stats = duplex_stats(sizes[:n], sizes[n:], out[4], out[5])
+    if packed_out:
+        out = torch.stack([out[0] | out[2] << 3, out[1], out[3]])
+    return out, stats
 
 
 def vote_members_plain(bases, quals, sizes, config: ConsensusConfig = ConsensusConfig(),
                        length: int | None = None, starts=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on any device: gather each family
-    into a dense ``(NF, cap, length)`` block (``cap`` = largest family)
-    and reduce over the member axis, lane by lane — the kernel's state
-    machine written as tensor ops."""
+    """Plain PyTorch version of the SSCS vote on any device: gather each
+    family into a dense ``(NF, cap, length)`` block (``cap`` = largest
+    family) and reduce over the member axis, lane by lane — the vote's
+    state machine written as tensor ops."""
     sizes, starts, length = _checks(bases, quals, sizes, config, length, starts)
     dev = bases.device
     nf = sizes.shape[0]
@@ -270,102 +434,11 @@ def vote_members_plain(bases, quals, sizes, config: ConsensusConfig = ConsensusC
     return out
 
 
-def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
-                    config: ConsensusConfig = ConsensusConfig()):
-    """Dense form, the port of ``consensus_batch_pallas``: ``(B, F, L)``
-    uint8 planes + ``(B,)`` sizes -> ``(out_b, out_q)`` ``(B, L)`` uint8.
-    Member slots ``>= size`` are never read.  Same kernel, with family ``i``
-    at rows ``i * F ..`` of the flattened ``(B * F, L)`` stream."""
-    b, f, length = bases.shape
-    sizes = torch.as_tensor(fam_sizes).to(device="cpu", dtype=torch.int64)
-    starts = torch.arange(b, dtype=torch.int64) * f
-    if sizes.numel() and int(sizes.max()) > f:
-        raise ValueError(f"family size exceeds the member capacity {f}")
-    out = vote_members(bases.reshape(b * f, length), quals.reshape(b * f, length),
-                       sizes, config, starts=starts)
-    return out[0], out[1]
-
-
-# ------------------------------------------------------- fused duplex vote
-
-
-def _duplex_checks(strand_a, strand_b, config, length):
-    """Validate both strands of a duplex vote on the host (each as
-    :func:`_checks` does, at one vote length; equal pair counts; one
-    device).  Returns the checked ``(bases, quals, sizes, starts)`` strands
-    and the length."""
-    bases_a, quals_a, sizes_a, starts_a = strand_a
-    bases_b, quals_b, sizes_b, starts_b = strand_b
-    if len({bases_a.device, quals_a.device, bases_b.device, quals_b.device}) != 1:
-        raise ValueError("both strands' planes must lie on one device")
-    if bases_a.dim() == 2 and length is None:
-        length = bases_a.shape[1]
-    sizes_a, starts_a, length = _checks(bases_a, quals_a, sizes_a, config, length, starts_a)
-    sizes_b, starts_b, length = _checks(bases_b, quals_b, sizes_b, config, length, starts_b)
-    if sizes_a.shape != sizes_b.shape:
-        raise ValueError(f"strands must pair up: {sizes_a.shape[0]} families "
-                         f"on strand A, {sizes_b.shape[0]} on strand B")
-    return ((bases_a, quals_a, sizes_a, starts_a),
-            (bases_b, quals_b, sizes_b, starts_b), length)
-
-
-def duplex_members(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
-                   bases_b: torch.Tensor, quals_b: torch.Tensor, sizes_b,
-                   config: ConsensusConfig = ConsensusConfig(),
-                   length: int | None = None,
-                   starts_a: torch.Tensor | None = None,
-                   starts_b: torch.Tensor | None = None) -> torch.Tensor:
-    """Fused SSCS + DCS vote of ``P`` strand pairs.
-
-    Each strand is a member stream as :func:`vote_members` takes it
-    (``(M, L)`` uint8 planes, ``(P,)`` sizes, optional starts); pair ``p``
-    is family ``p`` of strand A with family ``p`` of strand B.  The stream
-    form passes one member stream as both strands, with ``starts_a`` and
-    ``starts_b`` picking its A and B families.  Returns a stacked
-    ``(6, P, length)`` uint8 tensor on the planes' device: SSCS-a bases,
-    SSCS-a quals, SSCS-b bases, SSCS-b quals, DCS bases, DCS quals.
-    """
-    strand_a, strand_b, length = _duplex_checks(
-        (bases_a, quals_a, sizes_a, starts_a), (bases_b, quals_b, sizes_b, starts_b),
-        config, length)
-    if bases_a.device.type == "cpu":
-        return duplex_members_plain(*strand_a[:3], *strand_b[:3], config, length,
-                                    strand_a[3], strand_b[3])
-    return launch_duplex_kernel(*_card_strand(*strand_a), *_card_strand(*strand_b),
-                                config, length)
-
-
-def launch_duplex_kernel(bases_a, quals_a, sizes_a_d, starts_a_d,
-                         bases_b, quals_b, sizes_b_d, starts_b_d, config, length):
-    """One fused kernel launch on arguments already checked and on the
-    card: per strand int32 sizes and int64 starts, both ``(P,)``."""
-    global fused_launches
-    n = sizes_a_d.shape[0]
-    out = torch.empty((6, n, length), dtype=torch.uint8, device=bases_a.device)
-    if n == 0 or length == 0:
-        return out
-    num, den = config.cutoff_rational
-    lib = _library()
-    rc = lib.cct_duplex_members(
-        bases_a.data_ptr(), quals_a.data_ptr(), starts_a_d.data_ptr(),
-        sizes_a_d.data_ptr(), bases_a.stride(0),
-        bases_b.data_ptr(), quals_b.data_ptr(), starts_b_d.data_ptr(),
-        sizes_b_d.data_ptr(), bases_b.stride(0),
-        n, length, num, den, int(config.qual_threshold), int(config.qual_cap),
-        out.data_ptr(), length, n * length,
-        torch.cuda.current_stream(bases_a.device).cuda_stream)
-    fused_launches += 1
-    if rc != 0:
-        raise RuntimeError(f"duplex_members kernel launch failed: "
-                           f"{lib.cct_error_string(rc).decode()}")
-    return out
-
-
 def duplex_members_plain(bases_a, quals_a, sizes_a, bases_b, quals_b, sizes_b,
                          config: ConsensusConfig = ConsensusConfig(),
                          length: int | None = None, starts_a=None,
                          starts_b=None) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel on any device: the unfused
+    """Plain PyTorch version of the fused vote on any device: the unfused
     chain it replaces — one :func:`vote_members_plain` per strand, then
     ``ops.duplex.duplex_vote`` vetoed where a strand is missing (the
     stream twin's "both present" mask; the kernel needs no mask because an
@@ -378,26 +451,180 @@ def duplex_members_plain(bases_a, quals_a, sizes_a, bases_b, quals_b, sizes_b,
     return torch.stack([va[0], va[1], vb[0], vb[1], dcs_b, dcs_q])
 
 
-def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
-                 bases_b: torch.Tensor, quals_b: torch.Tensor, sizes_b,
-                 config: ConsensusConfig = ConsensusConfig()):
-    """Dense form, the port of ``duplex_batch_pallas``: two ``(B, F, L)``
-    uint8 strand batches (pairs aligned on the batch axis) + ``(B,)`` sizes
-    each -> the six ``(B, L)`` uint8 planes ``(sscs_a_b, sscs_a_q,
-    sscs_b_b, sscs_b_q, dcs_b, dcs_q)``.  Member slots ``>= size`` are
-    never read; no family-major transpose and no batch padding."""
-    if not bases_a.shape == quals_a.shape == bases_b.shape == quals_b.shape:
-        raise ValueError(f"strand batches must share a shape, got "
-                         f"{tuple(bases_a.shape)} vs {tuple(bases_b.shape)}")
-    b, f, length = bases_a.shape
-    config.check_family_size(f)  # the int32 cutoff guard, as the TPU wrapper's
-    sizes = [torch.as_tensor(s).to(device="cpu", dtype=torch.int64)
-             for s in (sizes_a, sizes_b)]
-    if any(s.numel() and int(s.max()) > f for s in sizes):
-        raise ValueError(f"family size exceeds the member capacity {f}")
-    starts = torch.arange(b, dtype=torch.int64) * f
-    out = duplex_members(bases_a.reshape(b * f, length), quals_a.reshape(b * f, length),
-                         sizes[0], bases_b.reshape(b * f, length),
-                         quals_b.reshape(b * f, length), sizes[1], config,
-                         starts_a=starts, starts_b=starts)
-    return tuple(out)
+# ----------------------------------------------------------------- the card
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from consensuscruncher_tpu_torch.ops import cuda_lib
+
+        lib = cuda_lib.load("consensus_vote")
+        lib.cct_vote_tiles.restype = ctypes.c_int
+        lib.cct_vote_tiles.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.cct_tile_grid.restype = ctypes.c_int
+        lib.cct_tile_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cct_tile_constants.restype = None
+        lib.cct_tile_constants.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.cct_error_string.restype = ctypes.c_char_p
+        lib.cct_error_string.argtypes = [ctypes.c_int]
+        for duplex in (False, True):
+            consts = (ctypes.c_int64 * 7)()
+            lib.cct_tile_constants(int(duplex), ctypes.addressof(consts))
+            if consts[5] != tiles.TILE_COLS:
+                raise RuntimeError(f"csrc/consensus_vote.cu's tile table has {consts[5]} "
+                                   f"columns, ops/tiles.py's {tiles.TILE_COLS}")
+            _layouts[duplex] = tiles.Layout(*consts[:5], stages=consts[6])
+        _lib = lib
+    return _lib
+
+
+def _grid(wire: int, duplex: bool) -> int:
+    key = (wire, int(duplex))
+    if key not in _grids:
+        _grids[key] = _library().cct_tile_grid(*key)
+    return _grids[key]
+
+
+def _book(wire: str, b) -> np.ndarray:
+    """The wire's codebook as 16 host bytes (zeros for raw)."""
+    book = np.zeros(16, np.uint8)
+    if wire != "raw":
+        host = torch.as_tensor(b).to("cpu", torch.uint8).numpy().ravel()
+        book[:host.size] = host
+    return book
+
+
+def _strand(planes, nplanes, sizes, starts, row_bytes, width, contiguous) -> tuple:
+    """A checked strand on the card: its planner view and its two planes
+    (the raw wire's bases and quals; a packed wire's rows twice)."""
+    ptrs = [p.data_ptr() for p in planes]
+    strand = tiles.Strand(starts=starts.numpy(), sizes=sizes.numpy(),
+                          row_bytes=int(row_bytes), width=int(width),
+                          planes=nplanes, rows=int(planes[0].shape[0]),
+                          aligned=all(p % tiles.ALIGN == 0 for p in ptrs),
+                          contiguous=contiguous)
+    return strand, planes
+
+
+def _card_strand(bases, quals, sizes, starts, contiguous=None):
+    """Checked raw CUDA planes + host ``sizes`` (and ``starts`` or None for
+    the exclusive cumsum) -> a strand as :func:`_prepare` takes it;
+    ``contiguous`` (default: ``starts`` is None) says each family's rows
+    start where the one before it ends."""
+    dev = bases.device
+    if dev.type != "cuda" or quals.device != dev:
+        raise ValueError(f"the vote kernels need CUDA planes on one device, got "
+                         f"{bases.device} and {quals.device}")
+    if bases.stride(1) != 1 or bases.stride() != quals.stride():
+        raise ValueError("member planes must be row-major with matching strides")
+    if contiguous is None:
+        contiguous = starts is None
+    return _strand((bases, quals), 2, sizes, _default_starts(sizes, starts),
+                   bases.stride(0), bases.shape[1], contiguous)
+
+
+def _card_wire(wire, a, b, sizes, starts, contiguous=None):
+    """A checked wire batch on the card -> a strand as :func:`_prepare`
+    takes it (``starts``, ``contiguous`` as :func:`_card_strand`)."""
+    if wire == "raw":
+        return _card_strand(a, b, sizes, starts, contiguous)
+    if a.device.type != "cuda":
+        raise ValueError(f"the vote kernels need CUDA rows, got {a.device}")
+    if not a.is_contiguous():
+        raise ValueError(f"{wire} rows must be contiguous")
+    if contiguous is None:
+        contiguous = starts is None
+    return _strand((a, a), 1, sizes, _default_starts(sizes, starts), a.shape[1], a.shape[1],
+                   contiguous)
+
+
+class TileLaunch:
+    """One planned launch of the vote kernel: the family records (and an
+    explicit tile table) on the card, the outputs allocated.  Calling it
+    launches the kernel once (counted) and returns ``(planes, stats)``;
+    ``plan`` says which path its tiles took."""
+
+    def __init__(self, wire, strands, book, config, length, duplex, packed_out):
+        planes = [p for _strand, pl in strands for p in pl]
+        if len(strands) == 1:
+            planes += planes[:2]
+        dev = planes[0].device
+        self.duplex = duplex
+        self.wire = WIRES.index(wire)
+        n = int(strands[0][0].sizes.shape[0])
+        nplanes = (3 if packed_out else 6) if duplex else 2
+        self.out = torch.empty((nplanes, n, length), dtype=torch.uint8, device=dev)
+        grid = _grid(self.wire, duplex)  # loads the library and its layout
+        # one pinned buffer, one copy to the card: the stats (zeros, which the
+        # kernel adds into), the family records, an explicit tile table
+        records = n * 2 * len(strands)
+        pinned = []
+
+        def alloc(k):
+            pinned.append(torch.empty(2 + k, dtype=torch.int64, pin_memory=True))
+            pinned[0][:2] = 0
+            return pinned[0][2:].numpy()
+
+        self.plan = tiles.plan_tiles([s for s, _p in strands], length, grid,
+                                     _layouts[duplex], alloc)
+        host = pinned[0]
+        self.n_tiles = self.plan.n_tiles
+        self.dev = dev
+        if self.n_tiles == 0:
+            self.stats = torch.zeros(4, dtype=torch.int32, device=dev)
+            return
+        explicit = self.plan.explicit
+        used = 2 + records + (0 if explicit is None else explicit.size)
+        meta = host[:used].to(dev, non_blocking=True)
+        self.stats = meta[:2].view(torch.int32)
+        self._keep = planes
+        geometry = [[s.row_bytes, s.width, s.extent] for s, _p in strands]
+        geometry *= 3 - len(strands)
+        vec = 0
+        for i, (s, pl) in enumerate(strands * (3 - len(strands))):
+            if (s.width % 4 == 0 and s.row_bytes % 4 == 0
+                    and all(p.data_ptr() % 4 == 0 for p in pl)):
+                vec |= 1 << i
+        num, den = config.cutoff_rational
+        # the C arrays live as long as the launch does
+        self._arrays = ((ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes]),
+                        *((ctypes.c_int64 * 2)(*[g[k] for g in geometry[:2]])
+                          for k in range(3)),
+                        (ctypes.c_ubyte * 16)(*book.tolist()))
+        ptrs, row_bytes, width, extent, book_c = (ctypes.addressof(a) for a in self._arrays)
+        fam = meta.data_ptr() + 16
+        self._args = (
+            self.wire, int(duplex), ptrs, row_bytes, width, extent, fam,
+            None if explicit is None else fam + 8 * records, self.plan.fams, n,
+            self.n_tiles, length, num, den, int(config.qual_threshold),
+            int(config.qual_cap), book_c, self.out.data_ptr(), n * length,
+            self.stats.data_ptr(), int(packed_out), vec)
+
+    def __call__(self):
+        global launches, fused_launches
+        if self.n_tiles == 0:
+            return self.out, self.stats
+        lib = _library()
+        rc = lib.cct_vote_tiles(*self._args, torch.cuda.current_stream(self.dev).cuda_stream)
+        if self.duplex:
+            fused_launches += 1
+        else:
+            launches += 1
+        if rc != 0:
+            raise RuntimeError(f"consensus_vote kernel launch failed: "
+                               f"{lib.cct_error_string(rc).decode()}")
+        return self.out, self.stats
+
+
+def _prepare(wire, strands, book, config, length, duplex, packed_out=False) -> TileLaunch:
+    global last_plan
+    job = TileLaunch(wire, strands, book, config, length, duplex, packed_out)
+    last_plan = job.plan
+    return job

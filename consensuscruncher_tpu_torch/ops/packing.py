@@ -13,6 +13,9 @@ codebook:
   indices (two per byte), concatenated on the last axis — 0.75 byte;
 - pack4: base 2 bits + qual bin 2 bits, two positions per byte — 0.5 byte.
 
+On the card the vote kernels decode the wire themselves; the torch
+unpacks serve the plain versions and the tests.
+
 Dead cells (member rows past the real members, positions past a family's
 true length) decode to codebook-legal garbage; the vote never reads dead
 rows and callers slice positions by true length.
@@ -170,6 +173,55 @@ def unpack6_device(packed: torch.Tensor, codebook: torch.Tensor, length: int):
     idx = torch.stack([q4 & 0xF, q4 >> 4], dim=-1)
     return (bases.reshape(wide)[..., :length],
             _lookup(codebook, idx.reshape(wide)[..., :length]))
+
+
+# The four member-stream wires, densest last; the vote kernels decode each
+# in place (csrc/consensus_vote.cu), the plain versions through unpack_wire.
+WIRES = ("raw", "pack8", "pack6", "pack4")
+
+
+def wire_width(wire: str, a) -> int:
+    """Positions per member row of a wire batch whose first array is ``a``."""
+    if wire in ("raw", "pack8"):
+        return a.shape[-1]
+    if wire == "pack6":
+        return a.shape[-1] // 3 * 4
+    if wire == "pack4":
+        return 2 * a.shape[-1]
+    raise ValueError(f"unknown wire {wire!r}")
+
+
+def encode_wire(wire: str, bases: np.ndarray, quals: np.ndarray):
+    """Host encode of ``(M, L)`` uint8 bases and quals on the named wire ->
+    ``(a, b)`` as :func:`unpack_wire` takes them, the codebook built from
+    the quals (pack4 and pack6 need pure-ACGT bases; pack4 at most four
+    distinct quals, pack8 and pack6 at most sixteen)."""
+    bases = np.asarray(bases, dtype=np.uint8)
+    quals = np.asarray(quals, dtype=np.uint8)
+    if wire == "raw":
+        return bases, quals
+    book = (build_codebook4 if wire == "pack4" else build_codebook)(quals)
+    if book is None:
+        raise ValueError(f"too many distinct quals for the {wire} codebook")
+    packer = {"pack8": pack, "pack6": pack6, "pack4": pack4}.get(wire)
+    if packer is None:
+        raise ValueError(f"unknown wire {wire!r}")
+    return packer(bases, quals, book), book
+
+
+def unpack_wire(wire: str, a: torch.Tensor, b: torch.Tensor):
+    """Decode of one wire batch with torch ops -> ``(bases, quals)`` ``(M,
+    L)`` uint8 planes on ``a``'s device: raw = (bases, quals); packed =
+    (packed rows, codebook)."""
+    if wire == "raw":
+        return a, b
+    if wire == "pack8":
+        return unpack_device(a, b)
+    if wire == "pack6":  # 3/4 byte per position, lengths a multiple of 4
+        return unpack6_device(a, b, wire_width(wire, a))
+    if wire == "pack4":  # length buckets are multiples of 32
+        return unpack4_device(a, b, wire_width(wire, a))
+    raise ValueError(f"unknown wire {wire!r}")
 
 
 # Device residency: the consensus planes the SSCS vote produces stay on the

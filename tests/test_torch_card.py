@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote
-from consensuscruncher_tpu_torch.ops.packing import build_codebook4, pack4
+from consensuscruncher_tpu_torch.ops.packing import WIRES, build_codebook4, encode_wire, pack4
 from consensuscruncher_tpu_torch.utils.phred import PAD
 
 pytestmark = pytest.mark.cuda
@@ -153,3 +153,123 @@ def test_resident_store_on_card_matches_cpu(card):
     got = [np.concatenate(s.duplex_pairs(idx1, idx2, 33) + s.duplex_against(s1, q1, idx2, 33))
            for s in stores]
     np.testing.assert_array_equal(got[0], got[1])
+
+
+# ------------------------------------------------------- the wire kernels
+
+
+def _wire_stream(rng, wire, sizes, length, pad_rows=9):
+    """A member stream on ``wire`` for ``sizes``: ACGT (plus N and PAD on
+    raw and pack8), quals from a codebook the wire holds."""
+    m = int(sizes.sum()) + pad_rows
+    top = 4 if wire in ("pack4", "pack6") else 6
+    bases = rng.integers(0, top, (m, length), dtype=np.uint8)
+    levels = {"raw": np.arange(42, dtype=np.uint8), "pack8": np.arange(5, 41, 3, dtype=np.uint8),
+              "pack6": np.arange(8, 40, 2, dtype=np.uint8),
+              "pack4": np.array([2, 12, 23, 37], np.uint8)}[wire]
+    quals = rng.choice(levels, (m, length)).astype(np.uint8)
+    a, b = encode_wire(wire, bases, quals)
+    return torch.from_numpy(np.ascontiguousarray(a)), torch.from_numpy(b)
+
+
+def _book_or_quals(wire, b, card):
+    """The raw wire's quals plane goes to the card; a codebook stays on the
+    host (the kernel takes it by value)."""
+    return b.to(card) if wire == "raw" else b
+
+
+def _edge_sizes(rng, case):
+    if case == "random":
+        return rng.integers(0, 9, 3000).astype(np.int64)
+    if case == "zeros_at_tile_edges":  # empty slots at starts and ends of tiles
+        sizes = rng.integers(0, 4, 5000).astype(np.int64)
+        sizes[::37] = 0
+        sizes[:50] = 0
+        sizes[-50:] = 0
+        return sizes
+    if case == "straddling":  # families near the stage's byte budget
+        sizes = rng.integers(1, 6, 2000).astype(np.int64)
+        sizes[[10, 500, 1500]] = [200, 250, 256]
+        return sizes
+    if case == "family_1500":  # the direct path: more than a stage holds
+        sizes = rng.integers(0, 5, 400).astype(np.int64)
+        sizes[[0, 200]] = [1500, 257]
+        return sizes
+    if case == "families_70000":
+        return rng.integers(0, 4, 70000).astype(np.int64)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["random", "zeros_at_tile_edges", "straddling",
+                                  "family_1500", "families_70000"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_wire_kernel_matches_plain(card, wire, case):
+    rng = np.random.default_rng(len(case) * 10 + WIRES.index(wire))
+    sizes = _edge_sizes(rng, case)
+    length = 40 if case == "families_70000" else 128
+    a, b = _wire_stream(rng, wire, sizes, length)
+    a_d = a.to(card)
+    for cfg in (consensus_vote.ConsensusConfig(),
+                consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=20)):
+        for out_len in (length, length - 5):
+            before = consensus_vote.launches
+            got = consensus_vote.vote_wire(wire, a_d, _book_or_quals(wire, b, card),
+                                           torch.from_numpy(sizes), cfg, out_len)
+            assert consensus_vote.launches == before + 1
+            # the plain version on the card (torch decode, plain vote)
+            want = consensus_vote.vote_wire_plain(wire, a_d, b.to(card),
+                                                  torch.from_numpy(sizes), cfg, out_len)
+            assert torch.equal(got, want), (wire, case, cfg, out_len)
+    if case == "family_1500":
+        assert consensus_vote.last_plan.summary()["direct"] >= 2
+
+
+@pytest.mark.parametrize("wire", ["raw", "pack8"])
+def test_wire_kernel_unaligned_rows(card, wire):
+    """L 100 and L 33: rows that are not a multiple of 16 (or 4) bytes."""
+    rng = np.random.default_rng(33)
+    for length in (100, 33):
+        sizes = rng.integers(0, 7, 1000).astype(np.int64)
+        a, b = _wire_stream(rng, wire, sizes, length)
+        got = consensus_vote.vote_wire(wire, a.to(card), _book_or_quals(wire, b, card), sizes)
+        want = consensus_vote.vote_wire(wire, a, b, sizes)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("wire", WIRES)
+def test_duplex_wire_matches_plain(card, wire, packed_out):
+    """Stats and packed_out planes of the fused kernel equal the CPU's, one
+    launch per call, with empty strands and a 1,500-member family."""
+    rng = np.random.default_rng(WIRES.index(wire) + 50)
+    n_pairs, length = 3000, 128
+    sizes = np.concatenate([rng.integers(0, 8, n_pairs), rng.integers(0, 8, n_pairs)])
+    sizes[[0, n_pairs + 7]] = [1500, 300]
+    a, b = _wire_stream(rng, wire, sizes, length)
+    cfg = consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=10)
+    before = consensus_vote.fused_launches
+    got, got_stats = consensus_vote.duplex_wire(wire, a.to(card), _book_or_quals(wire, b, card),
+                                                sizes, cfg, length - 3,
+                                                packed_out=packed_out)
+    assert consensus_vote.fused_launches == before + 1
+    want, want_stats = consensus_vote.duplex_wire(wire, a, b, sizes, cfg, length - 3,
+                                                  packed_out=packed_out)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_stats.cpu(), want_stats)
+
+
+def test_segment_duplex_step_is_one_launch(card):
+    rng = np.random.default_rng(9)
+    n_pairs, length = 1000, 128
+    sizes = rng.integers(0, 8, 2 * n_pairs).astype(np.int32)
+    a, book = _wire_stream(rng, "pack4", sizes, length)
+    step = consensus_segment.segment_duplex_step(n_pairs, length, packed_out=True)
+    packed = a.to(card)
+    torch.cuda.synchronize()
+    before = (consensus_vote.fused_launches, consensus_vote.launches)
+    out = step(packed, sizes, book)
+    assert (consensus_vote.fused_launches, consensus_vote.launches) == (before[0] + 1,
+                                                                         before[1])
+    want = step(a, sizes, book)
+    for g, w in zip(out, want):
+        assert torch.equal(g.cpu(), w)

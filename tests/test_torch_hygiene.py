@@ -93,24 +93,35 @@ def test_vote_wrapper_on_cuda_tensor_never_runs_plain(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain vote reached for a CUDA tensor")
 
-    def launch(bases, quals, sizes, starts, config, length):
+    def launch(*a, **k):
         raise RuntimeError("kernel launch reached")
 
     monkeypatch.setattr(consensus_vote, "vote_members_plain", plain)
-    monkeypatch.setattr(consensus_vote, "_launch", launch)
+    monkeypatch.setattr(consensus_vote, "unpack_wire", plain)
+    monkeypatch.setattr(consensus_vote, "_prepare", launch)
     planes = _CudaLike(torch.zeros((4, 32), dtype=torch.uint8))
+    sizes = torch.tensor([2, 2], dtype=torch.int32)
     with pytest.raises(RuntimeError, match="kernel launch reached"):
-        consensus_vote.vote_members(planes, planes, torch.tensor([2, 2], dtype=torch.int32))
+        consensus_vote.vote_members(planes, planes, sizes)
+    for wire, book in (("raw", planes), ("pack6", torch.arange(16, dtype=torch.uint8)),
+                       ("pack4", torch.arange(4, dtype=torch.uint8))):
+        with pytest.raises(RuntimeError, match="kernel launch reached"):
+            consensus_vote.vote_wire(wire, planes, book, sizes)
+        with pytest.raises(RuntimeError, match="kernel launch reached"):
+            consensus_vote.duplex_wire(wire, planes, book, torch.tensor([1, 1, 1, 1]))
 
 
 def test_kernel_launch_refuses_cpu_planes():
     planes = torch.zeros((4, 32), dtype=torch.uint8)
     sizes, starts = torch.tensor([2, 2]), torch.tensor([0, 2])
     with pytest.raises(ValueError, match="CUDA planes"):
-        consensus_vote._launch(planes, planes, sizes, starts,
-                               consensus_vote.ConsensusConfig(), 32)
+        consensus_vote.prepare_wire("raw", planes, planes, sizes,
+                                    consensus_vote.ConsensusConfig(), 32)
     with pytest.raises(ValueError, match="CUDA planes"):
         consensus_vote._card_strand(planes, planes, sizes, starts)
+    with pytest.raises(ValueError, match="CUDA rows"):
+        consensus_vote.prepare_duplex_wire("pack4", planes, torch.arange(4, dtype=torch.uint8),
+                                           torch.tensor([1, 1, 1, 1]))
 
 
 def test_fused_wrapper_on_cuda_tensor_never_runs_plain(monkeypatch):
