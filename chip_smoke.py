@@ -7,10 +7,10 @@ failure; no phase's failure is caught.  Phases:
 
 1. the card's name and power limit, its SM count and top SM clock
    (``nvidia-smi``), from which the INT32 rate of the bounds follows;
-2. build ``csrc/consensus_vote.cu`` (one kernel template: the SSCS vote
-   and the fused duplex vote, each on the raw, pack8, pack6 and pack4
-   wires), timed, with each instantiation's registers, spills and shared
-   memory;
+2. build ``csrc/consensus_vote.cu`` (one kernel template: the SSCS vote,
+   the SSCS vote with the QC rider and the fused duplex vote, each on the
+   raw, pack8, pack6 and pack4 wires), timed, with each instantiation's
+   registers, spills and shared memory;
 3. each kernel against its plain PyTorch version on the card (the torch
    wire decode, then the plain vote), exactly (``torch.equal``), one launch
    per wrapper call, the path its tiles took (staged, direct, mixed):
@@ -19,12 +19,16 @@ failure; no phase's failure is caught.  Phases:
      family straddling the planner's byte budget, size-0 families at tile
      starts and ends, a family count that is not a multiple of the tile,
      70,000 families, a 1,500-member family (the direct path) and rows of
-     L 100, three configs; then its time at the main path's shape (the
-     largest early batch of the phase-5 input, its live families only) on
-     the wire the main path ships: the kernel alone (profiler), the call
-     as the main path pays it (checks, tile plan, one upload, the launch),
-     the same kernel on the torch-unpacked raw planes, and the yardstick
-     of the earlier design's path (torch ``unpack_wire`` + the kernel);
+     L 100, rows of L 640 (the QC rider's global-atomic form), three
+     configs, each also with the QC rider over per-family true lengths
+     that differ inside the batch (planes and rider sums exact); then its
+     time at the main path's shape (the largest early batch of the phase-5
+     input, its live families only) on the wire the main path ships: the
+     kernel alone (profiler), with the QC rider and without, in turns, the
+     call as the main path pays it (checks, tile plan, one upload, the
+     launch), the same kernel on the torch-unpacked raw planes, and the
+     yardstick of the earlier design's path (torch ``unpack_wire`` + the
+     kernel);
    - the fused duplex vote (B2): dense batches with PAD tails, size-0
      slots on strand A, on B and on both, F = 1, 7 and 8 of 10 at cutoff
      0.7, a first-seen tie with a demoted member, a stream batch with a
@@ -41,14 +45,20 @@ failure; no phase's failure is caught.  Phases:
      are held against the plain version and a numpy count;
 4. ``consensus --scorrect True`` on the committed ``test/data`` BAMs with
    residency on (the default), every digest of ``test/golden.json``
-   checked; ``sample.bam`` also with ``--residency False``, whose BAMs must
-   be byte-identical to the resident run's;
+   checked, each run's ``qc.json`` equal, whole, to the port's own
+   ``--device cpu`` run's; ``sample.bam`` also with ``--residency False``,
+   whose BAMs must be byte-identical to the resident run's, and with
+   ``--pipeline streaming --intermediate_taps True``, whose whole tree
+   (BAMs and indexes) must be the staged run's;
 5. the same command on a simulated BAM (``--fragments`` duplex fragments,
    seed 42, ``ref_len = 40 * fragments``), residency on: wall time,
-   families/s, reads/s, the SSCS kernel's launches (> 0) and the resident
-   duplex votes (pairs and rescues, each > 0); then four more runs of it,
-   ``--residency`` off, on, on, off, with their step walls, each writing
-   the same BAMs;
+   families/s, reads/s, the SSCS kernel's launches (> 0, every one with the
+   QC rider), the resident duplex votes (pairs and rescues, each > 0) and
+   a ``qc.json`` with its vote plane; then ``--resume True`` on the same
+   output (every stage skipped, no launch, every BAM's sha256 kept); then
+   five more runs of it with their step walls: staged with ``--residency``
+   off, staged, streaming, streaming, staged (taps off: the finals
+   byte-identical to the main run's, no intermediate written);
 6. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
    its kernel launches counted (> 0) and its outputs equal to the
    prestaged loop's.
@@ -60,7 +70,9 @@ The line before the last is the ``kernels`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -101,8 +113,12 @@ INT32_LANES_PER_SM = 64  # Hopper runs int32 adds, compares and selects on 64 la
 # The vote's integer work, in int32 operations: per member-position folded
 # (qual test, select, count, first-seen, agree test, qual add), per output
 # position finalized (max, argmin over first-seen, cutoff, cap), and per
-# pair-position combined into the DCS (agree tests, select, add, min).
-FOLD_OPS, FINALIZE_OPS, COMBINE_OPS = 6, 30, 6
+# pair-position combined into the DCS (agree tests, select, add, min).  The
+# QC rider's per live position (below its family's length): the five lane
+# counts summed (4 adds), the disagreement (1 subtract; the top count is the
+# finalize's maximum), the length test (1 compare) and the two sums it adds
+# into (2 adds).
+FOLD_OPS, FINALIZE_OPS, COMBINE_OPS, QC_OPS = 6, 30, 6, 8
 
 VOTE = {"name": "consensus_vote", "route": "cuda",
         "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
@@ -193,8 +209,8 @@ def phase_card() -> dict:
 
 def phase_build() -> None:
     """Build the kernels; report each instantiation of the template
-    (``<wire>/sscs`` and ``<wire>/duplex``): registers, spills, static and
-    dynamic shared memory per block."""
+    (``<wire>/sscs``, ``<wire>/sscs_qc`` and ``<wire>/duplex``): registers,
+    spills, static and dynamic shared memory per block."""
     t = time.perf_counter()
     so = cuda_lib.build("consensus_vote")
     build_s = time.perf_counter() - t
@@ -206,12 +222,13 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "entry function" in line or "Function properties" in line:
             # a noinline device function reports its own properties
-            entry = re.search(KERNEL + r"ILi(\d)ELb(\d)E", line)
+            entry = re.search(KERNEL + r"ILi(\d)ELb(\d)ELb(\d)E", line)
             if not entry:
                 current = None
                 continue
             duplex = entry.group(2) == "1"
-            current = f"{WIRES[int(entry.group(1))]}/{'duplex' if duplex else 'sscs'}"
+            form = "duplex" if duplex else ("sscs_qc" if entry.group(3) == "1" else "sscs")
+            current = f"{WIRES[int(entry.group(1))]}/{form}"
             kernels.setdefault(current, {})["dynamic_smem_bytes"] = \
                 consensus_vote._layouts[duplex].smem_bytes
         elif current and "registers" in line:
@@ -221,7 +238,7 @@ def phase_build() -> None:
         elif current and "spill" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             kernels[current].update(spill_stores=int(stores), spill_loads=int(loads))
-    want = {f"{w}/{form}" for w in WIRES for form in ("sscs", "duplex")}
+    want = {f"{w}/{form}" for w in WIRES for form in ("sscs", "sscs_qc", "duplex")}
     if set(kernels) != want or any("registers" not in k for k in kernels.values()):
         raise AssertionError(f"ptxas report lacks a kernel: {kernels}\n{log}")
     emit("build", source=VOTE["source"], seconds=build_s, ptxas=kernels)
@@ -342,6 +359,18 @@ def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
     bases, quals = (x.contiguous() for x in unpack_wire(wire, a_d, book_d))
     raw_job = consensus_vote.prepare_wire("raw", bases, quals, sizes, cfg, length=out_len)
     _check_equal("main_path_batch/raw_planes", raw_job()[0], want, errs)
+    # the same launch with the QC rider, as the main path makes it (the
+    # batch's true lengths); its sums are those of its first call (every
+    # call adds into them)
+    lengths = torch.from_numpy(batch.lengths[:batch.n_real])
+    qc_job = consensus_vote.prepare_wire(wire, a_d, b_arg, sizes, cfg, length=out_len,
+                                         qc_lengths=lengths)
+    qc_planes = qc_job()[0]
+    got_qc = qc_job.qc.clone()
+    want_planes, want_qc = consensus_vote.vote_wire_plain(wire, a_d, book_d, sizes, cfg,
+                                                          length=out_len, qc_lengths=lengths)
+    _check_equal("main_path_batch/qc_planes", qc_planes, want_planes, errs)
+    _check_equal("main_path_batch/qc", got_qc, want_qc, errs)
 
     def kernel():  # the bare launch, its records and tiles already on the card
         job()
@@ -360,25 +389,45 @@ def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
     def plain():
         consensus_vote.vote_wire_plain(wire, a_d, book_d, sizes, cfg, length=out_len)
 
+    def qc_plain():
+        consensus_vote.vote_wire_plain(wire, a_d, book_d, sizes, cfg, length=out_len,
+                                       qc_lengths=lengths)
+
     # the launch's fixed cost: the same kernel on the batch's first tile only
     one_tile = consensus_vote.prepare_wire(wire, a_d, b_arg, sizes[:job.plan.fams], cfg,
                                            length=out_len)
 
     # in turns within this one call
     first = kernel_ms(kernel, KERNEL, 500)
+    qc_runs = [kernel_ms(qc_job, KERNEL, 500)]
     one_tile_ms = kernel_ms(one_tile, KERNEL, 500)
     raw_ms = kernel_ms(raw_job, KERNEL, 500)
     unfused_runs = [cuda_ms(unfused, 200)]
     plain_runs = [cuda_ms(plain, 20), cuda_ms(plain, 20)]
+    qc_plain_ms = min(cuda_ms(qc_plain, 20), cuda_ms(qc_plain, 20))
     unfused_runs.append(cuda_ms(unfused, 200))
+    qc_runs.append(kernel_ms(qc_job, KERNEL, 500))
     again = kernel_ms(kernel, KERNEL, 500)
     call_runs = [cuda_ms(call, 200), cuda_ms(unfused_call, 200)]
     call_runs += [cuda_ms(unfused_call, 200), cuda_ms(call, 200)]
     nf, m = int(sizes.shape[0]), int(batch.n_members)
     # least work: the wire bytes of each live member-position voted read
-    # once, each live family's output (base + qual) written once
+    # once, each live family's output (base + qual) written once; with the
+    # rider also each family's length read and the (2, out_len) int32 sums
+    # written once, and the rider's operations at each family's positions
+    # below its length
+    live = int(torch.clamp(lengths, max=out_len).sum())
+    qc_bound = bound(int(WIRE_BYTES[wire] * m * out_len) + 2 * nf * out_len + 4 * nf
+                     + 8 * out_len,
+                     FOLD_OPS * m * out_len + FINALIZE_OPS * nf * out_len + QC_OPS * live,
+                     rates)
+    rider_bound = bound(4 * nf + 8 * out_len, QC_OPS * live, rates)
+    qc_row = {"ms": min(r["ms"] for r in qc_runs), "runs": qc_runs,
+              "plain_ms": qc_plain_ms, "bound_ms": qc_bound["bound_ms"],
+              "bound_by": qc_bound["bound_by"], "bound": qc_bound,
+              "rider_bound_ms": rider_bound["bound_ms"], "rider_bound": rider_bound}
     row = {
-        "ms": min(first["ms"], again["ms"]), "runs": [first, again],
+        "ms": min(first["ms"], again["ms"]), "runs": [first, again], "qc": qc_row,
         "raw_planes_ms": raw_ms["ms"], "one_tile_ms": one_tile_ms["ms"],
         "unfused_ms": min(unfused_runs),
         "unfused_runs": unfused_runs, "call_ms": min(call_runs[0], call_runs[3]),
@@ -389,7 +438,7 @@ def phase_vote_kernel(dev, sim_bam: str, rates: dict) -> dict:
         "max_abs_err": max(errs), "comparisons": len(errs),
         "path": job.plan.summary(), "wire_case_paths": wire_paths,
         "shape": {"wire": wire, "families": nf, "members": m, "L": int(bases.shape[1]),
-                  "out_len": out_len},
+                  "out_len": out_len, "qc_live_positions": live},
     }
     emit("kernels", kernel=VOTE["name"], **row)
     return row
@@ -437,17 +486,22 @@ def _wire_edge_sizes(rng, case):
         return sizes, 96
     if case == "rows_L100":  # rows not a multiple of 16 bytes
         return rng.integers(0, 7, 3000), 100
+    if case == "rows_L640":  # past the QC rider's shared-memory sums
+        return rng.integers(0, 6, 800), 640
     raise KeyError(case)
 
 
 WIRE_CASES = ("straddling_budget", "zeros_at_tile_edges", "not_a_tile_multiple",
-              "families_70000", "family_1500", "rows_L100")
+              "families_70000", "family_1500", "rows_L100", "rows_L640")
 
 
 def phase_wire_cases(dev) -> tuple[list[int], dict]:
     """B1 on every wire at the tile edges, against the plain version on the
-    card: three configs, two vote lengths, one launch per call."""
+    card: three configs, two vote lengths, one launch per call; each call
+    again with the QC rider over per-family true lengths that differ inside
+    the batch (a tenth of them 0), planes and rider sums exact."""
     errs: list[int] = []
+    qc_errs: list[int] = []
     paths: dict[str, dict] = {}
     for wire in WIRES:
         for case in WIRE_CASES:
@@ -455,6 +509,8 @@ def phase_wire_cases(dev) -> tuple[list[int], dict]:
             sizes, length = _wire_edge_sizes(rng, case)
             sizes = torch.from_numpy(sizes.astype(np.int64))
             kargs, pargs = _wire_args(dev, wire, *_wire_planes(rng, wire, sizes.numpy(), length))
+            lengths = rng.integers(length // 3, length + 1, sizes.shape[0])
+            lengths[rng.random(sizes.shape[0]) < 0.1] = 0
             for cfg in CONFIGS:
                 for out_len in (length, length - 5):
                     before = consensus_vote.launches
@@ -462,12 +518,24 @@ def phase_wire_cases(dev) -> tuple[list[int], dict]:
                     assert consensus_vote.launches == before + 1  # one launch per call
                     want = consensus_vote.vote_wire_plain(wire, *pargs, sizes, cfg, out_len)
                     _check_equal(f"{wire}/{case}/{cfg}/L={out_len}", got, want, errs)
+                    live = torch.from_numpy(np.minimum(lengths, out_len))
+                    before = consensus_vote.qc_launches
+                    got, got_qc = consensus_vote.vote_wire(wire, *kargs, sizes, cfg, out_len,
+                                                           qc_lengths=live)
+                    assert consensus_vote.qc_launches == before + 1
+                    _, want_qc = consensus_vote.vote_wire_plain(wire, *pargs, sizes, cfg, out_len,
+                                                                qc_lengths=live)
+                    _check_equal(f"{wire}/{case}/{cfg}/L={out_len}/qc_planes", got, want, errs)
+                    _check_equal(f"{wire}/{case}/{cfg}/L={out_len}/qc", got_qc, want_qc, qc_errs)
+                    if not int(want_qc[1].sum()):
+                        raise AssertionError(f"{wire}/{case}: the rider saw no disagreement")
             paths[f"{wire}/{case}"] = consensus_vote.last_plan.summary()
     if paths["pack6/family_1500"]["direct"] < 2:
         raise AssertionError(f"the 1,500-member family did not take the direct path: "
                              f"{paths['pack6/family_1500']}")
-    emit("wire_cases", comparisons=len(errs), max_abs_err=max(errs), paths=paths)
-    return errs, paths
+    emit("wire_cases", comparisons=len(errs), max_abs_err=max(errs), paths=paths,
+         qc_comparisons=len(qc_errs), qc_max_abs_err=max(qc_errs))
+    return errs + qc_errs, paths
 
 
 # --------------------------------------------------------- fused duplex vote
@@ -850,51 +918,82 @@ def phase_fused_path(dev, book, batches, reference) -> dict:
 # ---------------------------------------------------------------- main path
 
 
-def _bam_sha256(base: str) -> dict:
+def _bam_sha256(base: str, exts=(".bam",)) -> dict:
     out = {}
     for root, _dirs, files in os.walk(base):
         for f in files:
-            if f.endswith(".bam"):
+            if f.endswith(exts):
                 with open(os.path.join(root, f), "rb") as fh:
                     out[os.path.relpath(os.path.join(root, f), base)] = \
                         hashlib.sha256(fh.read()).hexdigest()
     return out
 
 
+def _qc_doc(base: str) -> dict:
+    with open(os.path.join(base, "qc.json")) as fh:
+        return json.load(fh)
+
+
 def phase_goldens(dev) -> dict:
+    """The committed BAMs: goldens, each card run's qc.json against the
+    port's own CPU run's, residency on against off, and streaming with taps
+    against staged (the whole tree, indexes included)."""
     golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
     out = {}
-    consensus_vote.launches = 0
+    consensus_vote.launches = consensus_vote.qc_launches = 0
     residency.pair_votes = residency.against_votes = 0
-    runs = (("sample.bam", "consensus", "golden", "True"),
-            ("sample.bam", "consensus", "golden", "False"),
-            ("sample_adversarial.bam", "consensus_adversarial", "golden_adv", "True"),
-            ("sample_bcerr.bam", "consensus_bcerr_exact", "golden_bcerr", "True"))
+    runs = (("sample.bam", "consensus", "golden", "True", "staged"),
+            ("sample.bam", "consensus", "golden", "False", "staged"),
+            ("sample.bam", "consensus", "golden", "True", "streaming"),
+            ("sample_adversarial.bam", "consensus_adversarial", "golden_adv", "True", "staged"),
+            ("sample_bcerr.bam", "consensus_bcerr_exact", "golden_bcerr", "True", "staged"))
     trees = {}
-    for bam, section, name, resident in runs:
+    for bam, section, name, resident, pipeline in runs:
         work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
+        argv = ["consensus", "-i", os.path.join(REPO, "test", "data", bam), "-o", work,
+                "-n", name, "--scorrect", "True", "--residency", resident,
+                "--pipeline", pipeline, "--intermediate_taps", "True"]
         t = time.perf_counter()
-        cli_main(["consensus", "-i", os.path.join(REPO, "test", "data", bam), "-o", work,
-                  "-n", name, "--scorrect", "True", "--device", dev.type,
-                  "--residency", resident])
+        res = cli_main(argv + ["--device", dev.type])
         wall = time.perf_counter() - t
-        bad = golden_mismatches(os.path.join(work, name), golden[section])
-        trees[(bam, resident)] = _bam_sha256(os.path.join(work, name))
+        if res["pipeline"] != pipeline:
+            raise AssertionError(f"{bam}: asked for {pipeline}, ran {res['pipeline']}")
+        base = os.path.join(work, name)
+        bad = golden_mismatches(base, golden[section])
+        trees[(bam, resident, pipeline)] = _bam_sha256(base, (".bam", ".bai"))
+        card_qc = _qc_doc(base)
+        qc_equal = None
+        if resident == "True" and pipeline == "staged":
+            # the reference of the card's qc.json: the port's plain versions
+            cli_main(argv + ["--device", "cpu", "-o", os.path.join(work, "cpu")])
+            qc_equal = card_qc == _qc_doc(os.path.join(work, "cpu", name))
         shutil.rmtree(work)
         if bad:
-            raise AssertionError(f"{bam} (residency {resident}): outputs diverge from "
-                                 f"{section} goldens: {bad}")
-        out[f"{bam}/residency={resident}"] = wall
-        emit("goldens", input=bam, residency=resident, digests=len(golden[section]),
-             wall_s=wall)
-    if trees[("sample.bam", "True")] != trees[("sample.bam", "False")]:
+            raise AssertionError(f"{bam} (residency {resident}, {pipeline}): outputs diverge "
+                                 f"from {section} goldens: {bad}")
+        if qc_equal is False:
+            raise AssertionError(f"{bam}: the card's qc.json differs from the CPU run's")
+        if not card_qc["plane"] or not card_qc["plane"]["total_votes"]:
+            raise AssertionError(f"{bam}: qc.json has no vote plane")
+        out[f"{bam}/residency={resident}/{pipeline}"] = wall
+        emit("goldens", input=bam, residency=resident, pipeline=pipeline,
+             digests=len(golden[section]), wall_s=wall, qc_equal_to_cpu=qc_equal,
+             qc_total_votes=card_qc["plane"]["total_votes"],
+             qc_positions=card_qc["plane"]["positions"])
+    staged = trees[("sample.bam", "True", "staged")]
+    if {k: v for k, v in staged.items() if k.endswith(".bam")} != \
+            {k: v for k, v in trees[("sample.bam", "False", "staged")].items()
+             if k.endswith(".bam")}:
         raise AssertionError("sample.bam: --residency True and False wrote different BAMs")
-    if consensus_vote.launches == 0:
-        raise AssertionError("the golden runs never launched the vote kernel")
+    if trees[("sample.bam", "True", "streaming")] != staged:
+        raise AssertionError("sample.bam: streaming with taps wrote another tree than staged")
+    if consensus_vote.launches == 0 or consensus_vote.qc_launches != consensus_vote.launches:
+        raise AssertionError(f"the golden runs launched the vote kernel {consensus_vote.launches} "
+                             f"times, {consensus_vote.qc_launches} with the QC rider")
     if residency.pair_votes == 0 or residency.against_votes == 0:
         raise AssertionError("the golden runs never voted from the resident store")
-    emit("residency_parity", input="sample.bam", bams=len(trees[("sample.bam", "True")]),
-         identical=True)
+    emit("residency_parity", input="sample.bam", bams=len(staged), identical=True)
+    emit("streaming_parity", input="sample.bam", files=len(staged), identical=True)
     return out
 
 
@@ -928,18 +1027,22 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
         _synced_timer(residency.ResidentPlanes, "duplex_against", device_s,
                       "resident_against_s"),
     ]
-    consensus_vote.launches = consensus_vote.fused_launches = 0
+    argv = ["consensus", "-i", sim_bam, "-o", work, "-n", "sim", "--scorrect", "True",
+            "--device", dev.type]
+    consensus_vote.launches = consensus_vote.qc_launches = consensus_vote.fused_launches = 0
     residency.pair_votes = residency.against_votes = 0
     t = time.perf_counter()
-    res = cli_main(["consensus", "-i", sim_bam, "-o", work, "-n", "sim",
-                    "--scorrect", "True", "--device", dev.type])
+    res = cli_main(argv)
     wall = time.perf_counter() - t
-    launches = consensus_vote.launches
+    launches, qc_launches = consensus_vote.launches, consensus_vote.qc_launches
     pair_votes, against_votes = residency.pair_votes, residency.against_votes
     for restore in restores:
         restore()
     if launches == 0:
         raise AssertionError("the main path never launched the vote kernel")
+    if qc_launches != launches:
+        raise AssertionError(f"{launches - qc_launches} of the main path's {launches} SSCS "
+                             "launches ran without the QC rider")
     if pair_votes == 0 or against_votes == 0:
         raise AssertionError(f"the main path voted too little from the resident store "
                              f"(pairs {pair_votes}, rescues {against_votes})")
@@ -952,11 +1055,36 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
     for key in ("all_sscs", "all_dcs"):
         if not os.path.exists(res[key] + ".bai"):
             raise AssertionError(f"{key} has no index")
+    base = os.path.join(work, "sim")
+    qc_doc = _qc_doc(base)
+    if not qc_doc["plane"] or not qc_doc["plane"]["total_votes"]:
+        raise AssertionError("the main path's qc.json has no vote plane")
+    with open(os.path.join(base, "run.metrics.json")) as fh:
+        run_metrics = json.load(fh)
+
+    # --resume on the same output: every stage skipped, nothing launched,
+    # every BAM as it was
+    shas = _bam_sha256(base)
+    consensus_vote.launches = 0
+    log = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli_main(argv + ["--resume", "True"])
+    resume_wall = time.perf_counter() - t
+    skipped = [stage for stage in MANIFEST_STAGES if f"skipping {stage} " in log.getvalue()]
+    if skipped != list(MANIFEST_STAGES) or consensus_vote.launches:
+        raise AssertionError(f"--resume skipped {skipped}, launched {consensus_vote.launches}")
+    if _bam_sha256(base) != shas:
+        raise AssertionError("--resume changed a BAM")
+    emit("resume", stages_skipped=skipped, wall_s=resume_wall, bams=len(shas))
     row = {"card": card, "wall_s": wall, "reads": stats["total_reads"],
            "families": stats["families"],
            "families_per_s": stats["families"] / wall, "reads_per_s": stats["total_reads"] / wall,
            "sscs_written": stats["sscs_written"], "dcs_written": dcs["dcs_written"],
            "dcs_pairs": dcs.get("pairs"), "vote_kernel_launches": launches,
+           "qc_launches": qc_launches, "qc_positions": qc_doc["plane"]["positions"],
+           "qc_disagree_rate": qc_doc["plane"]["disagree_rate"], "run_metrics": run_metrics,
+           "resume_wall_s": resume_wall,
            "resident_pair_votes": pair_votes, "resident_against_votes": against_votes,
            **device_s, "device_calls_share": sum(device_s.values()) / wall,
            "steps_s": res["walls"]}
@@ -964,36 +1092,65 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
     return row
 
 
-RESIDENCY_TURNS = ("False", "True", "True", "False")
-STEPS = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_unique", "index")
+MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_sscs",
+                   "merge_all_dcs")
+# (pipeline, residency) per turn: residency off once and on (staged) twice,
+# streaming twice between the staged-on turns
+WALL_TURNS = (("staged", "False"), ("staged", "True"), ("streaming", "True"),
+              ("streaming", "True"), ("staged", "True"))
+# the stage-to-stage BAMs streaming writes only as taps
+INTERMEDIATES = ("sscs/sim.singleton.sorted.bam", "singleton/sim.sscs.rescue.sorted.bam",
+                 "singleton/sim.singleton.rescue.sorted.bam", "dcs/sim.sscs.rescued.bam")
 
 
-def phase_residency_walls(dev, sim_bam: str, work: str, card: str) -> dict:
-    """The phase-5 command again, uninstrumented, with ``--residency`` off
-    and on in turns (off, on, on, off): step walls per run, the least per
-    mode, and every run's BAMs byte-identical to the main path's run."""
+def phase_walls(dev, sim_bam: str, work: str, card: str) -> dict:
+    """The phase-5 command again, uninstrumented, in turns (``WALL_TURNS``):
+    step walls and ``run.metrics.json`` per run.  A staged run's BAMs must
+    be the main run's; a streaming run (taps off) must write the main
+    run's finals byte for byte and no intermediate.  Each turn's launch
+    counts are set to 0 just before it and read just after: every turn
+    must launch the SSCS kernel, each launch with the QC rider."""
     want = _bam_sha256(os.path.join(work, "sim"))
+    finals = {k: v for k, v in want.items() if k not in INTERMEDIATES}
     runs = []
-    for turn, resident in enumerate(RESIDENCY_TURNS):
+    for turn, (pipeline, resident) in enumerate(WALL_TURNS):
         out = os.path.join(work, f"turn{turn}")
+        consensus_vote.launches = consensus_vote.qc_launches = 0
         t = time.perf_counter()
         res = cli_main(["consensus", "-i", sim_bam, "-o", out, "-n", "sim",
-                        "--scorrect", "True", "--device", dev.type, "--residency", resident])
+                        "--scorrect", "True", "--device", dev.type, "--residency", resident,
+                        "--pipeline", pipeline])
         wall = time.perf_counter() - t
-        if _bam_sha256(os.path.join(out, "sim")) != want:
-            raise AssertionError(f"--residency {resident} wrote other BAMs than the main run")
+        launches, qc_launches = consensus_vote.launches, consensus_vote.qc_launches
+        if launches == 0 or qc_launches != launches:
+            raise AssertionError(f"turn {turn} ({pipeline}) launched the SSCS kernel {launches} "
+                                 f"times, {qc_launches} with the QC rider")
+        got = _bam_sha256(os.path.join(out, "sim"))
+        if res["pipeline"] != pipeline:
+            raise AssertionError(f"turn {turn}: asked for {pipeline}, ran {res['pipeline']}")
+        if got != (want if pipeline == "staged" else finals):
+            raise AssertionError(f"turn {turn} ({pipeline}, residency {resident}) wrote other "
+                                 "BAMs than the main run")
+        with open(os.path.join(out, "sim", "run.metrics.json")) as fh:
+            metrics = json.load(fh)
         shutil.rmtree(out)
-        runs.append({"residency": resident, "wall_s": wall, "steps_s": res["walls"]})
-        emit("residency_turn", turn=turn, **runs[-1])
-    least = {mode: {step: min(r["steps_s"][step] for r in runs if r["residency"] == mode)
-                    for step in STEPS}
-             for mode in ("True", "False")}
-    for mode in least:
-        least[mode]["wall_s"] = min(r["wall_s"] for r in runs if r["residency"] == mode)
-    row = {"card": card, "turns": list(RESIDENCY_TURNS), "bams": len(want),
-           "least_on": least["True"], "least_off": least["False"],
-           "on_minus_off_s": {k: least["True"][k] - least["False"][k] for k in least["True"]}}
-    emit("residency_walls", **row)
+        runs.append({"pipeline": pipeline, "residency": resident, "wall_s": wall,
+                     "steps_s": res["walls"], "run_metrics": metrics, "launches": launches})
+        emit("wall_turn", turn=turn, **runs[-1])
+
+    def walls(pipeline, resident):
+        return [r["wall_s"] for r in runs
+                if (r["pipeline"], r["residency"]) == (pipeline, resident)]
+
+    staged, streaming = walls("staged", "True"), walls("streaming", "True")
+    row = {"card": card, "turns": [list(t) for t in WALL_TURNS], "bams": len(want),
+           "staged_walls_s": staged, "streaming_walls_s": streaming,
+           "staged_spread_s": max(staged) - min(staged),
+           "streaming_spread_s": max(streaming) - min(streaming),
+           "streaming_minus_staged_least_s": min(streaming) - min(staged),
+           "residency_off_wall_s": walls("staged", "False")[0],
+           "residency_on_minus_off_least_s": min(staged) - walls("staged", "False")[0]}
+    emit("walls", **row)
     return row
 
 
@@ -1027,7 +1184,7 @@ def main() -> None:
         stage, reference = phase_fused_stage(dev, rates, fused_errs, book, batches)
         phase_goldens(dev)
         scale = phase_scale(dev, sim_bam, truth, work, rates["card"])
-        phase_residency_walls(dev, sim_bam, work, rates["card"])
+        phase_walls(dev, sim_bam, work, rates["card"])
         path = phase_fused_path(dev, book, batches, reference)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1039,7 +1196,11 @@ def main() -> None:
          "bound_by": vote["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
          "unfused_ms": vote["unfused_ms"], "raw_planes_ms": vote["raw_planes_ms"],
          "call_ms": vote["call_ms"], "unfused_call_ms": vote["unfused_call_ms"],
-         "path": vote["path"], "shape": vote["shape"]},
+         "path": vote["path"], "shape": vote["shape"],
+         "qc_launches": scale["qc_launches"], "qc_ms": vote["qc"]["ms"],
+         "qc_plain_ms": vote["qc"]["plain_ms"], "qc_bound_ms": vote["qc"]["bound_ms"],
+         "qc_bound_by": vote["qc"]["bound_by"],
+         "rider_bound_ms": vote["qc"]["rider_bound_ms"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

@@ -6,10 +6,13 @@ beside the JAX package (which stays the reference).  The port imports
 (``io/``, ``core/``, ``utils/``, ``stages/grouping``, ``parallel/batching``)
 under the reference's module names.
 
-Ported so far: ``consensus --scorrect True`` on the staged pipeline — the
-SSCS vote over the packed member-stream wire (a hand-written CUDA kernel,
+Ported so far: ``consensus --scorrect True`` on the staged pipeline and
+on the streaming one (``--pipeline streaming``) — the SSCS vote over the
+packed member-stream wire with its QC rider (a hand-written CUDA kernel,
 ``csrc/consensus_vote.cu``), the vectorized singleton rescue, DCS, the
-all-unique merges and the BAI indexes.  Entry points run on the CUDA card
+all-unique merges, the BAI indexes, and the run's ``qc.json``,
+``manifest.json`` (``--resume``) and ``run.metrics.json``; and the fused
+SSCS+DCS API.  Entry points run on the CUDA card
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where each kernel's plain PyTorch version runs instead.
 """

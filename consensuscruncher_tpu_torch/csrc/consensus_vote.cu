@@ -66,7 +66,19 @@
 //   - the duplex form reduces its stats [real, duplexes, n_count, q_sum] per
 //     warp and block and adds them with one integer atomic per block and
 //     stat (order free, so deterministic) into zeros uploaded with the
-//     records, and can write sscs_a | sscs_b << 3, qa, qb.
+//     records, and can write sscs_a | sscs_b << 3, qa, qb;
+//   - the SSCS form with the QC rider (kQc; the with_qc planes of the JAX
+//     package's _stream_vote_fn) also sums, over the call's families, each
+//     position's votes and votes that disagree with the modal lane
+//     (vote_state.cuh's qc(), failed votes included), at positions below
+//     each family's true length (cells past it hold codebook-legal
+//     garbage).  The length rides in the high 32 bits of the family's size
+//     record, so it reaches the consumers staged with the records; the
+//     size is the record's low 32 bits.  Each block sums into shared memory
+//     and adds its (2, length) int32 sums into zeros uploaded with the
+//     records, one integer atomic per position and stat.  The rider is a
+//     template flag: the SSCS form without it and the duplex form compile
+//     as before it existed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +99,14 @@ constexpr int kMetaBytes = 2048;       // a tile's family records
 constexpr int kDataBytes = 12288;      // a tile's member rows, all strands and planes
 constexpr int kStageBytes = kMetaBytes + kDataBytes;
 constexpr int kTileCols = 8;           // f0, f1, staged, off0, bytes0, off1, bytes1, 0
+// The QC rider sums a block's positions in shared memory up to this vote
+// length (4 KB of the block's shared memory beside its ring); a longer
+// call adds every item's sums to the output with global atomics instead.
+constexpr int kQcSmemLength = 512;
+// The rider's forms keep two blocks per SM (up to 112 registers): at
+// three, their 72 registers spilled, and two blocks without spills voted
+// faster.
+constexpr int kQcMinBlocks = 2;
 
 // Positions per thread: 4 for the SSCS vote (one pack6 base byte, two qual
 // bytes per member), 2 for the duplex vote, whose two strands' tallies and
@@ -111,6 +131,8 @@ struct Params {
   int packed_out;
   int vec;                     // bit s: strand s allows 4-byte loads
   uint32_t book[16];           // codebook (pack4: the first 4)
+  int32_t* qc_out;             // the QC rider's (2, length) sums, zeroed (last, so
+                               // the fields above keep their offsets)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -223,12 +245,15 @@ __device__ __forceinline__ void load_group(const uint8_t* __restrict__ r0,
 }
 
 // Vote positions kPos*g.. of one family of `size` members, its first row at r0
-// (raw quals at r1), rows row_bytes apart.
-template <int W, int kPos, class Tally>
+// (raw quals at r1), rows row_bytes apart.  rider (the QC rider's
+// instantiations only) takes each position's QC part, (j, QcPart), as soon
+// as the tally holds it, so no part stays live across the finalizes.
+template <int W, int kPos, class Tally, class... Rider>
 __device__ __forceinline__ void vote_rows(const uint8_t* r0, const uint8_t* r1,
                                           int64_t row_bytes, int64_t width, bool vec,
                                           int size, int g, const Params& p,
-                                          const uint32_t* inc, Vote (&v)[kPos]) {
+                                          const uint32_t* inc, Vote (&v)[kPos],
+                                          Rider&... rider) {
   Tally t[kPos];
 #pragma unroll
   for (int j = 0; j < kPos; ++j) t[j].init();
@@ -243,6 +268,7 @@ __device__ __forceinline__ void vote_rows(const uint8_t* r0, const uint8_t* r1,
   }
 #pragma unroll
   for (int j = 0; j < kPos; ++j) {
+    (rider(j, t[j].qc()), ...);
     v[j] = cct::finalize(t[j], size, p.num, p.den, p.qual_cap, [&](int m) {
       int b[kPos];
       uint32_t e[kPos];
@@ -255,12 +281,14 @@ __device__ __forceinline__ void vote_rows(const uint8_t* r0, const uint8_t* r1,
 
 // A family of more than kPackedMax members (the direct path only): one
 // position at a time, so the wide tally costs no more registers than the
-// packed one.
-template <int W, int kPos>
+// packed one.  rider as in vote_rows; without it the function is what it
+// was before the QC rider.
+template <int W, int kPos, class... Rider>
 __device__ __noinline__ void vote_rows_wide(const uint8_t* r0, const uint8_t* r1,
                                             int64_t row_bytes, int64_t width, bool vec,
                                             int size, int g, const Params& p,
-                                            const uint32_t* inc, Vote (&v)[kPos]) {
+                                            const uint32_t* inc, Vote (&v)[kPos],
+                                            Rider&... rider) {
 #pragma unroll 1
   for (int j = 0; j < kPos; ++j) {
     cct::WideTally t;
@@ -274,6 +302,7 @@ __device__ __noinline__ void vote_rows_wide(const uint8_t* r0, const uint8_t* r1
       for (int k = 0; k < kPos; ++k)
         if (k == j) t.fold(b[k], e[k]);
     }
+    (rider(j, t.qc()), ...);
     v[j] = cct::finalize(t, size, p.num, p.den, p.qual_cap, [&](int m) {
       int b[kPos];
       uint32_t e[kPos];
@@ -288,15 +317,17 @@ __device__ __noinline__ void vote_rows_wide(const uint8_t* r0, const uint8_t* r1
   }
 }
 
-template <int W, int kPos>
+template <int W, int kPos, class... Rider>
 __device__ __forceinline__ void vote_family(const uint8_t* r0, const uint8_t* r1,
                                             int64_t row_bytes, int64_t width, bool vec,
                                             int size, int g, const Params& p,
-                                            const uint32_t* inc, Vote (&v)[kPos]) {
+                                            const uint32_t* inc, Vote (&v)[kPos],
+                                            Rider&... rider) {
   if (size <= cct::kPackedMax)
-    vote_rows<W, kPos, cct::PackedTally>(r0, r1, row_bytes, width, vec, size, g, p, inc, v);
+    vote_rows<W, kPos, cct::PackedTally>(r0, r1, row_bytes, width, vec, size, g, p, inc, v,
+                                         rider...);
   else
-    vote_rows_wide<W, kPos>(r0, r1, row_bytes, width, vec, size, g, p, inc, v);
+    vote_rows_wide<W, kPos>(r0, r1, row_bytes, width, vec, size, g, p, inc, v, rider...);
 }
 
 // Where strand s's rows of the tile in one stage are read from: the staged
@@ -319,17 +350,19 @@ __device__ __forceinline__ Source strand_source(const Params& p, const int64_t* 
   return Source{p.plane[s][0], p.plane[s][1], 0};
 }
 
-// Vote strand s of local family lf of a tile (records `meta`, rows at `src`).
-template <int W, int kRec, int kPos>
+// Vote strand s of local family lf of a tile (records `meta`, rows at `src`);
+// rider as in vote_rows.
+template <int W, int kRec, int kPos, class... Rider>
 __device__ __forceinline__ int vote_strand(const Params& p, const Source& src,
                                            const int64_t* meta, int lf, int s, int g,
-                                           const uint32_t* inc, Vote (&v)[kPos]) {
+                                           const uint32_t* inc, Vote (&v)[kPos],
+                                           Rider&... rider) {
   const int64_t start = meta[lf * kRec + 2 * s];
   const int size = static_cast<int>(meta[lf * kRec + 2 * s + 1]);
   const int64_t rb = p.row_bytes[s];
   const int64_t at = start * rb + src.rel;
   vote_family<W, kPos>(src.r0 + at, src.r1 + at, rb, p.width[s], (p.vec >> s) & 1, size, g, p,
-                       inc, v);
+                       inc, v, rider...);
   return size;
 }
 
@@ -363,8 +396,9 @@ __device__ __forceinline__ void store_group(uint8_t* o, int g, int length,
 // per strand, the byte range from the first family's first row to the last
 // family's end, rounded outward to 16 bytes; staged iff every range stays
 // inside its plane and all fit a stage.  ops/tiles.py's _table computes the
-// same rows on the host.
-template <int W, int kRec>
+// same rows on the host.  kQc: the size records carry the QC rider's
+// lengths in their high 32 bits.
+template <int W, int kRec, bool kQc>
 __device__ void tile_row(const Params& p, int64_t t, int64_t (&row)[kTileCols]) {
   constexpr int kPlanes = W == kRaw ? 2 : 1;
   const int64_t f0 = t * p.fams;
@@ -379,7 +413,9 @@ __device__ void tile_row(const Params& p, int64_t t, int64_t (&row)[kTileCols]) 
     row[3 + 2 * s] = row[4 + 2 * s] = 0;
     if (2 * s >= kRec) continue;
     const int64_t lo = p.fam[f0 * kRec + 2 * s];
-    const int64_t hi = p.fam[(f1 - 1) * kRec + 2 * s] + p.fam[(f1 - 1) * kRec + 2 * s + 1];
+    const int64_t hi = p.fam[(f1 - 1) * kRec + 2 * s] +
+                       (kQc ? p.fam[(f1 - 1) * kRec + 2 * s + 1] & 0xFFFFFFFF
+                            : p.fam[(f1 - 1) * kRec + 2 * s + 1]);
     if (hi <= lo) continue;  // no member row in the tile
     const int64_t off = (lo * p.row_bytes[s]) & ~int64_t{15};
     const int64_t end = ((hi - 1) * p.row_bytes[s] + p.width[s] + 15) & ~int64_t{15};
@@ -426,10 +462,11 @@ __device__ void issue_tile(const Params& p, const int64_t (&row)[kTileCols], int
 // uniform tiles, derive) the block's next 32 tile rows at once; lane 0 then stages tile after tile into
 // a ring of kStages, waiting for a stage's "empty" barrier before reusing
 // it.  The other warps consume each tile as soon as its "full" barrier
-// completes and release it per warp.
-template <int W, bool kDuplex>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+// completes and release it per warp.  kQc (SSCS only): the QC rider.
+template <int W, bool kDuplex, bool kQc>
+__global__ void __launch_bounds__(kBlock, kQc ? kQcMinBlocks : kMinBlocks)
     vote_tiles_kernel(const __grid_constant__ Params p) {
+  static_assert(!(kDuplex && kQc), "the QC rider rides the SSCS vote only");
   constexpr int kRec = kDuplex ? 4 : 2;
   constexpr int kPos = pos_for(kDuplex);
   constexpr int kWarps = kThreads / 32;
@@ -439,10 +476,17 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   __shared__ int64_t info[kStages][kTileCols];
   __shared__ uint32_t inc[16];  // the increment of each codebook entry
   __shared__ int block_stats[4];
+  // the QC rider's block sums: votes at [0, length), disagree at [length, 2 length)
+  __shared__ int qc_sums[kQc ? 2 * kQcSmemLength : 1];
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   if (tid < 16) inc[tid] = cct::increment(static_cast<int>(p.book[tid]), p.qual_threshold);
   if (tid < 4) block_stats[tid] = 0;
+  const bool qc_in_smem = kQc && p.length <= kQcSmemLength;
+  if constexpr (kQc) {
+    if (qc_in_smem)
+      for (int i = tid; i < 2 * p.length; i += kBlock) qc_sums[i] = 0;
+  }
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -460,7 +504,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 #pragma unroll
           for (int c = 0; c < kTileCols; ++c) rows[c] = p.tiles[mine * kTileCols + c];
         } else {
-          tile_row<W, kRec>(p, mine, rows);
+          tile_row<W, kRec, kQc>(p, mine, rows);
         }
       }
       for (int j = 0; j < 32; ++j) {
@@ -501,7 +545,28 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       const int g = i - lf * p.groups;
       const int64_t o = (f0 + lf) * p.length + kPos * g;
       Vote va[kPos];
-      const int na = vote_strand<W, kRec, kPos>(p, src_a, meta, lf, 0, g, inc, va);
+      int na;
+      if constexpr (kQc) {
+        // the QC rider: positions past the family's true length (the high
+        // word of its staged size record) are wire padding; a position's
+        // votes and disagreement are added as soon as its tally is folded
+        const int len = static_cast<int>(meta[lf * kRec + 1] >> 32);
+        const int live = min(len, p.length) - kPos * g;
+        auto rider = [&](int j, const cct::QcPart& q) {
+          if (j >= live) return;
+          const int pos = kPos * g + j, disagree = q.votes - q.top;
+          if (qc_in_smem) {  // shared-memory atomics; a generic pointer would lose them
+            if (q.votes) atomicAdd(&qc_sums[pos], q.votes);
+            if (disagree) atomicAdd(&qc_sums[p.length + pos], disagree);
+          } else {
+            if (q.votes) atomicAdd(p.qc_out + pos, q.votes);
+            if (disagree) atomicAdd(p.qc_out + p.length + pos, disagree);
+          }
+        };
+        na = vote_strand<W, kRec, kPos>(p, src_a, meta, lf, 0, g, inc, va, rider);
+      } else {
+        na = vote_strand<W, kRec, kPos>(p, src_a, meta, lf, 0, g, inc, va);
+      }
       if (!kDuplex) {
         int x[kPos], y[kPos];
 #pragma unroll
@@ -568,9 +633,16 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
     if (tid < 4) atomicAdd(p.stats + tid, block_stats[tid]);
   }
+  if constexpr (kQc) {
+    if (qc_in_smem) {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+      for (int i = tid; i < 2 * p.length; i += kThreads)
+        if (qc_sums[i]) atomicAdd(p.qc_out + i, qc_sums[i]);
+    }
+  }
 }
 
-template <int W, bool kDuplex>
+template <int W, bool kDuplex, bool kQc>
 struct Launcher {
   static int grid_blocks() {
     static int cached = 0;
@@ -578,40 +650,48 @@ struct Launcher {
       int dev = 0, sms = 0, per_sm = 0;
       cudaGetDevice(&dev);
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaFuncSetAttribute(vote_tiles_kernel<W, kDuplex>,
+      cudaFuncSetAttribute(vote_tiles_kernel<W, kDuplex, kQc>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kStages * kStageBytes);
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, vote_tiles_kernel<W, kDuplex>, kBlock, kStages * kStageBytes);
+          &per_sm, vote_tiles_kernel<W, kDuplex, kQc>, kBlock, kStages * kStageBytes);
       cached = sms * (per_sm > 0 ? per_sm : 1);
     }
     return cached;
   }
   static int launch(const Params& p, cudaStream_t stream) {
     const int grid = p.n_tiles < grid_blocks() ? p.n_tiles : grid_blocks();
-    vote_tiles_kernel<W, kDuplex><<<grid, kBlock, kStages * kStageBytes, stream>>>(p);
+    vote_tiles_kernel<W, kDuplex, kQc><<<grid, kBlock, kStages * kStageBytes, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <bool kDuplex>
+template <bool kDuplex, bool kQc>
 int dispatch(int wire, const Params* p, cudaStream_t stream, bool grid_only) {
   switch (wire) {
     case kRaw:
-      return grid_only ? Launcher<kRaw, kDuplex>::grid_blocks()
-                       : Launcher<kRaw, kDuplex>::launch(*p, stream);
+      return grid_only ? Launcher<kRaw, kDuplex, kQc>::grid_blocks()
+                       : Launcher<kRaw, kDuplex, kQc>::launch(*p, stream);
     case kPack8:
-      return grid_only ? Launcher<kPack8, kDuplex>::grid_blocks()
-                       : Launcher<kPack8, kDuplex>::launch(*p, stream);
+      return grid_only ? Launcher<kPack8, kDuplex, kQc>::grid_blocks()
+                       : Launcher<kPack8, kDuplex, kQc>::launch(*p, stream);
     case kPack6:
-      return grid_only ? Launcher<kPack6, kDuplex>::grid_blocks()
-                       : Launcher<kPack6, kDuplex>::launch(*p, stream);
+      return grid_only ? Launcher<kPack6, kDuplex, kQc>::grid_blocks()
+                       : Launcher<kPack6, kDuplex, kQc>::launch(*p, stream);
     case kPack4:
-      return grid_only ? Launcher<kPack4, kDuplex>::grid_blocks()
-                       : Launcher<kPack4, kDuplex>::launch(*p, stream);
+      return grid_only ? Launcher<kPack4, kDuplex, kQc>::grid_blocks()
+                       : Launcher<kPack4, kDuplex, kQc>::launch(*p, stream);
     default:
       return grid_only ? 0 : static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The instantiation of a call: SSCS (with or without the QC rider) or duplex.
+int dispatch_form(int wire, int duplex, int qc, const Params* p, cudaStream_t stream,
+                  bool grid_only) {
+  if (duplex) return dispatch<true, false>(wire, p, stream, grid_only);
+  return qc ? dispatch<false, true>(wire, p, stream, grid_only)
+            : dispatch<false, false>(wire, p, stream, grid_only);
 }
 
 }  // namespace
@@ -633,10 +713,10 @@ void cct_tile_constants(int duplex, int64_t* out) {
   out[6] = kStages;
 }
 
-// Blocks of the persistent grid (SMs x resident blocks per SM).
-int cct_tile_grid(int wire, int duplex) {
-  return duplex ? dispatch<true>(wire, nullptr, nullptr, true)
-                : dispatch<false>(wire, nullptr, nullptr, true);
+// Blocks of the persistent grid (SMs x resident blocks per SM) of one
+// instantiation (qc: the SSCS vote with the QC rider).
+int cct_tile_grid(int wire, int duplex, int qc) {
+  return dispatch_form(wire, duplex, qc, nullptr, nullptr, true);
 }
 
 // One launch of the vote over a planned tile table on `stream`.
@@ -647,14 +727,16 @@ int cct_tile_grid(int wire, int duplex) {
 // families, or null for n_tiles uniform tiles of `fams` of the `nf`
 // families (tile_row); book: 16 codebook bytes (pack4: the first 4); out:
 // plane k of family f at k * plane_stride + f * length; stats (duplex): 4
-// int32 the caller zeroed.  Returns cudaGetLastError().
+// int32 the caller zeroed; qc_out (SSCS with the QC rider, else null): (2,
+// length) int32 the caller zeroed, each family's true length then in the
+// high 32 bits of its size record.  Returns cudaGetLastError().
 int cct_vote_tiles(int wire, int duplex, const void* const* planes,
                    const int64_t* row_bytes, const int64_t* width, const int64_t* extent,
                    const void* fam, const void* tiles, int64_t fams, int64_t nf,
                    int n_tiles, int length, int num, int den,
                    int qual_threshold, int qual_cap, const uint8_t* book, void* out,
                    int64_t plane_stride, void* stats, int packed_out, int vec,
-                   void* stream) {
+                   void* qc_out, void* stream) {
   if (n_tiles <= 0 || length <= 0) return static_cast<int>(cudaGetLastError());
   Params p;
   for (int s = 0; s < 2; ++s) {
@@ -682,9 +764,10 @@ int cct_vote_tiles(int wire, int duplex, const void* const* planes,
   p.stats = static_cast<int32_t*>(stats);
   p.packed_out = packed_out;
   p.vec = vec;
+  p.qc_out = static_cast<int32_t*>(qc_out);
   for (int k = 0; k < 16; ++k) p.book[k] = book[k];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return duplex ? dispatch<true>(wire, &p, st, false) : dispatch<false>(wire, &p, st, false);
+  const int qc = !duplex && qc_out != nullptr;
+  return dispatch_form(wire, duplex, qc, &p, static_cast<cudaStream_t>(stream), false);
 }
 
 const char* cct_error_string(int code) {

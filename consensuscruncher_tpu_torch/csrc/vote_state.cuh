@@ -30,6 +30,12 @@
 //     which it is whenever 2 * max_count > size (always, for a vote that
 //     passes a cutoff above 1/2).  Larger families keep counts and sums
 //     apart (WideTally).
+//
+// The QC rider (port of the with_qc planes of _stream_vote_fn) reads the
+// same tally: qc() gives, for one (family, position), the members whose
+// effective lane is one of A C G T N (a PAD code with a passing qual joins
+// none) and the top count, whether or not the vote passes the cutoff; the
+// rider's disagree is their difference.
 
 #pragma once
 
@@ -50,6 +56,11 @@ constexpr uint32_t kCountOne = 1u << kCountShift;
 struct Vote {
   int base;
   int qual;
+};
+
+struct QcPart {
+  int votes;  // members in a lane
+  int top;    // the top count of a lane
 };
 
 // A member's increment at one position from its Phred q: 0 if q fails the
@@ -82,6 +93,20 @@ struct PackedTally {
   __device__ __forceinline__ int qsum(int k) const {
     return static_cast<int>((acc[k] >> kSumShift) & 0xFFFFu);
   }
+  // The counts sit above the sums, so the lanes' maximum holds the top
+  // count.  The lanes' total is the members in a lane above bit 19: each
+  // passing member's qual is in one lane only, so the sums add up to at
+  // most kPackedMax * 255, which with the lane indices (0 + 1 + 2 + 3 + 4)
+  // stays below 2^16 << 3 and never carries into the counts.
+  __device__ __forceinline__ QcPart qc() const {
+    uint32_t top = acc[0], total = acc[0];
+#pragma unroll
+    for (int k = 1; k < kLanes; ++k) {
+      top = max(top, acc[k]);
+      total += acc[k];
+    }
+    return QcPart{static_cast<int>(total >> kCountShift), static_cast<int>(top >> kCountShift)};
+  }
 };
 
 struct WideTally {
@@ -104,6 +129,15 @@ struct WideTally {
   }
   __device__ __forceinline__ int count(int k) const { return cnt[k]; }
   __device__ __forceinline__ int qsum(int k) const { return qs[k]; }
+  __device__ __forceinline__ QcPart qc() const {
+    QcPart r{cnt[0], cnt[0]};
+#pragma unroll
+    for (int k = 1; k < kLanes; ++k) {
+      r.votes += cnt[k];
+      r.top = max(r.top, cnt[k]);
+    }
+    return r;
+  }
 };
 
 // _finalize_vote.  lane_of(m) is the effective lane of member m at this

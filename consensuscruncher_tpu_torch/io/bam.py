@@ -643,3 +643,51 @@ def merge_bams(in_paths: list, out_path, level: int = 6, index: bool = True) -> 
         raise
     writer.close()
 
+
+def merge_memory_bams(parts: list, out_path=None, level: int = 6,
+                      index: bool = True):
+    """:func:`merge_bams`' in-memory twin for the streaming pipeline.
+
+    ``parts`` are :class:`~consensuscruncher_tpu_torch.io.columnar.MemoryBam`
+    objects; empty ones contribute no records, exactly like a file-based
+    merge of header-only BAMs.  The merge streams each
+    part's sorted record blobs *in input order* through a fresh
+    ``SortingBamWriter`` — the identical construction ``merge_bams`` uses
+    on its in-memory path, so output bytes match file-based merges of the
+    materialized parts byte for byte.
+
+    ``out_path`` set: write the merged BAM (atomic, inline ``.bai`` when
+    ``index``) and return None.  ``out_path`` None: return the merged
+    ``MemoryBam`` via ``close_to_memory``.  Raises
+    ``core.streamgraph.StreamFallback`` when the combined parts exceed the
+    writer's in-memory budget (the CLI falls back to the staged pipeline
+    rather than spill-resorting sorted data).
+    """
+    from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
+    from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter
+
+    parts = list(parts)
+    if not parts:
+        raise ValueError("merge_memory_bams: no inputs")
+    for m in parts[1:]:
+        if m.header.refs != parts[0].header.refs:
+            raise ValueError(
+                "merge_memory_bams: inputs must share a reference dictionary")
+    writer = SortingBamWriter(
+        os.fspath(out_path) if out_path is not None else "<memory>",
+        parts[0].header, level=level, index=index)
+    if sum(m.nbytes for m in parts) > writer._max_raw:
+        writer.abort()
+        raise StreamFallback(
+            "merge_memory_bams: inputs exceed the in-memory sort budget")
+    try:
+        for m in parts:
+            for blob in m.record_blobs():
+                writer.write_encoded(blob)
+        if out_path is None:
+            return writer.close_to_memory()
+        writer.close()
+        return None
+    except BaseException:
+        writer.abort()
+        raise

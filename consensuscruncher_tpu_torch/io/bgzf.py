@@ -22,6 +22,7 @@ import os
 import struct
 import sys
 import threading
+import time
 import zlib
 from typing import BinaryIO, Iterator
 
@@ -206,6 +207,31 @@ def scan_block_metas(buf: bytes, tolerant: bool = False) -> tuple[tuple, int]:
         np.asarray(crcs, dtype=np.uint32),
     )
     return metas, pos
+
+
+# ---------------------------------------------------------- write stats
+#
+# Process-wide accumulator for what the writer layer actually spent:
+# wall microseconds inside deflate+compressed-write and compressed bytes
+# emitted (EOF markers included).  A run snapshots it before and after
+# and publishes the difference (``run.metrics.json``) without threading a
+# stats object through every writer construction site.  Lock-protected
+# because async writers deflate on worker threads.
+_stats_lock = threading.Lock()
+_stats = {"deflate_wall_us": 0, "bytes_written": 0}
+
+
+def _stats_add(wall_us: int, nbytes: int) -> None:
+    with _stats_lock:
+        _stats["deflate_wall_us"] += int(wall_us)
+        _stats["bytes_written"] += int(nbytes)
+
+
+def write_stats() -> dict[str, int]:
+    """Snapshot of the process-wide writer stats (cumulative; callers
+    diff two snapshots to attribute cost to a code region)."""
+    with _stats_lock:
+        return dict(_stats)
 
 
 def codec_threads() -> int:
@@ -483,6 +509,9 @@ class BgzfWriter(io.RawIOBase):
 
     # -- deflate (runs on the worker thread when async, else inline) ------
     def _deflate_and_write(self, payload: bytes) -> None:
+        # the elapsed wall feeds the write stats only, never output bytes
+        t0 = time.perf_counter_ns()
+        nbytes = 0
         if self._native:
             threads = codec_threads()
             if self.block_sizes is not None:
@@ -492,6 +521,7 @@ class BgzfWriter(io.RawIOBase):
             else:
                 data = native.deflate_payload(payload, self._level, threads)
             self._fh.write(data)
+            nbytes = len(data)
         else:
             # Per-block deflate is embarrassingly parallel AND bit-
             # reproducible: each block is an independent zlib stream at a
@@ -510,6 +540,8 @@ class BgzfWriter(io.RawIOBase):
                 if self.block_sizes is not None:
                     self.block_sizes.append(len(block))
                 self._fh.write(block)
+                nbytes += len(block)
+        _stats_add((time.perf_counter_ns() - t0) // 1000, nbytes)
 
     def _emit(self, size: int) -> None:
         payload, self._buf = bytes(self._buf[:size]), self._buf[size:]
@@ -554,6 +586,7 @@ class BgzfWriter(io.RawIOBase):
             if not self._eof_written:
                 self._fh.write(BGZF_EOF)
                 self._eof_written = True
+                _stats_add(0, len(BGZF_EOF))
         finally:
             try:
                 if self._own:

@@ -872,6 +872,28 @@ class SortingBamWriter:
         _write_bam_records(self._path, self.header, big, starts, lengths,
                            self._level, index=self._index)
 
+    def close_to_memory(self) -> "MemoryBam":
+        """Finish the sort WITHOUT writing the file: the streaming
+        pipeline's stage hand-off.  The returned :class:`MemoryBam` holds
+        the records in exactly the order and bytes :meth:`close` would
+        have written, so materializing it later (final output or debug
+        tap) is byte-identical to the staged path.
+
+        Raises ``core.streamgraph.StreamFallback`` when the writer spilled —
+        past the in-memory budget the staged sort/merge path is the only
+        bounded one, and the CLI re-runs the staged pipeline on it.
+        """
+        from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
+
+        if self._closed:
+            raise RuntimeError("SortingBamWriter is already closed")
+        if self._spill is not None:
+            raise StreamFallback(
+                "sort buffer spilled to disk; in-memory stage hand-off "
+                "unavailable (falling back to the staged pipeline)")
+        self._closed = True
+        big, starts, lengths = self._sorted_columns()
+        return MemoryBam(self.header, big, starts, lengths)
 
     def abort(self) -> None:
         self._closed = True
@@ -891,9 +913,83 @@ class SortingBamWriter:
             self.close()
 
 
+class MemoryBam:
+    """A sorted BAM held as in-memory columns — the streaming pipeline's
+    inter-stage currency.
+
+    Produced by :meth:`SortingBamWriter.close_to_memory`; consumed either
+    as record batches (``.batches()`` — duck-compatible with
+    :class:`ColumnarReader` so unchanged stage code reads it), as raw
+    sorted record blobs (``.record_blobs()`` — what in-memory merges feed
+    to ``write_encoded``), or materialized to disk (``.write()`` — the
+    exact ``_write_bam_records`` call the staged path makes, hence
+    byte-identical files).  Re-iterable and read-only; ``close()`` is a
+    no-op so sources can be consumed more than once (e.g. SSCS feeds both
+    singleton rescue and the final all-unique merge).
+    """
+
+    def __init__(self, header: BamHeader, big: np.ndarray,
+                 starts: np.ndarray, lengths: np.ndarray):
+        self.header = header
+        self._big = big
+        self._starts = starts
+        self._lengths = lengths
+
+    @property
+    def n(self) -> int:
+        return len(self._starts)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self._lengths.sum()) if len(self._lengths) else 0
+
+    def _chunk_ranges(self, target: int):
+        n = len(self._starts)
+        if not n:
+            return
+        csum = np.cumsum(self._lengths)
+        i0 = 0
+        while i0 < n:
+            floor = int(csum[i0 - 1]) if i0 else 0
+            i1 = int(np.searchsorted(csum, floor + target)) + 1
+            yield i0, min(max(i1, i0 + 1), n)
+            i0 = min(max(i1, i0 + 1), n)
+
+    def batches(self, batch_bytes: int = 64 << 20):
+        """Yield :class:`ColumnarBatch` views in sorted order, bounded at
+        ``batch_bytes`` of record data per batch."""
+        for i0, i1 in self._chunk_ranges(batch_bytes):
+            data, off = ragged_gather(
+                self._big, self._starts[i0:i1], self._lengths[i0:i1])
+            yield _make_batch(self.header, data, off)
+
+    def record_blobs(self, chunk_bytes: int = 8 << 20):
+        """Yield the sorted records as contiguous uint8 chunks (record
+        boundaries never split) — the ``write_encoded`` feed shape."""
+        for i0, i1 in self._chunk_ranges(chunk_bytes):
+            data, _ = ragged_gather(
+                self._big, self._starts[i0:i1], self._lengths[i0:i1])
+            yield data
+
+    def write(self, path, level: int = 6, index: bool = True) -> None:
+        """Materialize to ``path`` exactly as the staged writer would have
+        (atomic tmp+rename; inline ``.bai`` when ``index``)."""
+        _write_bam_records(path, self.header, self._big, self._starts,
+                           self._lengths, level, index=index)
+
+    def close(self) -> None:
+        pass
+
+
 def open_batch_source(src, batch_bytes: int = 64 << 20):
-    """A path OR an already-open batch source -> something with
-    ``.header`` / ``.batches()`` / ``.close()``."""
+    """A path OR an in-memory source -> something with ``.header`` /
+    ``.batches()`` / ``.close()``.
+
+    Stage code calls this instead of constructing :class:`ColumnarReader`
+    directly, so the streaming pipeline can hand stages a
+    :class:`MemoryBam` (or a read-ahead ``BatchStream`` over one)
+    transparently while the staged path keeps passing file paths.
+    """
     if hasattr(src, "batches") and hasattr(src, "header"):
         return src
     return ColumnarReader(src, batch_bytes=batch_bytes)

@@ -91,14 +91,17 @@ def encode_member_batch(batch):
 
 def stream_vote(wire: str, a: torch.Tensor, b: torch.Tensor, sizes,
                 config: ConsensusConfig = ConsensusConfig(),
-                out_len: int | None = None) -> torch.Tensor:
+                out_len: int | None = None, qc_lengths=None):
     """The port of ``_stream_vote_fn``: decode the wire, vote every family
     (one kernel launch on the card).  Returns the stacked ``(2, NF,
     out_len)`` uint8 planes (consensus bases, quals) on the wire's device;
     ``out_len=None`` keeps every position.  A packed wire's codebook ``b``
-    may stay on the host."""
+    may stay on the host.  ``qc_lengths`` (each family's true length) adds
+    the QC rider, ``with_qc``: returns ``(planes, qc)``, ``qc`` the ``(2,
+    out_len)`` int32 sums of votes and of votes disagreeing with the modal
+    base over the families, at positions below their lengths."""
     return consensus_vote.vote_wire(wire, a, b, torch.as_tensor(sizes), config,
-                                    length=out_len)
+                                    length=out_len, qc_lengths=qc_lengths)
 
 
 def _out_len(batch) -> int | None:
@@ -118,20 +121,48 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
 
     ``on_device_batch(batch, planes)`` is called with the stacked
     ``(2, n_real, out_len)`` vote output while it is still on ``device``,
-    before the download: the residency capture point (``ops.residency``)."""
-    for batch in batches:
-        wire, a, b = encode_member_batch(batch)
-        n = batch.n_real
-        # the codebook of a packed wire rides in the kernel's arguments
-        b = torch.from_numpy(b)
-        planes = stream_vote(wire, torch.from_numpy(a).to(device),
-                             b.to(device) if wire == "raw" else b,
-                             torch.from_numpy(batch.sizes[:n]), config,
-                             _out_len(batch))
-        if on_device_batch is not None:
-            on_device_batch(batch, planes)
-        out = planes.cpu().numpy()
-        yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
+    before the download: the residency capture point (``ops.residency``).
+
+    While an ``obs.qc`` plane sink is armed, every vote carries the QC
+    rider over the batch's true lengths, and its ``(2, out_len)`` sums are
+    added on ``device`` into one int64 ``(2, longest out_len)`` total (no
+    wait per batch, and no batch's buffers kept alive); the total goes to
+    the sink as one handle when the batches end, and the sink copies it to
+    the host when it is finalized."""
+    from consensuscruncher_tpu_torch.obs import qc as obs_qc
+
+    qc_sink = obs_qc.plane_sink()
+    qc_total = torch.zeros((2, 0), dtype=torch.int64, device=device)
+    try:
+        for batch in batches:
+            wire, a, b = encode_member_batch(batch)
+            n = batch.n_real
+            # the codebook of a packed wire rides in the kernel's arguments
+            b = torch.from_numpy(b)
+            lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
+            planes = stream_vote(wire, torch.from_numpy(a).to(device),
+                                 b.to(device) if wire == "raw" else b,
+                                 torch.from_numpy(batch.sizes[:n]), config,
+                                 _out_len(batch), lengths)
+            if qc_sink is not None:
+                planes, qc = planes
+                qc_total = _add_qc(qc_total, qc)
+            if on_device_batch is not None:
+                on_device_batch(batch, planes)
+            out = planes.cpu().numpy()
+            yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
+    finally:
+        if qc_sink is not None and qc_total.shape[1]:
+            qc_sink.add_plane_handle(qc_total)
+
+
+def _add_qc(total: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
+    """``total`` (int64 ``(2, T)``) plus one batch's ``(2, L)`` QC sums,
+    zero-padded to the longer of the two; queued on their device."""
+    if qc.shape[1] > total.shape[1]:
+        total = torch.nn.functional.pad(total, (0, qc.shape[1] - total.shape[1]))
+    total[:, :qc.shape[1]] += qc
+    return total
 
 
 def consensus_blocks_stream_batched(items, config: ConsensusConfig,

@@ -28,6 +28,14 @@ vote passes iff ``modal != N and max_count * den >= num * size and size >
 else is ``(N, 0)``.  The duplex combine keeps a base iff both strands voted
 it and it is below N, with quality ``min(qa + qb, qual_cap)``.
 
+The SSCS vote carries the QC rider when it is given each family's true
+length (``qc_lengths``): per position, the batch's sum of votes (members
+whose effective lane is A, C, G, T or N) and of votes that disagree with
+the modal lane, failed votes included, at positions below each family's
+length — the ``with_qc`` planes of the JAX package's ``_stream_vote_fn``.
+On the card it is a reduction inside the vote kernel (its ``kQc``
+instantiations); the plain version reduces the plain vote's counts.
+
 The wrappers launch the kernel for CUDA tensors (or raise) and run the
 plain version (:func:`vote_wire_plain`, :func:`duplex_wire_plain`: the torch
 decode ``ops.packing.unpack_wire``, then :func:`vote_members_plain` /
@@ -56,9 +64,10 @@ from consensuscruncher_tpu_torch.ops.packing import WIRES, unpack_wire, wire_wid
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES
 
 # Kernel launches made on CUDA tensors since the last reset (one per call of
-# the C entry point, which launches its kernel exactly once): the SSCS vote,
-# and the fused duplex vote.
+# the C entry point, which launches its kernel exactly once): the SSCS vote
+# (of which qc_launches carried the QC rider), and the fused duplex vote.
 launches = 0
+qc_launches = 0
 fused_launches = 0
 # The ops.tiles.TilePlan of the last launch prepared (its summary() says
 # which path, staged, direct or mixed, the tiles took).
@@ -67,7 +76,7 @@ last_plan: tiles.TilePlan | None = None
 _lib = None
 # the kernel's shapes per form, SSCS (False) and duplex (True): cct_tile_constants
 _layouts: dict[bool, tiles.Layout] = {}
-_grids: dict[tuple[int, int], int] = {}
+_grids: dict[tuple[int, int, int], int] = {}
 
 
 @dataclass(frozen=True)
@@ -139,19 +148,38 @@ def _checks(bases, quals, sizes, config, length, starts):
     return _family_checks(bases.shape[0], bases.shape[1], sizes, config, length, starts)
 
 
-def _wire_checks(wire, a, b, sizes, config, length, starts):
+def _wire_checks(wire, a, b, sizes, config, length, starts, qc_lengths=None):
     """Validate one wire batch (``a``, ``b`` as ``unpack_wire`` takes them)
-    and its families; returns as :func:`_family_checks`."""
+    and its families; returns as :func:`_family_checks`, plus the QC
+    rider's lengths (int32, CPU) or None."""
     if wire not in WIRES:
         raise ValueError(f"unknown wire {wire!r}")
     if wire == "raw":
-        return _checks(a, b, sizes, config, length, starts)
-    if a.dtype != torch.uint8 or a.dim() != 2:
-        raise TypeError(f"{wire} rows must be a 2-D uint8 tensor")
-    book = 4 if wire == "pack4" else 16
-    if torch.as_tensor(b).numel() != book:
-        raise ValueError(f"{wire} needs a codebook of {book} entries")
-    return _family_checks(a.shape[0], wire_width(wire, a), sizes, config, length, starts)
+        checked = _checks(a, b, sizes, config, length, starts)
+        width = a.shape[1]
+    else:
+        if a.dtype != torch.uint8 or a.dim() != 2:
+            raise TypeError(f"{wire} rows must be a 2-D uint8 tensor")
+        book = 4 if wire == "pack4" else 16
+        if torch.as_tensor(b).numel() != book:
+            raise ValueError(f"{wire} needs a codebook of {book} entries")
+        width = wire_width(wire, a)
+        checked = _family_checks(a.shape[0], width, sizes, config, length, starts)
+    return (*checked, _qc_checks(qc_lengths, checked[0], width))
+
+
+def _qc_checks(qc_lengths, sizes, width):
+    """The QC rider's per-family true lengths on the host: one per family,
+    each in ``[0, width]``."""
+    if qc_lengths is None:
+        return None
+    lengths = torch.as_tensor(qc_lengths).to(device="cpu", dtype=torch.int64)
+    if lengths.shape != sizes.shape:
+        raise ValueError(f"qc_lengths must hold one length per family: "
+                         f"{tuple(lengths.shape)} for {tuple(sizes.shape)} sizes")
+    if lengths.numel() and (int(lengths.min()) < 0 or int(lengths.max()) > width):
+        raise ValueError(f"qc_lengths outside [0, {width}]")
+    return lengths.to(torch.int32)
 
 
 def _exclusive_cumsum(sizes: torch.Tensor) -> torch.Tensor:
@@ -181,7 +209,7 @@ def duplex_stats(sizes_a: torch.Tensor, sizes_b: torch.Tensor, dcs_b: torch.Tens
 
 def vote_wire(wire: str, a: torch.Tensor, b, sizes,
               config: ConsensusConfig = ConsensusConfig(), length: int | None = None,
-              starts: torch.Tensor | None = None) -> torch.Tensor:
+              starts: torch.Tensor | None = None, qc_lengths=None):
     """Vote every family of a member-stream wire batch.
 
     ``wire`` names the layout (``ops.packing.WIRES``): ``a``/``b`` are the
@@ -193,19 +221,29 @@ def vote_wire(wire: str, a: torch.Tensor, b, sizes,
     exclusive cumsum of ``sizes``).  Returns a stacked ``(2, NF, length)``
     uint8 tensor (consensus bases, consensus quals) on ``a``'s device; empty
     slots come back all ``(N, 0)``.
+
+    ``qc_lengths``: ``(NF,)`` true lengths of the families (any device);
+    given, the call also runs the QC rider and returns ``(planes, qc)``,
+    ``qc`` the ``(2, length)`` int32 sums of votes and of disagreeing
+    votes over the families at positions below their lengths.
     """
     if a.device.type == "cpu":
-        return vote_wire_plain(wire, a, b, sizes, config, length, starts)
-    return prepare_wire(wire, a, b, sizes, config, length, starts)()[0]
+        return vote_wire_plain(wire, a, b, sizes, config, length, starts, qc_lengths)
+    job = prepare_wire(wire, a, b, sizes, config, length, starts, qc_lengths)
+    planes = job()[0]
+    return planes if qc_lengths is None else (planes, job.qc)
 
 
 def prepare_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
-                 length=None, starts=None) -> "TileLaunch":
+                 length=None, starts=None, qc_lengths=None) -> "TileLaunch":
     """The checked, planned and uploaded launch of :func:`vote_wire` on
-    CUDA tensors; calling it launches the kernel once."""
-    sizes, starts, length = _wire_checks(wire, a, b, sizes, config, length, starts)
+    CUDA tensors; calling it launches the kernel once (its QC sums, with
+    ``qc_lengths``, in ``.qc``)."""
+    sizes, starts, length, qc_lengths = _wire_checks(wire, a, b, sizes, config, length,
+                                                     starts, qc_lengths)
     strand = _card_wire(wire, a, b, sizes, starts)
-    return _prepare(wire, [strand], _book(wire, b), config, length, duplex=False)
+    return _prepare(wire, [strand], _book(wire, b), config, length, duplex=False,
+                    qc_lengths=qc_lengths)
 
 
 def duplex_wire(wire: str, a: torch.Tensor, b, sizes,
@@ -237,7 +275,7 @@ def prepare_duplex_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusCo
                         length=None, starts=None, packed_out=False) -> "TileLaunch":
     """The checked, planned and uploaded launch of :func:`duplex_wire` on
     CUDA tensors; calling it launches the kernel once."""
-    sizes, starts, length = _wire_checks(wire, a, b, sizes, config, length, starts)
+    sizes, starts, length, _qc = _wire_checks(wire, a, b, sizes, config, length, starts)
     n = _pairs(sizes)
     contiguous = starts is None  # each strand's slots are then contiguous rows
     starts = _default_starts(sizes, starts)
@@ -365,11 +403,11 @@ def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
 
 
 def vote_wire_plain(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
-                    length=None, starts=None) -> torch.Tensor:
+                    length=None, starts=None, qc_lengths=None):
     """Plain version of :func:`vote_wire` on any device: the torch decode
     (``ops.packing.unpack_wire``), then :func:`vote_members_plain`."""
     bases, quals = unpack_wire(wire, a, torch.as_tensor(b).to(a.device))
-    return vote_members_plain(bases, quals, sizes, config, length, starts)
+    return vote_members_plain(bases, quals, sizes, config, length, starts, qc_lengths)
 
 
 def duplex_wire_plain(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
@@ -390,19 +428,23 @@ def duplex_wire_plain(wire, a, b, sizes, config: ConsensusConfig = ConsensusConf
 
 
 def vote_members_plain(bases, quals, sizes, config: ConsensusConfig = ConsensusConfig(),
-                       length: int | None = None, starts=None) -> torch.Tensor:
+                       length: int | None = None, starts=None, qc_lengths=None):
     """Plain PyTorch version of the SSCS vote on any device: gather each
     family into a dense ``(NF, cap, length)`` block (``cap`` = largest
     family) and reduce over the member axis, lane by lane — the vote's
-    state machine written as tensor ops."""
+    state machine written as tensor ops.  With ``qc_lengths``, returns
+    ``(planes, qc)``: the QC rider's ``(2, length)`` int32 sums (see
+    :func:`vote_wire`) reduced from the same lane counts."""
     sizes, starts, length = _checks(bases, quals, sizes, config, length, starts)
+    qc_lengths = _qc_checks(qc_lengths, sizes, bases.shape[1])
     dev = bases.device
     nf = sizes.shape[0]
     out = torch.empty((2, nf, length), dtype=torch.uint8, device=dev)
     out[0].fill_(N)
     out[1].zero_()
+    qc = None if qc_lengths is None else torch.zeros((2, length), dtype=torch.int32, device=dev)
     if nf == 0 or length == 0 or bases.shape[0] == 0:
-        return out
+        return out if qc is None else (out, qc)
     num, den = config.cutoff_rational
     sizes = sizes.to(dev)
     starts = _exclusive_cumsum(sizes) if starts is None else starts.to(dev)
@@ -431,7 +473,14 @@ def vote_members_plain(bases, quals, sizes, config: ConsensusConfig = ConsensusC
     passed = (modal != N) & (max_count * den >= num * size) & (size > 0)
     out[0] = torch.where(passed, modal, N).to(torch.uint8)
     out[1] = torch.where(passed, qsum.clamp(max=int(config.qual_cap)), 0).to(torch.uint8)
-    return out
+    if qc is None:
+        return out
+    # the rider: every position below the family's length, passed or not
+    votes = count.sum(-1)
+    live = torch.arange(length, device=dev)[None, :] < qc_lengths.to(dev)[:, None]
+    qc[0] = torch.where(live, votes, 0).sum(0)
+    qc[1] = torch.where(live, votes - max_count, 0).sum(0)
+    return out, qc
 
 
 def duplex_members_plain(bases_a, quals_a, sizes_a, bases_b, quals_b, sizes_b,
@@ -467,9 +516,10 @@ def _library():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         lib.cct_tile_grid.restype = ctypes.c_int
-        lib.cct_tile_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cct_tile_grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.cct_tile_constants.restype = None
         lib.cct_tile_constants.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.cct_error_string.restype = ctypes.c_char_p
@@ -485,8 +535,8 @@ def _library():
     return _lib
 
 
-def _grid(wire: int, duplex: bool) -> int:
-    key = (wire, int(duplex))
+def _grid(wire: int, duplex: bool, qc: bool) -> int:
+    key = (wire, int(duplex), int(qc))
     if key not in _grids:
         _grids[key] = _library().cct_tile_grid(*key)
     return _grids[key]
@@ -549,9 +599,11 @@ class TileLaunch:
     """One planned launch of the vote kernel: the family records (and an
     explicit tile table) on the card, the outputs allocated.  Calling it
     launches the kernel once (counted) and returns ``(planes, stats)``;
-    ``plan`` says which path its tiles took."""
+    ``plan`` says which path its tiles took; ``qc`` holds the QC rider's
+    ``(2, length)`` int32 sums when ``qc_lengths`` was given."""
 
-    def __init__(self, wire, strands, book, config, length, duplex, packed_out):
+    def __init__(self, wire, strands, book, config, length, duplex, packed_out,
+                 qc_lengths=None):
         planes = [p for _strand, pl in strands for p in pl]
         if len(strands) == 1:
             planes += planes[:2]
@@ -561,16 +613,22 @@ class TileLaunch:
         n = int(strands[0][0].sizes.shape[0])
         nplanes = (3 if packed_out else 6) if duplex else 2
         self.out = torch.empty((nplanes, n, length), dtype=torch.uint8, device=dev)
-        grid = _grid(self.wire, duplex)  # loads the library and its layout
+        self.with_qc = qc_lengths is not None
+        grid = _grid(self.wire, duplex, self.with_qc)  # loads the library and its layout
         # one pinned buffer, one copy to the card: the stats (zeros, which the
-        # kernel adds into), the family records, an explicit tile table
+        # kernel adds into), with the QC rider its (2, length) int32 sums
+        # (zeros), the family records (at an even word: their bulk copies
+        # want 16-byte addresses; with the rider each family's length in the
+        # high 32 bits of its size), an explicit tile table
         records = n * 2 * len(strands)
+        qc_words = length if self.with_qc else 0
+        head = 2 + qc_words + qc_words % 2
         pinned = []
 
         def alloc(k):
-            pinned.append(torch.empty(2 + k, dtype=torch.int64, pin_memory=True))
-            pinned[0][:2] = 0
-            return pinned[0][2:].numpy()
+            pinned.append(torch.empty(head + k, dtype=torch.int64, pin_memory=True))
+            pinned[0][:2 + (length if self.with_qc else 0)] = 0
+            return pinned[0][head:].numpy()
 
         self.plan = tiles.plan_tiles([s for s, _p in strands], length, grid,
                                      _layouts[duplex], alloc)
@@ -579,11 +637,16 @@ class TileLaunch:
         self.dev = dev
         if self.n_tiles == 0:
             self.stats = torch.zeros(4, dtype=torch.int32, device=dev)
+            self.qc = (torch.zeros((2, length), dtype=torch.int32, device=dev)
+                       if self.with_qc else None)
             return
+        if self.with_qc:
+            self.plan.records[:, 1] |= qc_lengths.numpy().astype(np.int64) << 32
         explicit = self.plan.explicit
-        used = 2 + records + (0 if explicit is None else explicit.size)
+        used = head + records + (0 if explicit is None else explicit.size)
         meta = host[:used].to(dev, non_blocking=True)
         self.stats = meta[:2].view(torch.int32)
+        self.qc = meta[2:2 + length].view(torch.int32).view(2, length) if self.with_qc else None
         self._keep = planes
         geometry = [[s.row_bytes, s.width, s.extent] for s, _p in strands]
         geometry *= 3 - len(strands)
@@ -599,16 +662,17 @@ class TileLaunch:
                           for k in range(3)),
                         (ctypes.c_ubyte * 16)(*book.tolist()))
         ptrs, row_bytes, width, extent, book_c = (ctypes.addressof(a) for a in self._arrays)
-        fam = meta.data_ptr() + 16
+        fam = meta.data_ptr() + 8 * head
         self._args = (
             self.wire, int(duplex), ptrs, row_bytes, width, extent, fam,
             None if explicit is None else fam + 8 * records, self.plan.fams, n,
             self.n_tiles, length, num, den, int(config.qual_threshold),
             int(config.qual_cap), book_c, self.out.data_ptr(), n * length,
-            self.stats.data_ptr(), int(packed_out), vec)
+            self.stats.data_ptr(), int(packed_out), vec,
+            self.qc.data_ptr() if self.with_qc else None)
 
     def __call__(self):
-        global launches, fused_launches
+        global launches, qc_launches, fused_launches
         if self.n_tiles == 0:
             return self.out, self.stats
         lib = _library()
@@ -617,14 +681,16 @@ class TileLaunch:
             fused_launches += 1
         else:
             launches += 1
+            qc_launches += self.with_qc
         if rc != 0:
             raise RuntimeError(f"consensus_vote kernel launch failed: "
                                f"{lib.cct_error_string(rc).decode()}")
         return self.out, self.stats
 
 
-def _prepare(wire, strands, book, config, length, duplex, packed_out=False) -> TileLaunch:
+def _prepare(wire, strands, book, config, length, duplex, packed_out=False,
+             qc_lengths=None) -> TileLaunch:
     global last_plan
-    job = TileLaunch(wire, strands, book, config, length, duplex, packed_out)
+    job = TileLaunch(wire, strands, book, config, length, duplex, packed_out, qc_lengths)
     last_plan = job.plan
     return job

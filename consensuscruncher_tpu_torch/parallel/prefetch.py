@@ -1,8 +1,6 @@
 """Host<->device double-buffering: background producer + one batch in flight.
 
-Port of ``consensuscruncher_tpu/parallel/prefetch.py`` (the producer and
-the pipeline; the write-behind pool belongs to the streaming pipeline,
-which is not ported yet).  Three pieces:
+Port of ``consensuscruncher_tpu/parallel/prefetch.py``.  Four pieces:
 
 - :func:`prefetch` / :func:`start_prefetch` — run any iterator on a daemon
   thread behind a bounded queue.  Order-preserving (single FIFO),
@@ -17,6 +15,8 @@ which is not ported yet).  Three pieces:
   every launch queued so far, *k+1*'s included.  So a dispatch starts its
   outputs' download into pinned host buffers (non-blocking) and records an
   event behind it; the fetch waits on that event only.
+- :class:`WriteBehind` — a bounded background pool for the streaming
+  pipeline's file writes (``core.streamgraph.StreamOut``).
 
 Thread-safety contract for ``prefetch(gen)``: the generator body runs on
 the producer thread while consumers run downstream of the queue — state
@@ -146,6 +146,64 @@ class _Prefetched:
                 "prefetch producer thread failed to stop within 30s; "
                 "the source iterable is blocked"
             ) from sys.exc_info()[1]
+
+
+class WriteBehind:
+    """Bounded background writer pool: overlap output serialization with
+    downstream compute.
+
+    The streaming pipeline's final/tap BAM writes are pure sinks — nothing
+    downstream reads them — so they can run behind the next stage's device
+    work instead of serializing it.  ``submit`` blocks once ``depth`` writes
+    are in flight (memory bound: each pending write pins its source arrays),
+    and the FIRST failure is sticky: later submits re-raise it immediately
+    and :meth:`drain` re-raises it after all workers stop (the streaming
+    pipeline turns it into its fall-back-to-staged signal).
+    """
+
+    def __init__(self, depth: int = 2):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(1, depth), thread_name_prefix="cct-writebehind")
+        self._depth = max(1, depth)
+        self._pending: list = []
+        self._error: BaseException | None = None
+
+    def _reap(self, block: bool) -> None:
+        while self._pending and (block or len(self._pending) >= self._depth):
+            fut = self._pending.pop(0)
+            try:
+                fut.result()
+            except BaseException as exc:
+                if self._error is None:
+                    self._error = exc
+
+    def submit(self, fn, *args, **kwargs) -> None:
+        if self._error is not None:
+            raise self._error
+        self._pending.append(self._pool.submit(fn, *args, **kwargs))
+        self._reap(block=False)
+        if self._error is not None:
+            raise self._error
+
+    def drain(self) -> None:
+        """Wait for every pending write; re-raise the first failure."""
+        self._reap(block=True)
+        self._pool.shutdown(wait=True)
+        if self._error is not None:
+            raise self._error
+
+    def abort(self) -> None:
+        """Best-effort teardown: wait out in-flight writes, swallow errors
+        (used on the fall-back path where the error is already being
+        handled)."""
+        try:
+            self._reap(block=True)
+        except BaseException:
+            pass
+        self._error = None
+        self._pool.shutdown(wait=True)
 
 
 def pipelined(

@@ -42,11 +42,18 @@ from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 class DcsResult:
     dcs_bam: str
     sscs_singleton_bam: str
-    stats: StageStats
+    stats: StageStats | None  # None when reconstructed from a resume skip
+
+    @classmethod
+    def from_prefix(cls, out_prefix: str) -> "DcsResult":
+        """Path-only result for a stage skipped by --resume."""
+        p = output_paths(out_prefix)
+        return cls(p["dcs"], p["unpaired"], None)
 
 
 def output_paths(out_prefix: str) -> dict[str, str]:
-    """Canonical output paths for a prefix."""
+    """Canonical output paths for a prefix — the single naming authority
+    shared by the stage body and the CLI's resume manifest."""
     return {
         "dcs": f"{out_prefix}.dcs.sorted.bam",
         "unpaired": f"{out_prefix}.sscs.singleton.sorted.bam",
@@ -223,11 +230,16 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
             stats.incr("dcs_written", k)
 
 
-def run_dcs(sscs_bam: str, out_prefix: str, device: torch.device,
-            level: int = 6, residency=None) -> DcsResult:
+def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
+            level: int = 6, residency=None, stream_out=None) -> DcsResult:
     """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``;
     ``residency`` is the SSCS stage's plane store (or None: every pair
-    votes by upload)."""
+    votes by upload).
+
+    ``stream_out``: a ``core.streamgraph.StreamOut``; the DCS and
+    unpaired-SSCS outputs (both finals) hand off in memory for the
+    all-unique merges while materializing on the write-behind pool.
+    ``sscs_bam`` may then be an in-memory batch source."""
     tracker = TimeTracker()
     stats = StageStats("DCS")
     paths = output_paths(out_prefix)
@@ -247,8 +259,14 @@ def run_dcs(sscs_bam: str, out_prefix: str, device: torch.device,
             dcs_writer.abort()
             unpaired_writer.abort()
     tracker.mark("pairing")
-    dcs_writer.close()
-    unpaired_writer.close()
+    if stream_out is not None:
+        stream_out.capture("dcs", dcs_writer.close_to_memory(),
+                           file_path=paths["dcs"], level=level)
+        stream_out.capture("unpaired", unpaired_writer.close_to_memory(),
+                           file_path=paths["unpaired"], level=level)
+    else:
+        dcs_writer.close()
+        unpaired_writer.close()
     tracker.mark("sort")
     stats.set("backend", device.type)
     stats.write(paths["stats_txt"])

@@ -44,11 +44,18 @@ class SingletonResult:
     sscs_rescue_bam: str
     singleton_rescue_bam: str
     remaining_bam: str
-    stats: StageStats
+    stats: StageStats | None  # None when reconstructed from a resume skip
+
+    @classmethod
+    def from_prefix(cls, out_prefix: str) -> "SingletonResult":
+        """Path-only result for a stage skipped by --resume."""
+        p = output_paths(out_prefix)
+        return cls(p["sscs_rescue"], p["singleton_rescue"], p["remaining"], None)
 
 
 def output_paths(out_prefix: str) -> dict[str, str]:
-    """Canonical output paths for a prefix."""
+    """Canonical output paths for a prefix — the single naming authority
+    shared by the stage body and the CLI's resume manifest."""
     return {
         "sscs_rescue": f"{out_prefix}.sscs.rescue.sorted.bam",
         "singleton_rescue": f"{out_prefix}.singleton.rescue.sorted.bam",
@@ -241,18 +248,26 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
         x_reader.close()
 
 
-def run_singleton_correction(singleton_bam: str, sscs_bam: str, out_prefix: str,
+def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
                              device: torch.device, level: int = 6,
-                             residency=None) -> SingletonResult:
+                             residency=None, stream_out=None) -> SingletonResult:
     """Exact complementary-tag rescue with the duplex votes on ``device``;
     ``residency`` is the SSCS stage's plane store (or None: every rescue
-    votes by upload)."""
+    votes by upload).
+
+    ``stream_out``: a ``core.streamgraph.StreamOut``; outputs hand off in
+    memory — remaining singletons stay a final output (write-behind
+    materialization), the two rescue BAMs become debug taps.
+    ``singleton_bam`` / ``sscs_bam`` may then be in-memory batch sources."""
     tracker = TimeTracker()
     stats = StageStats("singleton_correction")
     all_paths = output_paths(out_prefix)
     paths = {k: all_paths[k] for k in ("sscs_rescue", "singleton_rescue", "remaining")}
-    with BamReader(singleton_bam) as hdr_reader:
-        header = hdr_reader.header
+    if hasattr(singleton_bam, "header"):
+        header = singleton_bam.header
+    else:
+        with BamReader(singleton_bam) as hdr_reader:
+            header = hdr_reader.header
     writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
     ok = False
     try:
@@ -262,8 +277,16 @@ def run_singleton_correction(singleton_bam: str, sscs_bam: str, out_prefix: str,
         if not ok:
             for w in writers.values():
                 w.abort()
-    for w in writers.values():
-        w.close()  # lexsort + final BGZF write
+    if stream_out is not None:
+        stream_out.capture("remaining", writers["remaining"].close_to_memory(),
+                           file_path=paths["remaining"], level=level)
+        for k in ("sscs_rescue", "singleton_rescue"):
+            stream_out.capture(k, writers[k].close_to_memory(),
+                               file_path=paths[k] if stream_out.taps else None,
+                               level=level)
+    else:
+        for w in writers.values():
+            w.close()  # lexsort + final BGZF write
     stats.set("max_mismatch", 0)
     stats.set("backend", device.type)
     stats.write(all_paths["stats_txt"])

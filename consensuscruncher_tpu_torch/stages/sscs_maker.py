@@ -16,7 +16,8 @@ Outputs (pinned names; ``<p>`` = output prefix):
 The host decodes the BAM column-wise and groups reads into family blocks;
 families of size >= 2 ship to ``device`` as packed member-stream batches
 and come back voted (``ops.consensus_segment``).  The sorting writers
-buffer records in memory and write the coordinate-sorted BAMs at close.
+buffer records in memory and write the coordinate-sorted BAMs at close,
+or hand them to the next stage in memory (``stream_out``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed,
 from consensuscruncher_tpu_torch.io.bam import BamWriter
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
 from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter, RenameRetagWriter
+from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
@@ -50,12 +52,19 @@ class SscsResult:
     sscs_bam: str
     singleton_bam: str
     bad_bam: str
-    stats: StageStats
-    histogram: FamilySizeHistogram
+    stats: StageStats | None  # None when reconstructed from a resume skip
+    histogram: FamilySizeHistogram | None
+
+    @classmethod
+    def from_prefix(cls, out_prefix: str) -> "SscsResult":
+        """Path-only result for a stage skipped by --resume."""
+        p = output_paths(out_prefix)
+        return cls(p["sscs"], p["singleton"], p["bad"], None, None)
 
 
 def output_paths(out_prefix: str) -> dict[str, str]:
-    """Canonical output paths for a prefix."""
+    """Canonical output paths for a prefix — the single naming authority
+    shared by the stage body and the CLI's resume manifest."""
     return {
         "sscs": f"{out_prefix}.sscs.sorted.bam",
         "singleton": f"{out_prefix}.singleton.sorted.bam",
@@ -68,7 +77,7 @@ def output_paths(out_prefix: str) -> dict[str, str]:
 
 
 def run_sscs(
-    in_bam: str,
+    in_bam,
     out_prefix: str,
     device: torch.device,
     cutoff: float = 0.7,
@@ -76,12 +85,27 @@ def run_sscs(
     bdelim: str = tags_mod.DEFAULT_BDELIM,
     level: int = 6,
     residency=None,
+    qc=None,
+    stream_out=None,
 ) -> SscsResult:
     """Run the SSCS stage with the family votes on ``device``.
 
     ``residency``: an ``ops.packing.resident_planes`` store on ``device``;
     every batch's vote planes are registered there before they are
-    downloaded, for rescue and DCS to gather."""
+    downloaded, for rescue and DCS to gather.
+
+    ``qc``: an ``obs.qc.QcAccumulator``, armed as the plane sink around
+    this stage's vote loop only: every vote batch then carries the QC
+    rider (on the card, inside the vote kernel; on the CPU, in the plain
+    version) and feeds its sums to the accumulator.
+
+    ``stream_out``: a ``core.streamgraph.StreamOut``; when given, the
+    sorted SSCS/singleton outputs are handed off in memory
+    (``close_to_memory``) instead of committed to disk here — the SSCS
+    BAM still materializes (final output, via the write-behind pool) but
+    the singleton BAM becomes a debug tap, written only when the stream
+    asked for taps.  ``in_bam`` may then also be an in-memory batch
+    source instead of a path."""
     tracker = TimeTracker()
     stats = StageStats("SSCS")
     hist = FamilySizeHistogram()
@@ -199,6 +223,8 @@ def run_sscs(
                              planes, batch.n_real)
 
     ok = False
+    if qc is not None:
+        obs_qc.set_plane_sink(qc)
     try:
         for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
                 block_items(), cfg, device, on_device_batch):
@@ -207,14 +233,26 @@ def run_sscs(
         single_surgery.flush()
         ok = True
     finally:
+        if qc is not None:
+            obs_qc.set_plane_sink(None)
         reader.close()
         if not ok:  # never promote a partial output on error
             for w in (bad_writer, sscs_writer, singleton_writer):
                 w.abort()
     tracker.mark("consensus")
     bad_writer.close()
-    sscs_writer.close()  # lexsort + final BGZF write
-    singleton_writer.close()
+    if stream_out is not None:
+        # Streaming hand-off: finish the sort in memory.  The SSCS BAM is a
+        # final output (write-behind materialization); the singleton BAM
+        # only exists to feed rescue, so it becomes a debug tap.
+        stream_out.capture("sscs", sscs_writer.close_to_memory(),
+                           file_path=paths["sscs"], level=level)
+        stream_out.capture("singleton", singleton_writer.close_to_memory(),
+                           file_path=paths["singleton"] if stream_out.taps else None,
+                           level=level)
+    else:
+        sscs_writer.close()  # lexsort + final BGZF write
+        singleton_writer.close()
     tracker.mark("sort")
 
     stats.set("backend", device.type)

@@ -273,3 +273,80 @@ def test_segment_duplex_step_is_one_launch(card):
     want = step(a, sizes, book)
     for g, w in zip(out, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", ["random", "zeros_at_tile_edges", "family_1500",
+                                  "families_70000", "long_rows"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_qc_rider_matches_plain(card, wire, case):
+    """The QC rider inside the SSCS kernel against the plain version on the
+    card, exactly: per-family true lengths that differ inside the batch,
+    size-0 families, qualscore 0 and 20, PAD cells on the wires that carry
+    them, the direct path, and rows longer than the rider's shared-memory
+    sums hold (its global-atomic form)."""
+    rng = np.random.default_rng(len(case) * 10 + WIRES.index(wire) + 100)
+    if case == "long_rows":
+        sizes, length = rng.integers(0, 6, 800).astype(np.int64), 640
+    else:
+        sizes = _edge_sizes(rng, case)
+        length = 40 if case == "families_70000" else 128
+    a, b = _wire_stream(rng, wire, sizes, length)
+    a_d = a.to(card)
+    lengths = rng.integers(0, length + 1, sizes.shape[0]).astype(np.int32)
+    for cfg in (consensus_vote.ConsensusConfig(),
+                consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=20)):
+        for out_len in (length, length - 5):
+            live = torch.from_numpy(np.minimum(lengths, out_len))
+            before = (consensus_vote.launches, consensus_vote.qc_launches)
+            got, got_qc = consensus_vote.vote_wire(wire, a_d, _book_or_quals(wire, b, card),
+                                                   torch.from_numpy(sizes), cfg, out_len,
+                                                   qc_lengths=live)
+            assert (consensus_vote.launches, consensus_vote.qc_launches) == (
+                before[0] + 1, before[1] + 1)
+            want, want_qc = consensus_vote.vote_wire_plain(
+                wire, a_d, b.to(card), torch.from_numpy(sizes), cfg, out_len, qc_lengths=live)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (wire, case, cfg, out_len)
+            assert torch.equal(got_qc, want_qc), (wire, case, cfg, out_len)
+            assert int(got_qc[0].sum()) > 0
+
+
+def test_qc_rider_stage_loop_keeps_device_memory_flat(card):
+    """The SSCS stage's batch loop with a QC sink armed: device memory after
+    many batches is that after one, plus nothing but the one (2, L) int64
+    total the sink holds; the total equals the CPU loop's."""
+    from consensuscruncher_tpu_torch.obs import qc as obs_qc
+    from consensuscruncher_tpu_torch.parallel.batching import MemberBatch
+
+    rng = np.random.default_rng(11)
+    length, batches = 104, []
+    for _ in range(48):
+        sizes = rng.integers(1, 5, 4000).astype(np.int32)
+        m = int(sizes.sum())
+        batches.append(MemberBatch(
+            keys=list(range(sizes.shape[0])),
+            rows=rng.integers(0, 4, (m, length), dtype=np.uint8),
+            qrows=rng.choice(np.array([2, 12, 23, 37], np.uint8), (m, length)),
+            sizes=sizes, lengths=rng.integers(60, length + 1, sizes.shape[0]).astype(np.int32),
+            n_real=sizes.shape[0], n_members=m))
+    cfg = consensus_vote.ConsensusConfig()
+    totals, grew = {}, {}
+    for dev in (torch.device("cpu"), card):
+        acc = obs_qc.QcAccumulator()
+        obs_qc.set_plane_sink(acc)
+        try:
+            loop = consensus_segment._run_member_batch_stream(batches, cfg, dev)
+            next(loop)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                after_one = torch.cuda.memory_allocated(card)
+            for _ in loop:
+                pass
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                grew["cuda"] = torch.cuda.memory_allocated(card) - after_one
+        finally:
+            obs_qc.set_plane_sink(None)
+        (totals[dev.type],) = acc._handles
+    assert grew["cuda"] <= 4096, grew  # not ~0.4 MB per batch
+    assert torch.equal(totals["cuda"].cpu(), totals["cpu"])

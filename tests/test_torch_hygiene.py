@@ -1,12 +1,14 @@
 """Boundaries of the port: no JAX, the card by default, no quiet fallback.
 
 - importing the port and running its CLI imports neither ``jax`` nor any
-  module of the JAX package (checked in a fresh interpreter);
+  module of the JAX package (checked in a fresh interpreter), a staged run
+  and a streaming run with QC alike;
 - resolving the default device without CUDA raises instead of carrying on
   on the CPU, and so do the duplex op and the pipelined fused runner when
   no device is named;
-- the vote wrappers (SSCS and fused duplex) never hand a CUDA tensor to
-  the plain version: they launch the kernel or raise.
+- the vote wrappers (SSCS, with and without the QC rider, and fused
+  duplex) never hand a CUDA tensor to the plain version: they launch the
+  kernel or raise.
 """
 
 import json
@@ -30,7 +32,7 @@ import consensuscruncher_tpu_torch.ops.consensus_segment
 import consensuscruncher_tpu_torch.ops.residency
 import consensuscruncher_tpu_torch.parallel.prefetch
 from consensuscruncher_tpu_torch.cli import main
-main(["consensus", "-i", sys.argv[1], "-o", sys.argv[2], "--device", "cpu"])
+main(["consensus", "-i", sys.argv[1], "-o", sys.argv[2], "--device", "cpu", *sys.argv[3:]])
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m.startswith("jaxlib")
@@ -47,6 +49,20 @@ def test_port_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert (tmp_path / "sample" / "all_unique" / "sample.all.unique.dcs.bam").exists()
+
+
+def test_streaming_run_with_qc_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CCT_QC"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, os.path.join(REPO, "test", "data", "sample.bam"),
+         str(tmp_path), "--pipeline", "streaming"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    with open(tmp_path / "sample" / "qc.json") as fh:
+        qc = json.load(fh)
+    assert qc["pipeline"] == "streaming" and qc["plane"]["total_votes"] > 0
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -109,6 +125,26 @@ def test_vote_wrapper_on_cuda_tensor_never_runs_plain(monkeypatch):
             consensus_vote.vote_wire(wire, planes, book, sizes)
         with pytest.raises(RuntimeError, match="kernel launch reached"):
             consensus_vote.duplex_wire(wire, planes, book, torch.tensor([1, 1, 1, 1]))
+
+
+def test_rider_on_cuda_tensor_never_runs_plain(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("plain vote reached for a CUDA tensor")
+
+    def launch(*a, **k):
+        assert k["qc_lengths"] is not None  # the rider rides the launch
+        raise RuntimeError("kernel launch reached")
+
+    monkeypatch.setattr(consensus_vote, "vote_members_plain", plain)
+    monkeypatch.setattr(consensus_vote, "vote_wire_plain", plain)
+    monkeypatch.setattr(consensus_vote, "_prepare", launch)
+    planes = _CudaLike(torch.zeros((4, 32), dtype=torch.uint8))
+    for wire, book in (("raw", planes), ("pack8", torch.arange(16, dtype=torch.uint8)),
+                       ("pack6", torch.arange(16, dtype=torch.uint8)),
+                       ("pack4", torch.arange(4, dtype=torch.uint8))):
+        with pytest.raises(RuntimeError, match="kernel launch reached"):
+            consensus_vote.vote_wire(wire, planes, book, torch.tensor([2, 2]),
+                                     qc_lengths=torch.tensor([20, 24]))
 
 
 def test_kernel_launch_refuses_cpu_planes():

@@ -8,6 +8,9 @@ finalizes it, and also folds every family into a ``WideTally``.  Both are
 held to ``consensus_vote.vote_members_plain`` on member streams made from a
 seed: ties at the top count under cutoffs of 1/2 and less, PAD and N bases,
 quals on both sides of the threshold, and families past ``kPackedMax``.
+The QC rider's part of both tallies (``qc()``: the members in a lane and the
+top count, whether the vote passes or not) is held to the plain version's
+rider, family by family and summed under per-family length masks.
 The outputs are integers: every comparison is exact.
 """
 
@@ -41,11 +44,13 @@ static inline uint32_t max(uint32_t a, uint32_t b) { return a > b ? a : b; }
 
 template <class Tally>
 static cct::Vote vote(const std::vector<int>& b, const std::vector<int>& q, int start,
-                      int size, int length, int j, int thr, int num, int den, int cap) {
+                      int size, int length, int j, int thr, int num, int den, int cap,
+                      cct::QcPart* qc) {
   Tally t;
   t.init();
   auto at = [&](int m) { return (start + m) * length + j; };
   for (int m = 0; m < size; ++m) t.fold(b[at(m)], cct::increment(q[at(m)], thr));
+  *qc = t.qc();
   return cct::finalize(t, size, num, den, cap, [&](int m) {
     return cct::effective_lane(b[at(m)], cct::increment(q[at(m)], thr));
   });
@@ -66,12 +71,14 @@ int main() {
   int start = 0;
   for (int f = 0; f < nf; ++f) {
     for (int j = 0; j < length; ++j) {
+      cct::QcPart vq, wq;
       const cct::Vote v = sizes[f] <= cct::kPackedMax
-          ? vote<cct::PackedTally>(b, q, start, sizes[f], length, j, thr, num, den, cap)
-          : vote<cct::WideTally>(b, q, start, sizes[f], length, j, thr, num, den, cap);
+          ? vote<cct::PackedTally>(b, q, start, sizes[f], length, j, thr, num, den, cap, &vq)
+          : vote<cct::WideTally>(b, q, start, sizes[f], length, j, thr, num, den, cap, &vq);
       const cct::Vote w = vote<cct::WideTally>(b, q, start, sizes[f], length, j, thr, num,
-                                               den, cap);
-      printf("%d %d %d %d\n", v.base, v.qual, w.base, w.qual);
+                                               den, cap, &wq);
+      printf("%d %d %d %d %d %d %d %d\n", v.base, v.qual, w.base, w.qual, vq.votes, vq.top,
+             wq.votes, wq.top);
     }
     start += sizes[f];
   }
@@ -124,16 +131,22 @@ def _stream(seed):
     return sizes, bases, quals
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_tally_matches_plain_vote(driver, name):
-    config = CONFIGS[name]
-    sizes, bases, quals = _stream(sorted(CONFIGS).index(name) + 5)
+def _run_driver(driver, config, sizes, bases, quals):
+    """Per family and position: the kernels' tally's vote (base, qual),
+    WideTally's, and the QC parts (votes, top count) of both."""
     num, den = config.cutoff_rational
     text = " ".join(map(str, [len(sizes), bases.shape[1], config.qual_threshold, num, den,
                               config.qual_cap, *sizes.tolist(), *bases.ravel().tolist(),
                               *quals.ravel().tolist()]))
     run = subprocess.run([driver], input=text, capture_output=True, text=True, check=True)
-    got = np.array(run.stdout.split(), np.int64).reshape(len(sizes), bases.shape[1], 4)
+    return np.array(run.stdout.split(), np.int64).reshape(len(sizes), bases.shape[1], 8)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_tally_matches_plain_vote(driver, name):
+    config = CONFIGS[name]
+    sizes, bases, quals = _stream(sorted(CONFIGS).index(name) + 5)
+    got = _run_driver(driver, config, sizes, bases, quals)
     want = consensus_vote.vote_members_plain(torch.from_numpy(bases), torch.from_numpy(quals),
                                              torch.from_numpy(sizes), config).numpy()
     np.testing.assert_array_equal(got[..., 0], want[0])  # the kernels' tally
@@ -142,3 +155,48 @@ def test_tally_matches_plain_vote(driver, name):
     np.testing.assert_array_equal(got[..., 3], want[1])
     # the stream exercised what it is for: passing votes, ties that pass
     assert (want[0] < 4).any() and (want[0] == 4).any()
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_tally_qc_part_matches_plain_rider(driver, name):
+    config = CONFIGS[name]
+    sizes, bases, quals = _stream(sorted(CONFIGS).index(name) + 5)
+    got = _run_driver(driver, config, sizes, bases, quals)
+    length = bases.shape[1]
+    np.testing.assert_array_equal(got[..., 4:6], got[..., 6:8])  # both tallies agree
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    b, q = torch.from_numpy(bases), torch.from_numpy(quals)
+    for f in range(len(sizes)):  # family by family, every position live
+        _planes, qc = consensus_vote.vote_members_plain(
+            b, q, torch.from_numpy(sizes[f:f + 1]), config,
+            starts=torch.from_numpy(starts[f:f + 1]), qc_lengths=torch.tensor([length]))
+        np.testing.assert_array_equal(got[f, :, 4], qc[0].numpy())
+        np.testing.assert_array_equal(got[f, :, 4] - got[f, :, 5], qc[1].numpy())
+    # the batch's sums under per-family length masks
+    lengths = np.random.default_rng(len(sizes)).integers(0, length + 1, len(sizes))
+    _planes, qc = consensus_vote.vote_members_plain(b, q, torch.from_numpy(sizes), config,
+                                                    qc_lengths=torch.from_numpy(lengths))
+    live = np.arange(length)[None, :] < lengths[:, None]
+    np.testing.assert_array_equal(np.where(live, got[..., 4], 0).sum(0), qc[0].numpy())
+    np.testing.assert_array_equal(np.where(live, got[..., 4] - got[..., 5], 0).sum(0),
+                                  qc[1].numpy())
+    # failed votes count too: positions whose vote is N still carry votes
+    failed = got[..., 0] == 4
+    assert failed.any() and (got[..., 4][failed] > 0).any()
+
+
+def test_tally_qc_part_at_the_packed_limits(driver):
+    """Families of kPackedMax (256) members whose every qual is 255, the
+    packed lanes' largest sums: the lanes' total must not carry into the
+    counts."""
+    length = 4
+    sizes = np.array([256, 256, 255], np.int64)
+    bases = np.zeros((767, length), np.uint8)
+    bases[256:512] = np.arange(256)[:, None] % 4  # the second family over A C G T
+    bases[512:] = (np.arange(255)[:, None] + np.arange(length)) % 5
+    quals = np.full((767, length), 255, np.uint8)
+    config = ConsensusConfig(cutoff=0.5, qual_threshold=0, qual_cap=255)
+    got = _run_driver(driver, config, sizes, bases, quals)
+    assert (got[:2, :, 4] == 256).all() and (got[2, :, 4] == 255).all()
+    np.testing.assert_array_equal(got[..., 4:6], got[..., 6:8])  # as the wide tally counts
+    assert got[0, :, 5].tolist() == [256] * length and got[1, :, 5].tolist() == [64] * length
