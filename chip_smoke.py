@@ -49,17 +49,36 @@ failure; no phase's failure is caught.  Phases:
    ``--device cpu`` run's; ``sample.bam`` also with ``--residency False``,
    whose BAMs must be byte-identical to the resident run's, and with
    ``--pipeline streaming --intermediate_taps True``, whose whole tree
-   (BAMs and indexes) must be the staged run's;
+   (BAMs and indexes) must be the staged run's; then the object paths:
+   ``--max_mismatch 1`` on ``sample_bcerr.bam`` (the ``consensus_mm1``
+   goldens, the Hamming matcher on the card), ``--wire dense`` on the
+   three BAMs (every launch B1's dense form with the dense rider) and on
+   ``sample.bam`` under streaming, each staged card run's records and
+   ``qc.json`` equal to the port's ``--device cpu`` run's; and a tagged
+   ``sample.bam`` (``NM:i:0`` on every read, as an aligner writes): card
+   records equal to the CPU run's, streaming re-running staged;
 5. the same command on a simulated BAM (``--fragments`` duplex fragments,
    seed 42, ``ref_len = 40 * fragments``), residency on: wall time,
    families/s, reads/s, the SSCS kernel's launches (> 0, every one with the
    QC rider), the resident duplex votes (pairs and rescues, each > 0) and
    a ``qc.json`` with its vote plane; then ``--resume True`` on the same
    output (every stage skipped, no launch, every BAM's sha256 kept); then
-   five more runs of it with their step walls: staged with ``--residency``
-   off, staged, streaming, streaming, staged (taps off: the finals
+   three more runs of it with their step walls: staged with
+   ``--residency`` off, streaming, staged (taps off: the finals
    byte-identical to the main run's, no intermediate written);
-6. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
+6. the object paths at full width (read length 100, UMI 6, mean family
+   3): (b) ``--wire dense`` on phase 5's sample, every BAM byte-identical
+   to the stream run's, every SSCS launch B1's dense form with the dense
+   rider, which is then held to its plain version at the run's largest
+   bucket (qualscore 0 and 30) and timed with its bound; (a) phase 5's
+   settings at ``OBJECT_FRAGMENTS`` fragments, untagged and with
+   ``NM:i:0`` on every read: the tagged run's rescue and DCS take the
+   window walks on the card, and each of the two stages again with
+   ``device="cpu"`` writes the same records; (c) ``--max_mismatch 1`` on
+   the same settings with barcode errors (another seed): the Hamming
+   matcher's calls and seconds, and the rescue stage on the CPU writes the
+   same records;
+7. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
    its kernel launches counted (> 0) and its outputs equal to the
    prestaged loop's.
 
@@ -90,7 +109,14 @@ sys.path.insert(0, REPO)
 
 from consensuscruncher_tpu_torch.cli import main as cli_main  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import open_batch_source  # noqa: E402
-from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote, cuda_lib, residency  # noqa: E402
+from consensuscruncher_tpu_torch.ops import (  # noqa: E402
+    consensus_dense,
+    consensus_segment,
+    consensus_vote,
+    cuda_lib,
+    residency,
+)
+from consensuscruncher_tpu_torch.ops import singleton as hamming  # noqa: E402
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote  # noqa: E402
 from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
     WIRES,
@@ -101,7 +127,10 @@ from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
     unpack_wire,
 )
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
-from consensuscruncher_tpu_torch.stages import dcs_maker  # noqa: E402
+from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
+from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
+from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
+from consensuscruncher_tpu_torch.utils.ragged import scatter_runs  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, PAD  # noqa: E402
@@ -123,6 +152,8 @@ FOLD_OPS, FINALIZE_OPS, COMBINE_OPS, QC_OPS = 6, 30, 6, 8
 VOTE = {"name": "consensus_vote", "route": "cuda",
         "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
         "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:139"}
+# B1's dense form with the dense rider (the --wire dense vote)
+DENSE_VOTE = {**VOTE, "name": "consensus_vote_dense"}
 FUSED = {"name": "duplex_members", "route": "cuda",
          "source": "consensuscruncher_tpu_torch/csrc/consensus_vote.cu",
          "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:163"}
@@ -997,13 +1028,18 @@ def phase_goldens(dev) -> dict:
     return out
 
 
-def _synced_timer(owner, attr: str, acc: dict, key: str):
+def _synced_timer(owner, attr: str, acc: dict, key: str, calls: dict | None = None):
     """Wrap ``owner.attr`` so each call is bracketed by synchronises and
-    its wall added to ``acc[key]``; returns the restore function."""
+    its wall added to ``acc[key]`` (and, given ``calls``, counted in
+    ``calls[key]``); returns the restore function."""
     fn = getattr(owner, attr)
     acc[key] = 0.0
+    if calls is not None:
+        calls[key] = 0
 
     def timed(*args, **kwargs):
+        if calls is not None:
+            calls[key] += 1
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn(*args, **kwargs)
@@ -1094,10 +1130,14 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
 
 MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_sscs",
                    "merge_all_dcs")
-# (pipeline, residency) per turn: residency off once and on (staged) twice,
-# streaming twice between the staged-on turns
-WALL_TURNS = (("staged", "False"), ("staged", "True"), ("streaming", "True"),
-              ("streaming", "True"), ("staged", "True"))
+# (pipeline, residency) per turn: residency off, streaming, staged (the main
+# run is a staged-on run too)
+WALL_TURNS = (("staged", "False"), ("streaming", "True"), ("staged", "True"))
+# the object-path samples (tagged input, --max_mismatch 1): phase 5's
+# settings at a quarter of its fragments (the walks decode every record in
+# Python, and each stage runs again on the CPU for its reference)
+OBJECT_FRAGMENTS = 50_000
+BARCODE_ERROR_RATE = 0.15  # test/make_test_data.py's sample_bcerr.bam rate
 # the stage-to-stage BAMs streaming writes only as taps
 INTERMEDIATES = ("sscs/sim.singleton.sorted.bam", "singleton/sim.sscs.rescue.sorted.bam",
                  "singleton/sim.singleton.rescue.sorted.bam", "dcs/sim.sscs.rescued.bam")
@@ -1154,6 +1194,312 @@ def phase_walls(dev, sim_bam: str, work: str, card: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------- object paths
+
+
+def _records(path: str) -> list:
+    """A BAM's header text and raw record bytes, in file order."""
+    with ColumnarReader(path) as reader:
+        out = [reader.header.text]
+        for batch in reader.batches():
+            off = batch.rec_off
+            out += [bytes(batch.buf[off[i]:off[i + 1]]) for i in range(batch.n)]
+    return out
+
+
+def _same_records(base: str, other: str, rels) -> None:
+    for rel in rels:
+        if _records(os.path.join(base, rel)) != _records(os.path.join(other, rel)):
+            raise AssertionError(f"{rel}: the card's records differ from the CPU run's")
+
+
+def _tag_every_read(src: str, dst: str) -> None:
+    """``src`` with ``NM:i:0`` appended to every record's tags (an aligned
+    sample's reads carry such tags), by raw-record surgery in numpy."""
+    tag = np.frombuffer(b"NMi\x00\x00\x00\x00", np.uint8)
+    with ColumnarReader(src) as reader, BamWriter(dst, reader.header) as writer:
+        for batch in reader.batches():
+            n, off = batch.n, batch.rec_off
+            lens = np.diff(off)
+            new_off = np.zeros(n + 1, np.int64)
+            np.cumsum(lens + tag.size, out=new_off[1:])
+            out = np.empty(int(new_off[-1]), np.uint8)
+            scatter_runs(out, new_off[:-1], batch.buf, lens, src_starts=off[:-1])
+            scatter_runs(out, new_off[:-1] + lens, np.tile(tag, n),
+                         np.full(n, tag.size, np.int64))
+            block_size = (lens + tag.size - 4).astype("<u4").view(np.uint8).reshape(n, 4)
+            out[new_off[:-1, None] + np.arange(4)] = block_size
+            writer.write_encoded(out)
+
+
+def phase_object_goldens(dev) -> dict:
+    """The object paths on the committed BAMs: ``--max_mismatch 1`` on
+    ``sample_bcerr.bam`` (the ``consensus_mm1`` goldens, every BAM's
+    records equal to the port's CPU run's), ``--wire dense`` on the three
+    (their goldens, each card ``qc.json`` equal to the CPU dense run's,
+    every launch with the dense rider), ``--wire dense --pipeline
+    streaming`` on ``sample.bam``, and a tagged ``sample.bam`` (every
+    read with ``NM:i:0``): card records equal to the CPU run's, and under
+    streaming a staged re-run that writes the same tree."""
+    golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
+    runs = (("sample_bcerr.bam", "consensus_mm1", "golden_mm1", ["--max_mismatch", "1"],
+             "staged"),
+            ("sample.bam", "consensus", "golden", ["--wire", "dense"], "staged"),
+            ("sample_adversarial.bam", "consensus_adversarial", "golden_adv",
+             ["--wire", "dense"], "staged"),
+            ("sample_bcerr.bam", "consensus_bcerr_exact", "golden_bcerr", ["--wire", "dense"],
+             "staged"),
+            ("sample.bam", "consensus", "golden", ["--wire", "dense"], "streaming"))
+    out = {}
+    for bam, section, name, extra, pipeline in runs:
+        work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
+        argv = ["consensus", "-i", os.path.join(REPO, "test", "data", bam), "-o", work,
+                "-n", name, "--scorrect", "True", "--pipeline", pipeline,
+                "--intermediate_taps", "True", *extra]
+        consensus_vote.launches = consensus_vote.qc_launches = hamming.launches = 0
+        t = time.perf_counter()
+        res = cli_main(argv + ["--device", dev.type])
+        wall = time.perf_counter() - t
+        launches, qc_launches, ham = (consensus_vote.launches, consensus_vote.qc_launches,
+                                      hamming.launches)
+        if res["pipeline"] != pipeline:
+            raise AssertionError(f"{bam} {extra}: asked for {pipeline}, ran {res['pipeline']}")
+        base = os.path.join(work, name)
+        bad = golden_mismatches(base, golden[section])
+        if bad:
+            raise AssertionError(f"{bam} {extra} ({pipeline}): outputs diverge from "
+                                 f"{section} goldens: {bad}")
+        if launches == 0 or qc_launches != launches:
+            raise AssertionError(f"{bam} {extra}: {launches} vote launches, {qc_launches} "
+                                 "with the QC rider")
+        if "--max_mismatch" in extra and ham == 0:
+            raise AssertionError(f"{bam}: the Hamming matcher never ran on the card")
+        qc_equal = None
+        if pipeline == "staged":
+            cpu = os.path.join(work, "cpu")
+            cli_main(argv + ["--device", "cpu", "-o", cpu])
+            _same_records(base, os.path.join(cpu, name), _bam_sha256(base))
+            qc_equal = _qc_doc(base) == _qc_doc(os.path.join(cpu, name))
+            if not qc_equal:
+                raise AssertionError(f"{bam} {extra}: the card's qc.json differs from the "
+                                     "CPU run's")
+        shutil.rmtree(work)
+        out[f"{bam}/{' '.join(extra)}/{pipeline}"] = wall
+        emit("object_goldens", input=bam, flags=extra, pipeline=pipeline,
+             digests=len(golden[section]), wall_s=wall, launches=launches,
+             qc_launches=qc_launches, hamming_launches=ham, qc_equal_to_cpu=qc_equal)
+
+    work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
+    tagged = os.path.join(work, "tagged.bam")
+    _tag_every_read(os.path.join(REPO, "test", "data", "sample.bam"), tagged)
+    argv = ["consensus", "-i", tagged, "-n", "t", "--scorrect", "True"]
+    trees = {}
+    for pipeline in ("staged", "streaming"):
+        res = cli_main(argv + ["-o", os.path.join(work, pipeline), "--device", dev.type,
+                               "--pipeline", pipeline])
+        if res["pipeline"] != "staged":
+            raise AssertionError(f"tagged sample.bam ({pipeline}) ran {res['pipeline']}")
+        trees[pipeline] = _bam_sha256(os.path.join(work, pipeline, "t"))
+    if trees["streaming"] != trees["staged"]:
+        raise AssertionError("tagged sample.bam: streaming's staged re-run wrote another tree")
+    cli_main(argv + ["-o", os.path.join(work, "cpu"), "--device", "cpu"])
+    _same_records(os.path.join(work, "staged", "t"), os.path.join(work, "cpu", "t"),
+                  trees["staged"])
+    shutil.rmtree(work)
+    emit("object_goldens", input="sample.bam tagged NM:i:0", bams=len(trees["staged"]),
+         equal_to_cpu=True, streaming_ran="staged")
+    return out
+
+
+def phase_dense(dev, sim_bam: str, work: str, rates: dict) -> dict:
+    """(b) ``--wire dense`` on phase 5's sample: counts set to 0 just
+    before and read just after (every SSCS launch is B1's dense form with
+    the dense rider), every BAM byte-identical to the stream run's; then
+    B1's dense form with the rider at the run's largest bucket against its
+    plain version, timed with its bound."""
+    largest = {}
+    dense_batch = consensus_dense.consensus_batch
+
+    def keep_largest(batch, *args, **kwargs):
+        cells = int(batch.fam_sizes[:batch.n_real].sum()) * batch.bases.shape[2]
+        if cells > largest.get("cells", -1):
+            largest.update(cells=cells, batch=batch)
+        return dense_batch(batch, *args, **kwargs)
+
+    consensus_dense.consensus_batch = keep_largest
+    out = os.path.join(work, "dense")
+    try:
+        consensus_vote.launches = consensus_vote.qc_launches = 0
+        t = time.perf_counter()
+        res = cli_main(["consensus", "-i", sim_bam, "-o", out, "-n", "sim", "--scorrect", "True",
+                        "--device", dev.type, "--wire", "dense"])
+        wall = time.perf_counter() - t
+        launches, qc_launches = consensus_vote.launches, consensus_vote.qc_launches
+    finally:
+        consensus_dense.consensus_batch = dense_batch
+    if launches == 0 or qc_launches != launches:
+        raise AssertionError(f"the dense run launched B1 {launches} times, {qc_launches} with "
+                             "the dense rider")
+    if _bam_sha256(os.path.join(out, "sim")) != _bam_sha256(os.path.join(work, "sim")):
+        raise AssertionError("--wire dense wrote other BAMs than the stream wire")
+    qc_plane = _qc_doc(os.path.join(out, "sim"))["plane"]
+    shutil.rmtree(out)
+
+    batch = largest["batch"]
+    n = batch.n_real
+    _b, f, length = batch.bases.shape
+    bases = torch.from_numpy(batch.bases[:n]).to(dev).reshape(n * f, length)
+    quals = torch.from_numpy(batch.quals[:n]).to(dev).reshape(n * f, length)
+    sizes = torch.from_numpy(batch.fam_sizes[:n])
+    starts = torch.arange(n, dtype=torch.int64) * f
+    lengths = torch.full((n,), length, dtype=torch.int32)
+    cfg = consensus_vote.ConsensusConfig()
+    errs: list[int] = []
+    job = consensus_vote.prepare_wire("raw", bases, quals, sizes, cfg, starts=starts,
+                                      qc_lengths=lengths)
+    planes = job()[0]
+    got_qc = job.qc.clone()
+    want, want_qc = consensus_vote.vote_members_plain(bases, quals, sizes, cfg, starts=starts,
+                                                      qc_lengths=lengths)
+    _check_equal("dense/largest_bucket", planes, want, errs)
+    _check_equal("dense/largest_bucket/qc", got_qc, want_qc, errs)
+    for qt in (0, 30):  # the dense rider at both qualscores, PAD tails included
+        cfg_q = consensus_vote.ConsensusConfig(qual_threshold=qt)
+        got = consensus_dense.consensus_batch(batch, cfg_q, dev, qc=True)
+        plain = consensus_vote.vote_members_plain(bases, quals, sizes, cfg_q, starts=starts,
+                                                  qc_lengths=lengths)
+        _check_equal(f"dense/q{qt}/planes", got[0], plain[0], errs)
+        _check_equal(f"dense/q{qt}/qc", got[1], plain[1], errs)
+
+    def plain_call():
+        consensus_vote.vote_members_plain(bases, quals, sizes, cfg, starts=starts,
+                                          qc_lengths=lengths)
+
+    runs = [kernel_ms(job, KERNEL, 300)]
+    plain_ms = cuda_ms(plain_call, 10)
+    runs.append(kernel_ms(job, KERNEL, 300))
+    live_members = int(sizes.sum())
+    # least work: each live member-position's base and qual read once, each
+    # family's size read once, its output planes written once, the (2, L)
+    # int32 sums written once; the vote's operations at each live member-
+    # position and output position, the rider's at every position
+    b = bound(2 * live_members * length + 4 * n + 2 * n * length + 8 * length,
+              FOLD_OPS * live_members * length + FINALIZE_OPS * n * length
+              + QC_OPS * n * length, rates)
+    row = {"card": rates["card"], "wall_s": wall, "steps_s": res["walls"], "launches": launches,
+           "qc_launches": qc_launches, "qc_positions": qc_plane["positions"],
+           "ms": min(r["ms"] for r in runs), "runs": runs, "plain_ms": plain_ms, **b,
+           "max_abs_err": max(errs), "comparisons": len(errs), "path": job.plan.summary(),
+           "shape": {"families": n, "F": f, "L": length, "live_members": live_members}}
+    emit("dense", **row)
+    return row
+
+
+def phase_tagged(dev, work: str, card: str) -> dict:
+    """(a) Phase 5's settings at ``OBJECT_FRAGMENTS`` fragments, untagged
+    and with ``NM:i:0`` on every read, staged: the tagged run's rescue and
+    DCS steps take the window walks on the card; each of those two stages
+    again with ``device="cpu"`` on the same inputs writes the same
+    records; step walls of both runs."""
+    plain_bam = os.path.join(work, "obj.bam")
+    tagged_bam = os.path.join(work, "obj_tagged.bam")
+    cfg = SimConfig(n_fragments=OBJECT_FRAGMENTS, ref_len=40 * OBJECT_FRAGMENTS, seed=42)
+    simulate_bam_fast(plain_bam, cfg)
+    t = time.perf_counter()
+    _tag_every_read(plain_bam, tagged_bam)
+    tag_s = time.perf_counter() - t
+    rows = {}
+    for label, bam in (("untagged", plain_bam), ("tagged", tagged_bam)):
+        # the window walks, counted and timed (synchronised)
+        acc: dict[str, float] = {}
+        calls: dict[str, int] = {}
+        restores = [
+            _synced_timer(singleton_correction, "_run_rescue_walk", acc, "rescue_walk_s", calls),
+            _synced_timer(dcs_maker, "_run_dcs_windows", acc, "dcs_walk_s", calls)]
+        consensus_vote.launches = 0
+        try:
+            t = time.perf_counter()
+            res = cli_main(["consensus", "-i", bam, "-o", os.path.join(work, label), "-n", "obj",
+                            "--scorrect", "True", "--device", dev.type])
+            wall = time.perf_counter() - t
+        finally:
+            for restore in restores:
+                restore()
+        walks = 1 if label == "tagged" else 0
+        if calls != {"rescue_walk_s": walks, "dcs_walk_s": walks}:
+            raise AssertionError(f"{label}: walks taken {calls}")
+        if consensus_vote.launches == 0:
+            raise AssertionError(f"{label}: the SSCS vote never launched")
+        rows[label] = {"wall_s": wall, "steps_s": res["walls"], **acc,
+                       "sscs_launches": consensus_vote.launches}
+    base = os.path.join(work, "tagged", "obj")
+    cpu = torch.device("cpu")
+    t = time.perf_counter()
+    rescue = singleton_correction.run_singleton_correction(
+        os.path.join(base, "sscs", "obj.singleton.sorted.bam"),
+        os.path.join(base, "sscs", "obj.sscs.sorted.bam"), os.path.join(work, "cpu_rescue"), cpu)
+    dcs = dcs_maker.run_dcs(os.path.join(base, "dcs", "obj.sscs.rescued.bam"),
+                            os.path.join(work, "cpu_dcs"), cpu)
+    cpu_s = time.perf_counter() - t
+    for got, want in ((rescue.sscs_rescue_bam, "singleton/obj.sscs.rescue.sorted.bam"),
+                      (rescue.singleton_rescue_bam, "singleton/obj.singleton.rescue.sorted.bam"),
+                      (rescue.remaining_bam, "singleton/obj.remaining.singleton.sorted.bam"),
+                      (dcs.dcs_bam, "dcs/obj.dcs.sorted.bam"),
+                      (dcs.sscs_singleton_bam, "dcs/obj.sscs.singleton.sorted.bam")):
+        if _records(got) != _records(os.path.join(base, want)):
+            raise AssertionError(f"tagged {want}: the card's records differ from the CPU's")
+    stats = json.load(open(os.path.join(base, "singleton", "obj.singleton_stats.json")))
+    row = {"card": card, "fragments": OBJECT_FRAGMENTS, "tag_s": tag_s, **rows,
+           "cpu_rerun_s": cpu_s, "rescued_by_sscs": stats.get("rescued_by_sscs"),
+           "rescued_by_singleton": stats.get("rescued_by_singleton"),
+           "dcs_pairs": dcs.stats.get("pairs")}
+    emit("tagged", **row)
+    return row
+
+
+def phase_mm1(dev, work: str, card: str) -> dict:
+    """(c) ``--max_mismatch 1`` on phase 5's settings at ``OBJECT_FRAGMENTS``
+    fragments with barcode errors (another seed): Hamming launches and
+    their synchronised seconds; the rescue stage again with
+    ``device="cpu"`` writes the same records."""
+    bam = os.path.join(work, "mm1.bam")
+    cfg = SimConfig(n_fragments=OBJECT_FRAGMENTS, ref_len=40 * OBJECT_FRAGMENTS,
+                    barcode_error_rate=BARCODE_ERROR_RATE, seed=43)
+    simulate_bam_fast(bam, cfg)
+    hamming.launches, hamming.hamming_s = 0, 0.0
+    consensus_vote.launches = 0
+    t = time.perf_counter()
+    res = cli_main(["consensus", "-i", bam, "-o", os.path.join(work, "mm1"), "-n", "mm1",
+                    "--scorrect", "True", "--device", dev.type, "--max_mismatch", "1"])
+    wall = time.perf_counter() - t
+    launches, ham_s, sscs_launches = hamming.launches, hamming.hamming_s, consensus_vote.launches
+    if launches == 0 or sscs_launches == 0:
+        raise AssertionError(f"--max_mismatch 1: {launches} Hamming calls, {sscs_launches} "
+                             "SSCS launches")
+    base = os.path.join(work, "mm1", "mm1")
+    t = time.perf_counter()
+    rescue = singleton_correction.run_singleton_correction(
+        os.path.join(base, "sscs", "mm1.singleton.sorted.bam"),
+        os.path.join(base, "sscs", "mm1.sscs.sorted.bam"), os.path.join(work, "cpu_mm1"),
+        torch.device("cpu"), max_mismatch=1)
+    cpu_s = time.perf_counter() - t
+    for got, want in ((rescue.sscs_rescue_bam, "singleton/mm1.sscs.rescue.sorted.bam"),
+                      (rescue.singleton_rescue_bam, "singleton/mm1.singleton.rescue.sorted.bam"),
+                      (rescue.remaining_bam, "singleton/mm1.remaining.singleton.sorted.bam")):
+        if _records(got) != _records(os.path.join(base, want)):
+            raise AssertionError(f"mm1 {want}: the card's records differ from the CPU's")
+    stats = json.load(open(os.path.join(base, "singleton", "mm1.singleton_stats.json")))
+    row = {"card": card, "fragments": OBJECT_FRAGMENTS, "barcode_error_rate": BARCODE_ERROR_RATE,
+           "wall_s": wall, "steps_s": res["walls"], "hamming_launches": launches,
+           "hamming_s": ham_s, "cpu_rescue_s": cpu_s,
+           "singletons": stats.get("singletons_total"),
+           "rescued_by_sscs": stats.get("rescued_by_sscs"),
+           "rescued_by_singleton": stats.get("rescued_by_singleton")}
+    emit("mm1", **row)
+    return row
+
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -1183,8 +1529,12 @@ def main() -> None:
         book, batches = stage_loop_batches()
         stage, reference = phase_fused_stage(dev, rates, fused_errs, book, batches)
         phase_goldens(dev)
+        phase_object_goldens(dev)
         scale = phase_scale(dev, sim_bam, truth, work, rates["card"])
         phase_walls(dev, sim_bam, work, rates["card"])
+        dense = phase_dense(dev, sim_bam, work, rates)
+        phase_tagged(dev, work, rates["card"])
+        phase_mm1(dev, work, rates["card"])
         path = phase_fused_path(dev, book, batches, reference)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1201,6 +1551,10 @@ def main() -> None:
          "qc_plain_ms": vote["qc"]["plain_ms"], "qc_bound_ms": vote["qc"]["bound_ms"],
          "qc_bound_by": vote["qc"]["bound_by"],
          "rider_bound_ms": vote["qc"]["rider_bound_ms"]},
+        {**DENSE_VOTE, "launches": dense["launches"], "max_abs_err": dense["max_abs_err"],
+         "ms": dense["ms"], "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
+         "bound_by": dense["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+         "qc_launches": dense["qc_launches"], "path": dense["path"], "shape": dense["shape"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

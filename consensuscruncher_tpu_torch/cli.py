@@ -3,7 +3,8 @@
     python -m consensuscruncher_tpu_torch.cli consensus -i X.bam -o OUT \\
         [--scorrect True] [--device cuda|cpu] [--residency True|False] \\
         [--resume True] [--intermediate_level 0-9] \\
-        [--pipeline staged|streaming] [--intermediate_taps True] ...
+        [--pipeline staged|streaming] [--intermediate_taps True] \\
+        [--max_mismatch N] [--wire stream|dense] ...
 
 Port of ``consensuscruncher_tpu/cli.py``'s ``_consensus_impl`` (the staged
 pipeline) and ``_consensus_streaming``: SSCS -> singleton rescue -> rescued
@@ -11,8 +12,9 @@ merge -> DCS -> all-unique merges -> BAI indexes, under
 ``<output>/<name>/{sscs,singleton,dcs,all_unique}``, plus the run's
 ``qc.json`` (``CCT_QC``, on by default), ``manifest.json`` (what
 ``--resume`` skips by) and ``run.metrics.json``.  The device votes run on
-the CUDA card unless ``--device cpu`` is given; the SSCS planes stay on the
-device for rescue and DCS unless ``--residency False`` is given.
+the CUDA card unless ``--device cpu`` is given; on the stream wire the SSCS
+planes stay on the device for rescue and DCS unless ``--residency False``
+is given.
 """
 
 from __future__ import annotations
@@ -93,8 +95,6 @@ def make_checkpointed(manifest: RunManifest, resume: bool, label: str):
 def consensus(args) -> dict:
     """Run the consensus pipeline; returns the output paths, the directory
     map, the wall seconds of each step and the pipeline that ran."""
-    if int(args.max_mismatch) != 0:
-        raise SystemExit("--max_mismatch > 0 is not supported by the torch port yet")
     t0 = time.perf_counter()
     io_before = bgzf.write_stats()
     device = resolve_device(args.device)
@@ -112,24 +112,31 @@ def consensus(args) -> dict:
     ilevel = args.compress_level if args.intermediate_level is None else args.intermediate_level
     run = _Run(args, device, name, base, dirs, manifest, ilevel, t0, io_before)
 
-    # Device-resident SSCS planes (on by default, as in the JAX package):
-    # rescue and DCS vote by gather on the device instead of uploading the
-    # SSCS planes again.  Outputs are byte-identical either way, so it is
-    # no manifest param; a resume that skips SSCS leaves the store empty
-    # and rescue and DCS vote by upload.
+    # Device-resident SSCS planes (on by default on the stream wire, as in
+    # the JAX package): rescue and DCS vote by gather on the device instead
+    # of uploading the SSCS planes again.  Outputs are byte-identical
+    # either way, so it is no manifest param; a resume that skips SSCS
+    # leaves the store empty and rescue and DCS vote by upload.
     def store():
-        return resident_planes(device, DEFAULT_QUAL_CAP) if _bool(args.residency) else None
+        if args.wire == "stream" and _bool(args.residency):
+            return resident_planes(device, DEFAULT_QUAL_CAP)
+        return None
 
-    if args.pipeline == "streaming" and not args.resume:
+    # The object-walk rescue (--max_mismatch > 0) re-reads its inputs as
+    # files, so such a run takes the staged pipeline, as in the JAX package.
+    if (args.pipeline == "streaming" and not args.resume
+            and (not args.scorrect or int(args.max_mismatch) == 0)):
         from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
 
         try:
             return _consensus_streaming(run, store())
         except StreamFallback as e:
             # The JAX package re-runs the staged pipeline after any
-            # exception; the port only after the two host-side conditions
-            # that streaming cannot get past (a spilled sort buffer, a
-            # failed background write), so a device fault always raises.
+            # exception; the port only after the host-side conditions that
+            # streaming cannot get past (a spilled sort buffer, a failed
+            # background write, a consensus record whose tags do not lead
+            # with XT/XF, which the rescue and DCS walks must re-read from
+            # files), so a device fault always raises.
             print(f"consensus: streaming pipeline cannot finish in memory ({e}); "
                   "falling back to the staged pipeline", file=sys.stderr, flush=True)
     return _consensus_staged(run, store())
@@ -158,7 +165,7 @@ def _consensus_staged(run: _Run, residency) -> dict:
          "input_range": None},
         run=lambda: run_sscs(args.input, sscs_prefix, device, cutoff=args.cutoff,
                              qual_threshold=args.qualscore, bdelim=args.bdelim, level=ilevel,
-                             residency=residency, qc=qc_acc),
+                             residency=residency, qc=qc_acc, wire=args.wire),
         rebuild=lambda: SscsResult.from_prefix(sscs_prefix))
     walls.mark("sscs")
     sscs_parts = [sscs.sscs_bam]
@@ -170,8 +177,9 @@ def _consensus_staged(run: _Run, residency) -> dict:
             list(singleton_correction.output_paths(corr_prefix).values()),
             {"max_mismatch": args.max_mismatch},
             run=lambda: run_singleton_correction(sscs.singleton_bam, sscs.sscs_bam,
-                                                 corr_prefix, device, level=ilevel,
-                                                 residency=residency),
+                                                 corr_prefix, device,
+                                                 max_mismatch=args.max_mismatch,
+                                                 level=ilevel, residency=residency),
             rebuild=lambda: SingletonResult.from_prefix(corr_prefix))
         walls.mark("singleton_correction")
         sscs_parts += [corr.sscs_rescue_bam, corr.singleton_rescue_bam, corr.remaining_bam]
@@ -253,7 +261,7 @@ def _consensus_streaming(run: _Run, residency) -> dict:
         sscs = run_sscs(args.input, os.path.join(dirs["sscs"], name), device,
                         cutoff=args.cutoff, qual_threshold=args.qualscore,
                         bdelim=args.bdelim, level=ilevel, residency=residency,
-                        qc=qc_acc, stream_out=stream)
+                        qc=qc_acc, stream_out=stream, wire=args.wire)
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -371,7 +379,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--qualscore", "-q", type=int, default=0)
     c.add_argument("--scorrect", default="True", help="singleton correction on/off")
     c.add_argument("--max_mismatch", type=int, default=0,
-                   help="barcode Hamming tolerance for singleton rescue (only 0)")
+                   help="barcode Hamming tolerance for singleton rescue (default "
+                        "0: exact complementary match; > 0 runs the object walk "
+                        "with the Hamming matcher, on the staged pipeline)")
     c.add_argument("--bdelim", default=DEFAULT_BDELIM)
     c.add_argument("--cleanup", default="False", help="remove intermediate BAMs")
     c.add_argument("--resume", default="False",
@@ -397,6 +407,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the votes run (default cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
+    c.add_argument("--wire", choices=("stream", "dense"), default="stream",
+                   help="SSCS vote layout: 'stream' (packed member stream, the "
+                        "default) or 'dense' (padded (B, F, L) family batches). "
+                        "Byte-identical outputs; residency needs 'stream'")
     c.add_argument("--residency", default="True",
                    help="keep SSCS consensus planes on the device so rescue and "
                         "DCS vote by gather instead of uploading them again "

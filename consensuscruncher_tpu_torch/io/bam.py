@@ -104,6 +104,11 @@ class BamRead:
     tags: dict[str, tuple[str, object]] = field(default_factory=dict)
 
     @property
+    def seq_len(self) -> int:
+        """Uniform length accessor shared with the columnar MemberView."""
+        return len(self.seq)
+
+    @property
     def codes(self) -> np.ndarray:
         """Pipeline base codes (A=0..N=4) — MemberView-uniform accessor."""
         from consensuscruncher_tpu_torch.utils.phred import encode_seq
@@ -113,6 +118,51 @@ class BamRead:
     def materialize(self) -> "BamRead":
         """MemberView-uniform accessor: a BamRead already is materialized."""
         return self
+
+    # -- flag properties (pysam-compatible names where it matters) --
+    @property
+    def is_paired(self) -> bool:
+        return bool(self.flag & FPAIRED)
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FUNMAP)
+
+    @property
+    def mate_is_unmapped(self) -> bool:
+        return bool(self.flag & FMUNMAP)
+
+    @property
+    def is_reverse(self) -> bool:
+        return bool(self.flag & FREVERSE)
+
+    @property
+    def mate_is_reverse(self) -> bool:
+        return bool(self.flag & FMREVERSE)
+
+    @property
+    def is_read1(self) -> bool:
+        return bool(self.flag & FREAD1)
+
+    @property
+    def is_read2(self) -> bool:
+        return bool(self.flag & FREAD2)
+
+    @property
+    def is_secondary(self) -> bool:
+        return bool(self.flag & FSECONDARY)
+
+    @property
+    def is_supplementary(self) -> bool:
+        return bool(self.flag & FSUPPLEMENTARY)
+
+    @property
+    def is_qcfail(self) -> bool:
+        return bool(self.flag & FQCFAIL)
+
+    @property
+    def is_duplicate(self) -> bool:
+        return bool(self.flag & FDUP)
 
     def cigar_string(self) -> str:
         return "*" if not self.cigar else "".join(f"{n}{op}" for op, n in self.cigar)

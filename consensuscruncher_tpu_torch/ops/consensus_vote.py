@@ -359,19 +359,32 @@ def _duplex_checks(strand_a, strand_b, config, length):
 
 
 def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
-                    config: ConsensusConfig = ConsensusConfig()):
+                    config: ConsensusConfig = ConsensusConfig(), qc: bool = False):
     """Dense form, the port of ``consensus_batch_pallas``: ``(B, F, L)``
     uint8 planes + ``(B,)`` sizes -> ``(out_b, out_q)`` ``(B, L)`` uint8.
     Member slots ``>= size`` are never read.  Same kernel, with family ``i``
-    at rows ``i * F ..`` of the flattened ``(B * F, L)`` stream."""
+    at rows ``i * F ..`` of the flattened ``(B * F, L)`` stream.
+
+    ``qc``: also return the dense wire's QC rider, ``(out_b, out_q, qc)``
+    with ``qc`` the ``(2, L)`` int32 sums over the batch of votes and of
+    votes disagreeing with the modal lane at every position of the padded
+    width (the ``with_qc`` output of the JAX package's ``majority_family_
+    vote`` summed over the batch: no length mask, so a live member's
+    padding past its family's length votes N where its qual 0 fails the
+    threshold, and joins no lane where it passes).  It is the stream
+    rider's kernel form with every family's length set to ``L``."""
     b, f, length = bases.shape
     sizes = torch.as_tensor(fam_sizes).to(device="cpu", dtype=torch.int64)
     starts = torch.arange(b, dtype=torch.int64) * f
     if sizes.numel() and int(sizes.max()) > f:
         raise ValueError(f"family size exceeds the member capacity {f}")
-    out = vote_members(bases.reshape(b * f, length), quals.reshape(b * f, length),
-                       sizes, config, starts=starts)
-    return out[0], out[1]
+    flat_b, flat_q = bases.reshape(b * f, length), quals.reshape(b * f, length)
+    if not qc:
+        out = vote_members(flat_b, flat_q, sizes, config, starts=starts)
+        return out[0], out[1]
+    out, sums = vote_wire("raw", flat_b, flat_q, sizes, config, starts=starts,
+                          qc_lengths=torch.full((b,), length, dtype=torch.int32))
+    return out[0], out[1], sums
 
 
 def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,

@@ -1,27 +1,36 @@
-"""Member-stream batching: ragged UMI families -> device vote batches.
+"""Batching: ragged UMI families -> device vote batches.
 
-Port of ``consensuscruncher_tpu/parallel/batching.py`` (the member-stream
-half only).  Every real member row appears exactly once in a flat
-``(M, L)`` stream, and the device derives family structure from the
-per-family sizes.  Families bucket by consensus length (a multiple of
-``LEN_QUANTUM``) and by pow2 family-size class; a bucket flushes at
-``MAX_BATCH`` families or ``MEMBER_LIMIT`` member rows.
+Port of ``consensuscruncher_tpu/parallel/batching.py``, both wires:
+
+- **member stream** (the default wire): every real member row appears
+  exactly once in a flat ``(M, L)`` stream, and the device derives family
+  structure from the per-family sizes.  Families bucket by consensus
+  length (a multiple of ``LEN_QUANTUM``) and by pow2 family-size class; a
+  bucket flushes at ``MAX_BATCH`` families or ``MEMBER_LIMIT`` member rows
+  (:func:`bucket_member_blocks`).
+- **dense** (``--wire dense``): each family padded into an ``(F, L)`` slot
+  of a ``(B, F, L)`` batch, ``F`` the next power of two of its size, ``L``
+  its length bucket; families sharing an ``(F, L)`` bucket pack up to
+  ``max_batch``, and the final partial batch pads to a power of two (at
+  least ``MIN_BATCH``) with size-0 slots (:func:`bucket_families`).
 
 Rectangularization semantics (pinned; mixed-length families are rare but
 legal): the family's consensus length is its **modal member length** (ties
 -> longer); shorter members are padded with (N, qual 0) — N-votes count
 against every real base, exactly like a low-quality-demoted base — and
-longer members are truncated.
+longer members are truncated.  On the dense wire the cells past the
+consensus length, and the unused member slots, hold (PAD, qual 0).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
-from consensuscruncher_tpu_torch.utils.phred import N
+from consensuscruncher_tpu_torch.utils.phred import N, PAD
 from consensuscruncher_tpu_torch.utils.ragged import fill_runs, scatter_runs
 
 LEN_QUANTUM = 32
@@ -32,6 +41,108 @@ MEMBER_LIMIT = 32768
 
 def next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def fam_bucket(fam_size: int) -> int:
+    return max(1, next_pow2(fam_size))
+
+
+def len_bucket(length: int) -> int:
+    return max(LEN_QUANTUM, ((length + LEN_QUANTUM - 1) // LEN_QUANTUM) * LEN_QUANTUM)
+
+
+def consensus_length(lengths: Sequence[int]) -> int:
+    """Modal member length; ties resolved toward the longer length."""
+    counts = Counter(sorted(lengths, reverse=True))
+    return counts.most_common(1)[0][0]
+
+
+def rectangularize(
+    seqs: Sequence[np.ndarray], quals: Sequence[np.ndarray]
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Stack ragged member reads into (F, L*) arrays (see module docstring).
+
+    Returns ``(bases, quals, consensus_length)``.
+    """
+    target = consensus_length([len(s) for s in seqs])
+    fam = len(seqs)
+    out_s = np.full((fam, target), N, dtype=np.uint8)
+    out_q = np.zeros((fam, target), dtype=np.uint8)
+    for j, (s, q) in enumerate(zip(seqs, quals)):
+        k = min(len(s), target)
+        out_s[j, :k] = s[:k]
+        out_q[j, :k] = q[:k]
+    return out_s, out_q, target
+
+
+@dataclass
+class FamilyBatch:
+    """One dense device batch; ``keys[i]`` owns row ``i`` (i < n_real)."""
+
+    keys: list
+    bases: np.ndarray  # (B, F, L) uint8, PAD in unused slots
+    quals: np.ndarray  # (B, F, L) uint8
+    fam_sizes: np.ndarray  # (B,) int32; 0 for dummy rows
+    lengths: np.ndarray  # (B,) int32 true consensus length per row
+
+    @property
+    def n_real(self) -> int:
+        return len(self.keys)
+
+
+class _Bucket:
+    __slots__ = ("keys", "bases", "quals", "fam_sizes", "lengths")
+
+    def __init__(self):
+        self.keys, self.bases, self.quals, self.fam_sizes, self.lengths = [], [], [], [], []
+
+
+def bucket_families(
+    families: Iterable[tuple[object, Sequence[np.ndarray], Sequence[np.ndarray]]],
+    max_batch: int = 1024,
+) -> Iterator[FamilyBatch]:
+    """Stream ``(key, member_seqs, member_quals)`` into padded batches.
+
+    Emits a batch whenever a bucket fills to ``max_batch``; flushes all
+    partial buckets (padded up to a power-of-two batch, min ``MIN_BATCH``)
+    at the end of the stream, in ``(F, L)`` order.
+    """
+    buckets: dict[tuple[int, int], _Bucket] = {}
+    for key, seqs, quals in families:
+        if len(seqs) == 0:
+            raise ValueError(f"empty family for key {key!r}")
+        rect_s, rect_q, true_len = rectangularize(seqs, quals)
+        fb, lb = fam_bucket(rect_s.shape[0]), len_bucket(true_len)
+        padded_s = np.full((fb, lb), PAD, dtype=np.uint8)
+        padded_q = np.zeros((fb, lb), dtype=np.uint8)
+        padded_s[: rect_s.shape[0], :true_len] = rect_s
+        padded_q[: rect_q.shape[0], :true_len] = rect_q
+        bucket = buckets.setdefault((fb, lb), _Bucket())
+        bucket.keys.append(key)
+        bucket.bases.append(padded_s)
+        bucket.quals.append(padded_q)
+        bucket.fam_sizes.append(rect_s.shape[0])
+        bucket.lengths.append(true_len)
+        if len(bucket.keys) >= max_batch:
+            yield _emit(buckets.pop((fb, lb)), fb, lb, pad_to=max_batch)
+    for (fb, lb), bucket in sorted(buckets.items()):
+        yield _emit(bucket, fb, lb, pad_to=None)
+
+
+def _emit(bucket: _Bucket, fb: int, lb: int, pad_to: int | None) -> FamilyBatch:
+    n = len(bucket.keys)
+    cap = pad_to if pad_to is not None else max(MIN_BATCH, next_pow2(n))
+    bases = np.full((cap, fb, lb), PAD, dtype=np.uint8)
+    quals = np.zeros((cap, fb, lb), dtype=np.uint8)
+    bases[:n] = np.stack(bucket.bases)
+    quals[:n] = np.stack(bucket.quals)
+    fam_sizes = np.zeros(cap, dtype=np.int32)
+    fam_sizes[:n] = bucket.fam_sizes
+    lengths = np.zeros(cap, dtype=np.int32)
+    lengths[:n] = bucket.lengths
+    return FamilyBatch(
+        keys=list(bucket.keys), bases=bases, quals=quals, fam_sizes=fam_sizes, lengths=lengths
+    )
 
 
 # Sentinel for never-written qual cells (BAM caps Phred at 93, and the

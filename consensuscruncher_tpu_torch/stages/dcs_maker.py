@@ -15,25 +15,40 @@ Pairing model (see core/tags.py): an SSCS's partner is ``duplex_tag(tag)``
 produces ONE duplex read under ``dcs_qname(tag)`` with the template of the
 strand whose barcode is the canonical (lexicographically smaller)
 arrangement; unequal-length partners stay unpaired.  The duplex vote is
-``ops.duplex`` on ``device``.  The input must be this pipeline's own SSCS
-output (XT/XF-led tag blocks); anything else raises.
+``ops.duplex`` on ``device``.
+
+Two paths, as in the JAX package: the vectorized pair blocks, for this
+pipeline's own consensus BAMs (every tag block leads with XT/XF), and the
+object window walk (:func:`_run_dcs_windows`) over any other — a DCS input
+that holds rescued singletons of an aligned sample, whose reads carry tags
+in front of XT.  The block path raises ``grouping.ForeignTagLayout`` on
+such a record; the stage drops its writers and restarts on the walk, which
+votes its pairs in batches per read length on ``device``.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS
 from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed, ragged
+from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
-from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter
+from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter, cigar_string_to_words
 from consensuscruncher_tpu_torch.ops.duplex import duplex_batch_host
 from consensuscruncher_tpu_torch.ops.residency import record_keys
-from consensuscruncher_tpu_torch.stages.grouping import duplex_pair_blocks
+from consensuscruncher_tpu_torch.stages.grouping import (
+    ForeignTagLayout,
+    consensus_windows_columnar,
+    duplex_pair_blocks,
+    fam_size_of,
+)
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 
@@ -66,6 +81,145 @@ def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device):
     """One duplex vote over stacked ``(P, L)`` pairs on ``device`` — the
     single dispatch shared by DCS and the singleton rescue."""
     return duplex_batch_host(s1, q1, s2, q2, DEFAULT_QUAL_CAP, device)
+
+
+class _PinnedMember:
+    """Self-contained snapshot of a consensus read for deferred batching.
+
+    A ``grouping.ConsensusReadView`` holds a reference to its whole source
+    batch (tens of MB); buffering views until a length bucket fills would
+    pin every touched batch in memory.  This copies exactly what the
+    duplex sink needs (~2L bytes + a few scalars)."""
+
+    __slots__ = ("codes", "qual", "flag", "rid", "pos", "mrid",
+                 "mate_pos", "tlen", "mapq", "xf", "cigar")
+
+    def __init__(self, view):
+        self.codes = np.array(view.codes)
+        self.qual = np.array(view.qual)
+        self.flag = view.flag
+        self.pos = view.pos
+        self.mate_pos = view.mate_pos
+        self.tlen = view.tlen
+        self.mapq = view.mapq
+        self.xf = fam_size_of(view)
+        self.rid = view.rid
+        self.mrid = view.mrid
+        self.cigar = np.array(view.cigar_words())
+
+    @classmethod
+    def from_bam_read(cls, read, header):
+        """A record whose tag block does not lead with XT, which
+        ``consensus_windows_columnar`` yields as a plain ``BamRead``."""
+        self = cls.__new__(cls)
+        self.codes = read.codes
+        q = read.qual
+        self.qual = q if q.size else np.zeros(len(read.seq), dtype=np.uint8)
+        self.flag = read.flag
+        self.pos = read.pos
+        self.mate_pos = read.mate_pos
+        self.tlen = read.tlen
+        self.mapq = read.mapq
+        self.xf = fam_size_of(read)
+        self.rid = header.ref_id(read.ref)
+        self.mrid = header.ref_id(read.mate_ref)
+        self.cigar = cigar_string_to_words(read.cigar)
+        return self
+
+    @property
+    def seq_len(self) -> int:
+        return self.codes.shape[0]
+
+
+class _DuplexBatcher:
+    """Accumulate strand pairs per read length; vote them on ``device`` in
+    batches of ``flush_at`` (few, large device calls)."""
+
+    def __init__(self, header, device, flush_at: int = 16384):
+        self.header = header
+        self.device = device
+        self.flush_at = flush_at
+        self._by_len: dict[int, list] = {}
+
+    def _pin(self, read):
+        if hasattr(read, "_batch"):  # columnar view: snapshot to unpin
+            return _PinnedMember(read)
+        return _PinnedMember.from_bam_read(read, self.header)
+
+    def add(self, canon_tag, canon_read, other_read, sink) -> None:
+        canon_read = self._pin(canon_read)
+        other_read = self._pin(other_read)
+        length = canon_read.seq_len
+        self._by_len.setdefault(length, []).append((canon_tag, canon_read, other_read, sink))
+        if len(self._by_len[length]) >= self.flush_at:
+            self._flush_len(length)
+
+    def _flush_len(self, length: int) -> None:
+        entries = self._by_len.pop(length, [])
+        if not entries:
+            return
+        s1 = np.stack([e[1].codes for e in entries])
+        s2 = np.stack([e[2].codes for e in entries])
+        q1 = np.stack([e[1].qual for e in entries])
+        q2 = np.stack([e[2].qual for e in entries])
+        out_b, out_q = _duplex_vote_batch(s1, q1, s2, q2, self.device)
+        for i, (tag, canon, other, entry_sink) in enumerate(entries):
+            entry_sink(tag, canon, other, out_b[i], out_q[i])
+
+    def flush(self) -> None:
+        for length in sorted(self._by_len):
+            self._flush_len(length)
+
+
+def _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device) -> None:
+    """Object-window pairing walk (consensus BAMs whose records' tag blocks
+    do not all lead with XT:Z + XF:i)."""
+    batcher = _DuplexBatcher(reader.header, device)
+
+    def sink(tag, canon, other, codes, quals):
+        fam_size = canon.xf + other.xf
+        length = codes.shape[0]
+        words = canon.cigar if canon.seq_len == length else np.array([length << 4], np.uint32)
+        tag_blob = (
+            b"XTZ" + tag.barcode.encode("ascii")
+            + b"\x00XFi" + struct.pack("<i", fam_size)
+        )
+        rec_writer.add(
+            tags_mod.dcs_qname(tag), canon.flag & _KEEP_FLAGS, canon.rid,
+            canon.pos, canon.mapq, words, canon.mrid, canon.mate_pos,
+            canon.tlen, codes, quals, tag_blob,
+        )
+        stats.incr("dcs_written")
+
+    for _key, window in consensus_windows_columnar(reader):
+        paired: set = set()
+        for tag in sorted(window, key=str):
+            if tag in paired:
+                continue
+            stats.incr("sscs_total")
+            partner = tags_mod.duplex_tag(tag)
+            other = window.get(partner)
+            if other is None or partner in paired:
+                stats.incr("sscs_unpaired")
+                unpaired_writer.write(window[tag].materialize())
+                continue
+            stats.incr("sscs_total")  # partner consumed here
+            paired.add(tag)
+            paired.add(partner)
+            read, oread = window[tag], other
+            if read.seq_len != oread.seq_len:
+                stats.incr("sscs_unpaired", 2)
+                stats.incr("length_mismatch_pairs")
+                unpaired_writer.write(read.materialize())
+                unpaired_writer.write(oread.materialize())
+                continue
+            # canonical strand: barcode lexicographically <= its mirror
+            if tag.barcode <= partner.barcode:
+                batcher.add(tag, read, oread, sink)
+            else:
+                batcher.add(partner, oread, read, sink)
+            stats.incr("pairs")
+    batcher.flush()
 
 
 def _store_keys(sources, src_arr, row_arr, ps) -> np.ndarray:
@@ -234,12 +388,14 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
             level: int = 6, residency=None, stream_out=None) -> DcsResult:
     """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``;
     ``residency`` is the SSCS stage's plane store (or None: every pair
-    votes by upload).
+    votes by upload; the window walk never uses it).
 
     ``stream_out``: a ``core.streamgraph.StreamOut``; the DCS and
     unpaired-SSCS outputs (both finals) hand off in memory for the
     all-unique merges while materializing on the write-behind pool.
-    ``sscs_bam`` may then be an in-memory batch source."""
+    ``sscs_bam`` may then be an in-memory batch source, which the window
+    walk cannot re-read: a foreign tag layout raises ``StreamFallback``
+    (the CLI re-runs the staged pipeline)."""
     tracker = TimeTracker()
     stats = StageStats("DCS")
     paths = output_paths(out_prefix)
@@ -249,8 +405,24 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     rec_writer = ConsensusRecordWriter(dcs_writer)
     ok = False
     try:
-        _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
-                             residency)
+        try:
+            _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
+                                 residency)
+        except ForeignTagLayout as exc:
+            if stream_out is not None:
+                raise StreamFallback(f"DCS: {exc}") from exc
+            # restart from scratch on the object walk (nothing promoted yet;
+            # the buffered writers are simply dropped)
+            reader.close()
+            dcs_writer.abort()
+            unpaired_writer.abort()
+            stats = StageStats("DCS")
+            reader = open_batch_source(sscs_bam)
+            dcs_writer = SortingBamWriter(paths["dcs"], reader.header, level=level)
+            unpaired_writer = SortingBamWriter(paths["unpaired"], reader.header,
+                                               level=level)
+            rec_writer = ConsensusRecordWriter(dcs_writer)
+            _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device)
         rec_writer.flush()
         ok = True
     finally:

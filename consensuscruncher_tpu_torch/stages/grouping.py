@@ -13,10 +13,22 @@ unmapped, mate-unmapped, secondary, supplementary, QC-fail reads, and reads
 whose qname carries no barcode delimiter.  Duplicate-flagged reads are kept —
 UMI consensus is itself the deduplicator.
 
-Port of the block path of ``consensuscruncher_tpu/stages/grouping.py``
-(``stream_family_blocks`` / ``duplex_pair_blocks`` /
-``singleton_rescue_blocks``, the vectorized producers); the reference's
-object and per-family columnar twins of the same rules are not ported.
+Port of ``consensuscruncher_tpu/stages/grouping.py``, which holds the
+same grouping rules at three altitudes; a semantic change must land in all
+of them:
+
+1. OBJECT PATH (``consensus_windows``, ``classify_bad``, ``derive_tag``):
+   per-read ``BamRead`` objects — the rescue window walk, and the readable
+   statement of the rules.
+2. COLUMNAR PER-FAMILY PATH (``stream_families_columnar``,
+   ``consensus_windows_columnar``): batch decode, per-family emission —
+   the dense wire and the DCS window walk.
+3. BLOCK PATH (``stream_family_blocks`` / ``duplex_pair_blocks`` /
+   ``singleton_rescue_blocks``): the vectorized producers of the main
+   path.  They take this pipeline's own consensus BAMs only (every tag
+   block leads with ``XT:Z`` + ``XF:i``) and raise
+   :class:`ForeignTagLayout` on any other record; the rescue and DCS
+   stages then restart on their window walks.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.io.bam import (
     BamHeader,
+    BamRead,
     FMUNMAP,
     FPAIRED,
     FQCFAIL,
@@ -43,6 +56,74 @@ from consensuscruncher_tpu_torch.io.bam import (
 
 class NotCoordinateSorted(ValueError):
     pass
+
+
+class ForeignTagLayout(ValueError):
+    """A consensus record whose tag block does not lead with ``XT:Z`` +
+    ``XF:i``: the block producers cannot parse it, and the rescue and DCS
+    stages restart on their object window walks (nothing else does)."""
+
+
+def derive_tag(read):
+    """Reconstruct a consensus read's family tag (coords/flags + XT barcode).
+
+    Consensus/singleton reads written by the SSCS stage carry their barcode
+    in ``XT``; everything else in the family key lives on the read itself.
+    """
+    if "XT" not in read.tags:
+        raise ValueError(f"consensus read {read.qname} lacks the XT barcode tag")
+    return tags_mod.unique_tag(read, read.tags["XT"][1])
+
+
+def consensus_windows(reader):
+    """Group a coordinate-sorted consensus BAM into per-(ref,pos) windows.
+
+    OBJECT PATH (see module docstring): the readable statement of the
+    windowing rule, and the rescue walk's reader (foreign tag layouts,
+    ``--max_mismatch > 0``).
+
+    Yields ``(key, {FamilyTag: read})`` with ``key = (ref_id, pos)``.  Shared
+    by the DCS and singleton-correction stages (their pairing partners always
+    share the anchor position).  Raises :class:`NotCoordinateSorted` on
+    order violations — silent mispairing on unsorted input would complete
+    "successfully" with everything unpaired.
+    """
+    window: dict = {}
+    cur = None
+    for read in reader:
+        tag = derive_tag(read)
+        key = (reader.header.ref_id(read.ref), read.pos)
+        if cur is not None and key < cur:
+            raise NotCoordinateSorted(
+                f"consensus BAM is not coordinate-sorted: {read.qname} at "
+                f"{read.ref}:{read.pos} after ref_id={cur[0]} pos={cur[1]}"
+            )
+        if cur is not None and key != cur:
+            yield cur, window
+            window = {}
+        cur = key
+        window[tag] = read
+    if window:
+        yield cur, window
+
+
+def classify_bad(read: BamRead, bdelim: str) -> str | None:
+    """Reason string if the read must be routed to the badRead BAM, else None."""
+    if read.is_unmapped:
+        return "unmapped"
+    if not read.is_paired or read.mate_is_unmapped:
+        return "mate_unmapped"
+    if read.is_secondary:
+        return "secondary"
+    if read.is_supplementary:
+        return "supplementary"
+    if read.is_qcfail:
+        return "qcfail"
+    try:
+        tags_mod.barcode_from_qname(read.qname, bdelim)
+    except ValueError:
+        return "no_barcode"
+    return None
 
 
 # ------------------------------------------------------------- columnar path
@@ -91,6 +172,271 @@ def _classify_batch(batch, bdelim_byte: int):
     return reason, last, bclen
 
 
+class MemberView:
+    """Zero-copy member of a columnar family: consensus inputs as views,
+    template/BAM fields materialized lazily from the owning batch."""
+
+    __slots__ = ("codes", "qual", "_batch", "_idx")
+
+    def __init__(self, codes, qual, batch, idx):
+        self.codes = codes
+        self.qual = qual
+        self._batch = batch
+        self._idx = idx
+
+    @property
+    def seq_len(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def mapq(self) -> int:
+        return int(self._batch.mapq[self._idx])
+
+    @property
+    def flag(self) -> int:
+        return int(self._batch.flag[self._idx])
+
+    @property
+    def ref(self) -> str:
+        return self._batch.header.ref_name(int(self._batch.ref_id[self._idx]))
+
+    @property
+    def pos(self) -> int:
+        return int(self._batch.pos[self._idx])
+
+    @property
+    def mate_ref(self) -> str:
+        return self._batch.header.ref_name(int(self._batch.mate_ref_id[self._idx]))
+
+    @property
+    def mate_pos(self) -> int:
+        return int(self._batch.mate_pos[self._idx])
+
+    @property
+    def tlen(self) -> int:
+        return int(self._batch.tlen[self._idx])
+
+    @property
+    def rid(self) -> int:
+        return int(self._batch.ref_id[self._idx])
+
+    @property
+    def mrid(self) -> int:
+        return int(self._batch.mate_ref_id[self._idx])
+
+    def cigar_string(self) -> str:
+        return self._batch.cigar_string(self._idx)
+
+    def cigar_bytes(self) -> np.ndarray:
+        """Raw little-endian cigar words as a byte view (cheap equality)."""
+        b = self._batch
+        start = int(b.cigar_start[self._idx])
+        return b.buf[start : start + 4 * int(b.n_cigar[self._idx])]
+
+    def cigar_words(self) -> np.ndarray:
+        return np.ascontiguousarray(self.cigar_bytes()).view("<u4")
+
+    def materialize(self) -> BamRead:
+        """Full BamRead (singleton renames, bad-read writes)."""
+        return self._batch.materialize(self._idx)
+
+
+class _Seg:
+    """Good-read rows of one coordinate, within one columnar batch."""
+
+    __slots__ = ("batch", "gidx", "bcm", "bclen", "mate_rid", "mate_pos",
+                 "rn", "rev", "codes_data", "codes_off", "qual_data", "qual_off")
+
+    def __init__(self, batch, gidx, bcm, bclen, mate_rid, mate_pos, rn, rev,
+                 codes_data, codes_off, qual_data, qual_off):
+        self.batch = batch
+        self.gidx = gidx
+        self.bcm = bcm
+        self.bclen = bclen
+        self.mate_rid = mate_rid
+        self.mate_pos = mate_pos
+        self.rn = rn
+        self.rev = rev
+        self.codes_data = codes_data
+        self.codes_off = codes_off
+        self.qual_data = qual_data
+        self.qual_off = qual_off
+
+    def __len__(self):
+        return len(self.gidx)
+
+
+def _good_segments(batch, reason, last, bclen):
+    """Split a batch's good rows into per-coordinate _Seg runs (in stream
+    order) and validate coordinate sortedness among them."""
+    good = np.nonzero(reason == 0)[0]
+    if good.size == 0:
+        return [], None
+    rid = batch.ref_id[good]
+    pos = batch.pos[good]
+    ok = (rid[1:] > rid[:-1]) | ((rid[1:] == rid[:-1]) & (pos[1:] >= pos[:-1]))
+    if not ok.all():
+        i = int(np.argmin(ok)) + 1
+        read = batch.materialize(int(good[i]))
+        raise NotCoordinateSorted(
+            f"input BAM is not coordinate-sorted: {read.qname} at "
+            f"{read.ref}:{read.pos} after ref_id={int(rid[i - 1])} "
+            f"pos={int(pos[i - 1])} — run sort first"
+        )
+    # coordinate run boundaries among good rows
+    change = np.nonzero((rid[1:] != rid[:-1]) | (pos[1:] != pos[:-1]))[0] + 1
+    bounds = np.concatenate([[0], change, [good.size]])
+
+    qm = batch.qname_matrix
+    w = qm.shape[1]
+    wb = int(bclen[good].max(initial=0))
+    cols = np.arange(wb, dtype=np.int64)
+    src = last[good][:, None] + 1 + cols[None, :]
+    valid = cols[None, :] < bclen[good][:, None]
+    bcm = np.where(valid, qm[good[:, None], np.minimum(src, w - 1)], 0).astype(np.uint8)
+
+    codes_data, codes_off = batch.seq_codes()
+    qual_data, qual_off = batch.quals()
+    rn = np.where((batch.flag[good] & FREAD1) != 0, 1, 2).astype(np.int8)
+    rev = ((batch.flag[good] & FREVERSE) != 0).astype(np.int8)
+    segs = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        g = good[a:b]
+        segs.append(_Seg(
+            batch, g, bcm[a:b], bclen[g],
+            batch.mate_ref_id[g], batch.mate_pos[g], rn[a:b], rev[a:b],
+            codes_data, codes_off, qual_data, qual_off,
+        ))
+    return segs, (int(rid[-1]), int(pos[-1]))
+
+
+def _emit_group(segs: list[_Seg], header: BamHeader):
+    """All families of one coordinate (possibly spanning batches): lexsort
+    by key columns (stable -> members keep stream order), split runs, build
+    one FamilyTag per family, emit sorted by str(tag) — exactly the object
+    path's ``sorted(pending, key=(pos, str(tag)))`` within-coordinate order."""
+    if len(segs) == 1:
+        s = segs[0]
+        bcm, bclen = s.bcm, s.bclen
+        mate_rid, mate_pos = s.mate_rid, s.mate_pos
+        rn, rev = s.rn, s.rev
+    else:
+        wb = max(s.bcm.shape[1] for s in segs)
+        bcm = np.zeros((sum(len(s) for s in segs), wb), dtype=np.uint8)
+        row = 0
+        for s in segs:
+            bcm[row : row + len(s), : s.bcm.shape[1]] = s.bcm
+            row += len(s)
+        bclen = np.concatenate([s.bclen for s in segs])
+        mate_rid = np.concatenate([s.mate_rid for s in segs])
+        mate_pos = np.concatenate([s.mate_pos for s in segs])
+        rn = np.concatenate([s.rn for s in segs])
+        rev = np.concatenate([s.rev for s in segs])
+
+    n = bcm.shape[0]
+    # lexsort: last key is primary; barcode bytes most-significant overall
+    keys = [rev, rn, mate_pos, mate_rid]
+    keys += [bcm[:, j] for j in range(bcm.shape[1] - 1, -1, -1)]
+    order = np.lexsort(keys)
+
+    kb = bcm[order]
+    same = np.ones(n, dtype=bool)
+    if n > 1:
+        same[1:] = (
+            (kb[1:] == kb[:-1]).all(axis=1)
+            & (mate_rid[order][1:] == mate_rid[order][:-1])
+            & (mate_pos[order][1:] == mate_pos[order][:-1])
+            & (rn[order][1:] == rn[order][:-1])
+            & (rev[order][1:] == rev[order][:-1])
+        )
+    starts = np.nonzero(~same)[0]
+    bounds = np.concatenate([[0], starts, [n]])
+
+    # map flat group-local row -> (segment, local row)
+    seg_of = np.repeat(np.arange(len(segs)), [len(s) for s in segs])
+    loc = np.concatenate([np.arange(len(s)) for s in segs])
+
+    s0 = segs[0]
+    anchor_ref = header.ref_name(int(s0.batch.ref_id[s0.gidx[0]]))
+    anchor_pos = int(s0.batch.pos[s0.gidx[0]])
+
+    families = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        rows = order[a:b]
+        first = rows[0]
+        barcode = bcm[first, : bclen[first]].tobytes().decode("ascii")
+        tag = tags_mod.FamilyTag(
+            barcode=barcode,
+            ref=anchor_ref,
+            pos=anchor_pos,
+            mate_ref=header.ref_name(int(mate_rid[first])),
+            mate_pos=int(mate_pos[first]),
+            read_number=int(rn[first]),
+            orientation="rev" if rev[first] else "fwd",
+        )
+        members = []
+        for r in rows:
+            s = segs[seg_of[r]]
+            i = int(s.gidx[loc[r]])
+            codes = s.codes_data[s.codes_off[i] : s.codes_off[i + 1]]
+            qual = s.qual_data[s.qual_off[i] : s.qual_off[i + 1]]
+            members.append(MemberView(codes, qual, s.batch, i))
+        families.append((str(tag), tag, members))
+    families.sort(key=lambda t: t[0])
+    for _, tag, members in families:
+        yield "family", tag, members
+
+
+def stream_families_columnar(
+    creader,
+    header: BamHeader,
+    bdelim: str = tags_mod.DEFAULT_BDELIM,
+) -> Iterator[tuple[str, object, object]]:
+    """Per-family grouping events over a ``io.columnar.ColumnarReader``
+    (the JAX package's object-path ``stream_families``, column-wise):
+    ``("bad", BamRead, reason)`` and ``("family", FamilyTag,
+    [MemberView])``, families emitted once the sorted stream passes their
+    anchor, by position then ``str(tag)`` — the block path's order.  Raises
+    :class:`NotCoordinateSorted` on order violations."""
+    bdelim_byte = ord(bdelim)
+    carry: list[_Seg] = []
+    carry_key: tuple[int, int] | None = None
+    for batch in creader.batches():
+        reason, last, bclen = _classify_batch(batch, bdelim_byte)
+        bad = np.nonzero(reason != 0)[0]
+        for i in bad:
+            yield "bad", batch.materialize(int(i)), _BAD_REASONS[int(reason[i])]
+        segs, _tail = _good_segments(batch, reason, last, bclen)
+        if not segs:
+            continue
+        s0 = segs[0]
+        first_key = (int(s0.batch.ref_id[s0.gidx[0]]), int(s0.batch.pos[s0.gidx[0]]))
+        if carry and carry_key is not None:
+            if first_key < carry_key:
+                read = s0.batch.materialize(int(s0.gidx[0]))
+                raise NotCoordinateSorted(
+                    f"input BAM is not coordinate-sorted: {read.qname} at "
+                    f"{read.ref}:{read.pos} after ref_id={carry_key[0]} "
+                    f"pos={carry_key[1]} — run sort first"
+                )
+            if first_key == carry_key:
+                carry.append(segs.pop(0))
+            if segs:  # a later coordinate arrived: the carry is complete
+                yield from _emit_group(carry, header)
+                carry = []
+        for seg in segs[:-1]:
+            yield from _emit_group([seg], header)
+        if segs:
+            tail = segs[-1]
+            carry.append(tail)
+            carry_key = (
+                int(tail.batch.ref_id[tail.gidx[0]]),
+                int(tail.batch.pos[tail.gidx[0]]),
+            )
+    if carry:
+        yield from _emit_group(carry, header)
+
+
 # -------------------------------------------------- columnar consensus path
 #
 # Columnar twin of the JAX package's consensus_windows for the DCS stage: SSCS/consensus BAMs
@@ -100,6 +446,29 @@ def _classify_batch(batch, bdelim_byte: int):
 # fallback for records whose tag block doesn't lead with XT (foreign BAMs).
 
 _XT_WINDOW = 96  # tag-block prefix bytes scanned vectorized (barcode + XF)
+
+
+class ConsensusReadView(MemberView):
+    """A consensus read in a columnar batch: MemberView + parsed XT/XF."""
+
+    __slots__ = ("xt", "xf")
+
+    def __init__(self, codes, qual, batch, idx, xt: str, xf: int):
+        super().__init__(codes, qual, batch, idx)
+        self.xt = xt
+        self.xf = xf
+
+    @property
+    def fam_size(self) -> int:
+        return self.xf
+
+
+def fam_size_of(read) -> int:
+    """XF family size of a consensus read (BamRead or ConsensusReadView)."""
+    xf = getattr(read, "xf", None)
+    if xf is not None:
+        return xf
+    return read.tags.get("XF", ("i", 1))[1]
 
 
 def _parse_xt_xf(batch):
@@ -140,6 +509,62 @@ def _parse_xt_xf(batch):
     xf_raw = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
     xf = np.where(xf_raw >= 1 << 31, xf_raw - (1 << 32), xf_raw)  # int32 LE
     return ok, ts + 3, zpos, xf
+
+
+def consensus_windows_columnar(creader):
+    """Columnar twin of :func:`consensus_windows` over a ColumnarReader.
+
+    Yields ``(key, {FamilyTag: ConsensusReadView-or-BamRead})`` with the same
+    semantics (last read wins a duplicate tag, NotCoordinateSorted on order
+    violations, one window per distinct (ref_id, pos)).
+    """
+    header = creader.header
+    window: dict = {}
+    cur = None
+    for batch in creader.batches():
+        ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
+        codes_data, codes_off = batch.seq_codes()
+        qual_data, qual_off = batch.quals()
+        rid_col, pos_col = batch.ref_id, batch.pos
+        flag_col = batch.flag
+        buf = batch.buf
+        for i in range(batch.n):
+            if ok[i]:
+                codes = codes_data[codes_off[i] : codes_off[i + 1]]
+                qual = qual_data[qual_off[i] : qual_off[i + 1]]
+                xt = buf[bc_start[i] : bc_start[i] + bc_len[i]].tobytes().decode("ascii")
+                read = ConsensusReadView(codes, qual, batch, i, xt, int(xf[i]))
+            else:  # foreign tag layout: full object decode
+                read = batch.materialize(i)
+                if "XT" not in read.tags:
+                    raise ValueError(
+                        f"consensus read {read.qname} lacks the XT barcode tag"
+                    )
+                xt = read.tags["XT"][1]
+            rid = int(rid_col[i])
+            tag = tags_mod.FamilyTag(
+                barcode=xt,
+                ref=header.ref_name(rid),
+                pos=int(pos_col[i]),
+                mate_ref=header.ref_name(int(batch.mate_ref_id[i])),
+                mate_pos=int(batch.mate_pos[i]),
+                read_number=1 if (int(flag_col[i]) & FREAD1) else 2,
+                orientation="rev" if (int(flag_col[i]) & FREVERSE) else "fwd",
+            )
+            key = (rid, int(pos_col[i]))
+            if cur is not None and key < cur:
+                qname = batch.materialize(i).qname
+                raise NotCoordinateSorted(
+                    f"consensus BAM is not coordinate-sorted: {qname} at "
+                    f"{tag.ref}:{tag.pos} after ref_id={cur[0]} pos={cur[1]}"
+                )
+            if cur is not None and key != cur:
+                yield cur, window
+                window = {}
+            cur = key
+            window[tag] = read
+    if window:
+        yield cur, window
 
 
 # ------------------------------------------------------------ family blocks
@@ -654,7 +1079,7 @@ def duplex_pair_blocks(creader, header: BamHeader) -> Iterator[PairBlock]:
     for batch in creader.batches():
         ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
         if not ok.all():
-            raise ValueError("foreign tag layout (no XT/XF prefix)")
+            raise ForeignTagLayout("foreign tag layout (no XT/XF prefix)")
         n = batch.n
         rid, pos = batch.ref_id, batch.pos
         if n:
@@ -928,7 +1353,7 @@ def _rescue_src_prep(batch) -> tuple:
     """(rows, bcm, bclen, xf) of the XT/XF-parsed rows of a batch."""
     ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
     if not ok.all():
-        raise ValueError("foreign tag layout (no XT/XF prefix)")
+        raise ForeignTagLayout("foreign tag layout (no XT/XF prefix)")
     n = batch.n
     bcm = _barcode_matrix(batch.buf, bc_start, bc_len)
     return np.arange(n, dtype=np.int64), bcm, bc_len.astype(np.int64), xf.astype(np.int64)

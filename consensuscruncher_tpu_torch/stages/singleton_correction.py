@@ -1,8 +1,7 @@
 """Singleton correction: rescue size-1 families against the complementary strand.
 
-Port of ``consensuscruncher_tpu/stages/singleton_correction.py`` (the
-vectorized exact-match block rescue; ``--max_mismatch > 0`` is not ported
-yet).  Reference parity: ``ConsensusCruncher/singleton_correction.py``.  A
+Port of ``consensuscruncher_tpu/stages/singleton_correction.py``.
+Reference parity: ``ConsensusCruncher/singleton_correction.py``.  A
 singleton is rescued when a complementary-strand partner exists at the same
 genomic anchor — an SSCS (singleton-SSCS rescue) or another singleton
 (singleton-singleton rescue, both reads corrected and written).  Outputs:
@@ -13,25 +12,48 @@ genomic anchor — an SSCS (singleton-SSCS rescue) or another singleton
 - ``<p>.singleton_stats.txt|.json``
 
 The correction is the duplex vote of singleton vs partner
-(``dcs_maker._duplex_vote_batch`` on ``device``): agreement keeps the base with summed-capped quality,
-disagreement yields N.  Partners of unequal read length are not rescued.
-The inputs must be this pipeline's own SSCS-stage outputs (XT/XF-led tag
-blocks); anything else raises.
+(``dcs_maker._duplex_vote_batch`` on ``device``): agreement keeps the base
+with summed-capped quality, disagreement yields N.  Partners of unequal
+read length are not rescued.
+
+Two paths, as in the JAX package:
+
+- the vectorized block rescue (exact complementary-tag matching), for this
+  pipeline's own SSCS-stage outputs (XT/XF-led tag blocks);
+- the object window walk (:func:`_run_rescue_walk`), for
+  ``--max_mismatch > 0`` (Hamming-tolerant partners through
+  ``ops.singleton``) and for singletons whose tag block does not lead with
+  XT — every singleton of an aligned input, whose reads already carry tags
+  (``NM``, ...) that the SSCS stage keeps in front of ``XT``/``XF``.  The
+  block path raises ``grouping.ForeignTagLayout`` on such a record; the
+  stage then drops its writers and restarts on the walk.  The walk's
+  corrections vote in batches per read length on ``device`` (the JAX walk
+  votes each on the host); the sorting writers order records at close, so
+  the deferred writes change no byte.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
-from consensuscruncher_tpu_torch.io.bam import BamReader
+from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
+from consensuscruncher_tpu_torch.io.bam import BamRead, BamReader
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
 from consensuscruncher_tpu_torch.io.encode import encode_records
+from consensuscruncher_tpu_torch.ops import singleton as hamming
 from consensuscruncher_tpu_torch.stages.dcs_maker import _duplex_vote_batch, _store_keys
-from consensuscruncher_tpu_torch.stages.grouping import singleton_rescue_blocks
+from consensuscruncher_tpu_torch.stages.grouping import (
+    ForeignTagLayout,
+    consensus_windows,
+    singleton_rescue_blocks,
+)
+from consensuscruncher_tpu_torch.utils.phred import decode_seq, encode_seq
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 
@@ -248,35 +270,314 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
         x_reader.close()
 
 
+def _merge_windows(a: Iterator, b: Iterator) -> Iterator[tuple[dict, dict]]:
+    """Lockstep position-join of two sorted window streams."""
+    wa = next(a, None)
+    wb = next(b, None)
+    while wa is not None or wb is not None:
+        if wb is None or (wa is not None and wa[0] < wb[0]):
+            yield wa[1], {}
+            wa = next(a, None)
+        elif wa is None or wb[0] < wa[0]:
+            yield {}, wb[1]
+            wb = next(b, None)
+        else:
+            yield wa[1], wb[1]
+            wa = next(a, None)
+            wb = next(b, None)
+
+
+def _member(read: BamRead) -> tuple[np.ndarray, np.ndarray]:
+    """A read's base codes and quals (qual '*' as zeros)."""
+    q = read.qual if read.qual.size else np.zeros(len(read.seq), dtype=np.uint8)
+    return encode_seq(read.seq), q
+
+
+def _corrected(read: BamRead, partner: BamRead, codes, quals) -> BamRead:
+    """``read`` with its duplex-voted ``codes``/``quals`` against ``partner``
+    and the ``XR`` tag naming the partner's kind (its ``XF`` > 1: an SSCS)."""
+    out = BamRead(
+        qname=read.qname, flag=read.flag, ref=read.ref, pos=read.pos, mapq=read.mapq,
+        cigar=read.cigar, mate_ref=read.mate_ref, mate_pos=read.mate_pos, tlen=read.tlen,
+        seq=decode_seq(codes), qual=quals, tags=dict(read.tags),
+    )
+    out.tags["XR"] = ("Z", "sscs" if "XF" in partner.tags and partner.tags["XF"][1] > 1
+                      else "singleton")
+    return out
+
+
+class _Corrections:
+    """The walk's corrections, voted in batches per read length on
+    ``device`` (the port of the JAX walk's per-read ``correct_singleton``)
+    and written to ``writers[route]`` when a batch is flushed."""
+
+    def __init__(self, writers, device, flush_at: int = 16384):
+        self.writers = writers
+        self.device = device
+        self.flush_at = flush_at
+        self._by_len: dict[int, list] = {}
+
+    def add(self, route: str, read: BamRead, partner: BamRead) -> None:
+        entries = self._by_len.setdefault(len(read.seq), [])
+        entries.append((route, read, partner))
+        if len(entries) >= self.flush_at:
+            self._flush_len(len(read.seq))
+
+    def _flush_len(self, length: int) -> None:
+        entries = self._by_len.pop(length, [])
+        if not entries:
+            return
+        first = [_member(e[1]) for e in entries]
+        second = [_member(e[2]) for e in entries]
+        out_b, out_q = _duplex_vote_batch(
+            np.stack([m[0] for m in first]), np.stack([m[1] for m in first]),
+            np.stack([m[0] for m in second]), np.stack([m[1] for m in second]),
+            self.device)
+        for i, (route, read, partner) in enumerate(entries):
+            self.writers[route].write(_corrected(read, partner, out_b[i], out_q[i]))
+
+    def flush(self) -> None:
+        for length in sorted(self._by_len):
+            self._flush_len(length)
+
+
+def _same_fields(t: tags_mod.FamilyTag, mirror: tags_mod.FamilyTag) -> bool:
+    """``t`` agrees with ``mirror`` on every field but the barcode's
+    content: a Hamming candidate."""
+    return ((t.ref, t.pos, t.mate_ref, t.mate_pos, t.read_number, t.orientation)
+            == (mirror.ref, mirror.pos, mirror.mate_ref, mirror.mate_pos,
+                mirror.read_number, mirror.orientation)
+            and len(t.barcode) == len(mirror.barcode))
+
+
+def _barcode_codes(barcode: str) -> np.ndarray:
+    return encode_seq(barcode.replace(tags_mod.BARCODE_SEP, ""))
+
+
+def _hamming_partner(tag, candidates: dict, max_mismatch: int, device):
+    """Barcode-tolerant partner lookup among same-anchor candidates whose
+    non-barcode tag fields match the mirrored tag exactly: one
+    ``ops.singleton.best_matches`` call per tag, as the JAX walk makes.
+    The walk itself replays these decisions from chunked distances
+    (:class:`_WindowDistances`); this form is their reference."""
+    mirror = tags_mod.duplex_tag(tag)
+    pool = [t for t in candidates if _same_fields(t, mirror)]
+    if not pool:
+        return None
+    a = _barcode_codes(mirror.barcode)[None, :]
+    b = np.stack([_barcode_codes(t.barcode) for t in pool])
+    idx = hamming.best_matches(a, b, max_mismatch=max_mismatch, device=device)[0]
+    return pool[idx] if idx >= 0 else None
+
+
+class _WindowDistances:
+    """Every Hamming distance one window's walk can ask for: each
+    singleton's mirrored barcode against every SSCS and every singleton
+    barcode of the window, from one ``ops.singleton.pair_distances`` call
+    for a whole chunk of windows (:func:`_chunk_distances`)."""
+
+    def __init__(self, s_tags: list, x_tags: list, dist: np.ndarray):
+        # dist: (singles, singles + SSCSes), rows the singles' mirrors
+        self.row = {t: i for i, t in enumerate(s_tags)}
+        self.sscs_col = {t: j for j, t in enumerate(x_tags)}
+        self.to_single, self.to_sscs = dist[:, :len(s_tags)], dist[:, len(s_tags):]
+
+    def partner(self, tag, candidates: dict, pool: str, max_mismatch: int):
+        """:func:`_hamming_partner`'s decision for ``tag`` among
+        ``candidates`` (a window pool in its dict order, ``pool`` naming
+        it: ``"sscs"`` or ``"single"``)."""
+        mirror = tags_mod.duplex_tag(tag)
+        cands = [t for t in candidates if _same_fields(t, mirror)]
+        if not cands:
+            return None
+        if pool == "sscs":
+            dist, col = self.to_sscs, self.sscs_col
+        else:
+            dist, col = self.to_single, self.row
+        row = dist[self.row[tag], [col[t] for t in cands]]
+        idx = int(hamming.choose(row[None, :], max_mismatch)[0])
+        return cands[idx] if idx >= 0 else None
+
+
+def _chunk_distances(windows: list, device) -> list:
+    """One :class:`_WindowDistances` per ``(singles, sscses)`` window of
+    a chunk, from one device call over all of the chunk's pairs."""
+    codes, qi, pj, shapes = [], [], [], []
+    base = 0
+    for singles, sscses in windows:
+        s_tags, x_tags = list(singles), list(sscses)
+        ns, nx = len(s_tags), len(x_tags)
+        shapes.append((s_tags, x_tags))
+        if ns == 0:
+            continue
+        # rows: the singles' mirrored barcodes, then the singles' and the
+        # SSCSes' own barcodes
+        codes += [_barcode_codes(tags_mod.mirror_barcode(t.barcode)) for t in s_tags]
+        codes += [_barcode_codes(t.barcode) for t in s_tags + x_tags]
+        q = base + np.repeat(np.arange(ns), ns + nx)
+        p = base + ns + np.tile(np.arange(ns + nx), ns)
+        qi.append(q)
+        pj.append(p)
+        base += 2 * ns + nx
+    width = max((c.shape[0] for c in codes), default=0)
+    mat = np.full((len(codes), width), 0xFF, dtype=np.uint8)
+    for r, c in enumerate(codes):
+        mat[r, :c.shape[0]] = c
+    qi = np.concatenate(qi) if qi else np.zeros(0, np.int64)
+    pj = np.concatenate(pj) if pj else np.zeros(0, np.int64)
+    dist = hamming.pair_distances(mat, qi, pj, device)
+    out, k = [], 0
+    for s_tags, x_tags in shapes:
+        ns, nx = len(s_tags), len(x_tags)
+        out.append(_WindowDistances(s_tags, x_tags,
+                                    dist[k:k + ns * (ns + nx)].reshape(ns, ns + nx)))
+        k += ns * (ns + nx)
+    return out
+
+
+def _window_chunks(windows: Iterator, max_pairs: int = 1 << 20):
+    """Group consecutive windows into chunks of about ``max_pairs``
+    singleton-candidate pairs (a window with no singleton closes no
+    chunk early and costs no pair)."""
+    chunk, pairs = [], 0
+    for singles, sscses in windows:
+        chunk.append((singles, sscses))
+        pairs += len(singles) * (len(singles) + len(sscses))
+        if pairs >= max_pairs:
+            yield chunk
+            chunk, pairs = [], 0
+    if chunk:
+        yield chunk
+
+
+def _walk_window(singles: dict, sscses: dict, stats, writers, corrections,
+                 max_mismatch: int, hamming_partner) -> None:
+    """The rescue decisions of one position window (the JAX walk's loop
+    body): exact mirror among the SSCSes, then among the singletons not
+    yet consumed, then (``max_mismatch > 0``) ``hamming_partner(tag,
+    candidates, pool)`` among the SSCSes and then the other unconsumed
+    singletons."""
+    done: set = set()
+    for tag in sorted(singles, key=str):
+        if tag in done:
+            continue
+        stats.incr("singletons_total")
+        read = singles[tag]
+        mirror = tags_mod.duplex_tag(tag)
+
+        partner_tag, pool = None, None
+        if mirror in sscses:
+            partner_tag, pool = mirror, sscses
+        elif mirror in singles and mirror != tag and mirror not in done:
+            partner_tag, pool = mirror, singles
+        elif max_mismatch > 0:
+            partner_tag = hamming_partner(tag, sscses, "sscs")
+            pool = sscses
+            if partner_tag is None:
+                # exclude self AND already-consumed singletons — a
+                # singleton may be corrected at most once
+                avail = {t: r for t, r in singles.items() if t != tag and t not in done}
+                partner_tag = hamming_partner(tag, avail, "single")
+                pool = singles
+
+        partner = pool.get(partner_tag) if partner_tag is not None else None
+        if partner is None or len(partner.seq) != len(read.seq):
+            if partner is not None:
+                stats.incr("length_mismatch")
+            stats.incr("remaining")
+            writers["remaining"].write(read)
+            continue
+
+        if pool is sscses:
+            stats.incr("rescued_by_sscs")
+            corrections.add("sscs_rescue", read, partner)
+        else:
+            # symmetric singleton-singleton rescue: correct both now
+            stats.incr("rescued_by_singleton", 2)
+            stats.incr("singletons_total")
+            corrections.add("singleton_rescue", read, partner)
+            corrections.add("singleton_rescue", partner, read)
+            done.add(partner_tag)
+
+
+def _run_rescue_walk(singleton_bam, sscs_bam, writers, stats, max_mismatch: int,
+                     device) -> None:
+    """The object window walk over both inputs (``grouping.
+    consensus_windows``): a chunk of windows at a time, each chunk's
+    Hamming distances from one device call when ``max_mismatch > 0``."""
+    corrections = _Corrections(writers, device)
+    with BamReader(singleton_bam) as s_reader, BamReader(sscs_bam) as x_reader:
+        windows = _merge_windows(consensus_windows(s_reader), consensus_windows(x_reader))
+        for chunk in _window_chunks(windows):
+            dists = (_chunk_distances(chunk, device) if max_mismatch > 0
+                     else [None] * len(chunk))
+            for (singles, sscses), dist in zip(chunk, dists):
+                if not singles:
+                    continue
+                _walk_window(
+                    singles, sscses, stats, writers, corrections, max_mismatch,
+                    None if dist is None else
+                    (lambda tag, cands, pool, d=dist: d.partner(tag, cands, pool,
+                                                                 max_mismatch)))
+    corrections.flush()
+
+
 def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
-                             device: torch.device, level: int = 6,
-                             residency=None, stream_out=None) -> SingletonResult:
-    """Exact complementary-tag rescue with the duplex votes on ``device``;
-    ``residency`` is the SSCS stage's plane store (or None: every rescue
-    votes by upload).
+                             device: torch.device, max_mismatch: int = 0,
+                             level: int = 6, residency=None,
+                             stream_out=None) -> SingletonResult:
+    """Singleton rescue with the duplex votes on ``device``.
+
+    ``max_mismatch == 0`` (exact complementary-tag matching, the default)
+    runs the vectorized block path; ``max_mismatch > 0`` (and foreign tag
+    layouts) the object window walk.  ``residency`` is the SSCS stage's
+    plane store (or None: every rescue votes by upload); the walk never
+    uses it, as in the JAX package.
 
     ``stream_out``: a ``core.streamgraph.StreamOut``; outputs hand off in
     memory — remaining singletons stay a final output (write-behind
     materialization), the two rescue BAMs become debug taps.
-    ``singleton_bam`` / ``sscs_bam`` may then be in-memory batch sources."""
+    ``singleton_bam`` / ``sscs_bam`` may then be in-memory batch sources.
+    It needs the block path: the walk re-reads its inputs as files, so a
+    foreign tag layout raises ``StreamFallback`` (the CLI re-runs the
+    staged pipeline) and ``max_mismatch > 0`` raises ``ValueError``."""
     tracker = TimeTracker()
     stats = StageStats("singleton_correction")
     all_paths = output_paths(out_prefix)
     paths = {k: all_paths[k] for k in ("sscs_rescue", "singleton_rescue", "remaining")}
+    if stream_out is not None and max_mismatch != 0:
+        raise ValueError("streaming hand-off requires the vectorized rescue path")
     if hasattr(singleton_bam, "header"):
         header = singleton_bam.header
     else:
         with BamReader(singleton_bam) as hdr_reader:
             header = hdr_reader.header
-    writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
-    ok = False
-    try:
-        _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device, residency)
-        ok = True
-    finally:
-        if not ok:
+    walk = max_mismatch != 0
+    if not walk:
+        writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
+        ok = False
+        try:
+            _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device, residency)
+            ok = True
+        except ForeignTagLayout as exc:
+            if stream_out is not None:
+                # in-memory sources cannot be re-read as files by the walk
+                raise StreamFallback(f"singleton rescue: {exc}") from exc
+            # restart from scratch on the walk below (nothing was promoted)
+            walk = True
+            stats = StageStats("singleton_correction")
+        finally:
+            if not ok:
+                for w in writers.values():
+                    w.abort()
+    if walk:
+        writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
+        try:
+            _run_rescue_walk(singleton_bam, sscs_bam, writers, stats, max_mismatch, device)
+        except BaseException:
             for w in writers.values():
                 w.abort()
+            raise
     if stream_out is not None:
         stream_out.capture("remaining", writers["remaining"].close_to_memory(),
                            file_path=paths["remaining"], level=level)
@@ -287,7 +588,7 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
     else:
         for w in writers.values():
             w.close()  # lexsort + final BGZF write
-    stats.set("max_mismatch", 0)
+    stats.set("max_mismatch", max_mismatch)
     stats.set("backend", device.type)
     stats.write(all_paths["stats_txt"])
     tracker.mark("rescue")

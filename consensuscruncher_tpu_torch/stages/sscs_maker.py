@@ -13,11 +13,19 @@ Outputs (pinned names; ``<p>`` = output prefix):
 - ``<p>.read_families.txt``     family-size histogram
 - ``<p>.time_tracker.txt``      wall-clock marks
 
-The host decodes the BAM column-wise and groups reads into family blocks;
-families of size >= 2 ship to ``device`` as packed member-stream batches
-and come back voted (``ops.consensus_segment``).  The sorting writers
-buffer records in memory and write the coordinate-sorted BAMs at close,
-or hand them to the next stage in memory (``stream_out``).
+The host decodes the BAM column-wise and groups reads into families of
+size >= 2 that ship to ``device`` and come back voted, on one of two wires
+(bit-identical outputs):
+
+- ``stream`` (the default): family blocks, packed member-stream batches
+  (``ops.consensus_segment``), records assembled column-wise;
+- ``dense``: per-family events (``grouping.stream_families_columnar``),
+  padded ``(B, F, L)`` batches (``ops.consensus_dense``), records emitted
+  one family at a time (:func:`emit_consensus`).
+
+The sorting writers buffer records in memory and write the
+coordinate-sorted BAMs at close, or hand them to the next stage in memory
+(``stream_out``).
 """
 
 from __future__ import annotations
@@ -29,16 +37,24 @@ import numpy as np
 import torch
 
 from consensuscruncher_tpu_torch.core import tags as tags_mod
-from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS
+from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS, modal_cigar
 from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed, ragged
 from consensuscruncher_tpu_torch.io.bam import BamWriter
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
-from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter, RenameRetagWriter
+from consensuscruncher_tpu_torch.io.encode import (
+    ConsensusRecordWriter,
+    RenameRetagWriter,
+    cigar_string_to_words,
+)
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
+from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
-from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks
+from consensuscruncher_tpu_torch.stages.grouping import (
+    stream_families_columnar,
+    stream_family_blocks,
+)
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.utils.stats import (
     FamilySizeHistogram,
@@ -76,6 +92,54 @@ def output_paths(out_prefix: str) -> dict[str, str]:
     }
 
 
+def write_singleton(singleton_writer, tag, members) -> None:
+    """Route a size-1 family: rename to the consensus qname, preserve the
+    barcode in ``XT``/``XF`` tags (dict-replace: a read's own tags stay in
+    front)."""
+    out = members[0].materialize()  # BamRead: identity
+    out.qname = tags_mod.sscs_qname(tag)
+    out.tags = dict(out.tags)
+    out.tags["XT"] = ("Z", tag.barcode)
+    out.tags["XF"] = ("i", 1)
+    singleton_writer.write(out)
+
+
+def emit_consensus(rec_writer, tag, members, codes, quals) -> None:
+    """Encode one consensus read of columnar ``MemberView`` members: the
+    bytes of ``core.consensus_read.build_consensus_read`` +
+    ``io.bam.encode_record`` (the modal cigar of the members of the
+    consensus length, their top mapq, ``XT``/``XF``), built column-wise."""
+    t = members[0]
+    length = codes.shape[0]
+    cand = [m for m in members if m.seq_len == length]
+    first = cand[0].cigar_bytes() if cand else None
+    if first is not None and all(np.array_equal(m.cigar_bytes(), first) for m in cand[1:]):
+        # np.array copy: a zero-copy view would pin the whole source batch
+        # buffer inside the record writer until its next flush
+        words = np.array(np.ascontiguousarray(first).view("<u4"))
+    else:  # mixed cigars / all-truncated: exact modal_cigar semantics
+        words = cigar_string_to_words(modal_cigar(members, length))
+    tag_blob = (
+        b"XTZ" + tag.barcode.encode("ascii")
+        + b"\x00XFi" + struct.pack("<i", len(members))
+    )
+    rec_writer.add(
+        tags_mod.sscs_qname(tag), t.flag & _KEEP_FLAGS, t.rid, t.pos,
+        max(m.mapq for m in members), words, t.mrid, t.mate_pos,
+        t.tlen, codes, quals, tag_blob,
+    )
+
+
+def _member_arrays(members):
+    seqs, quals = [], []
+    for m in members:
+        s = m.codes  # uniform across BamRead and columnar MemberView
+        q = m.qual if m.qual.size else np.zeros(s.shape[0], dtype=np.uint8)
+        seqs.append(s)
+        quals.append(q)
+    return seqs, quals
+
+
 def run_sscs(
     in_bam,
     out_prefix: str,
@@ -87,12 +151,17 @@ def run_sscs(
     residency=None,
     qc=None,
     stream_out=None,
+    wire: str = "stream",
 ) -> SscsResult:
     """Run the SSCS stage with the family votes on ``device``.
 
+    ``wire``: ``"stream"`` (packed member-stream batches, the default) or
+    ``"dense"`` (padded ``(B, F, L)`` batches); bit-identical outputs.
+
     ``residency``: an ``ops.packing.resident_planes`` store on ``device``;
-    every batch's vote planes are registered there before they are
-    downloaded, for rescue and DCS to gather.
+    on the stream wire, every batch's vote planes are registered there
+    before they are downloaded, for rescue and DCS to gather (the dense
+    wire fills no store, as in the JAX package).
 
     ``qc``: an ``obs.qc.QcAccumulator``, armed as the plane sink around
     this stage's vote loop only: every vote batch then carries the QC
@@ -106,6 +175,8 @@ def run_sscs(
     the singleton BAM becomes a debug tap, written only when the stream
     asked for taps.  ``in_bam`` may then also be an in-memory batch
     source instead of a path."""
+    if wire not in ("stream", "dense"):
+        raise ValueError(f"unknown wire {wire!r} (expected 'stream' or 'dense')")
     tracker = TimeTracker()
     stats = StageStats("SSCS")
     hist = FamilySizeHistogram()
@@ -208,8 +279,34 @@ def run_sscs(
             )
             stats.incr("sscs_written", k - i)
 
+    pending: dict[int, tuple] = {}
+
+    def events():
+        """Route the dense wire's grouping events; yield a consensus job
+        ``(id, seqs, quals)`` per family of size >= 2."""
+        next_id = 0
+        for kind, a, b in stream_families_columnar(reader, header, bdelim):
+            if kind == "bad":
+                stats.incr("total_reads")
+                stats.incr(f"bad_{b}")
+                stats.incr("bad_reads")
+                bad_writer.write(a)
+                continue
+            tag, members = a, b
+            stats.incr("total_reads", len(members))
+            hist.add(len(members))
+            stats.incr("families")
+            if len(members) == 1:
+                stats.incr("singletons")
+                write_singleton(singleton_writer, tag, members)
+                continue
+            seqs, quals = _member_arrays(members)
+            pending[next_id] = (tag, members)
+            yield next_id, seqs, quals
+            next_id += 1
+
     on_device_batch = None
-    if residency is not None:
+    if residency is not None and wire == "stream":
         def on_device_batch(batch, planes):
             # row i of the planes is batch.keys[i]; the store key is the
             # family's consensus qname + NUL + the record flag (LE), since
@@ -226,9 +323,22 @@ def run_sscs(
     if qc is not None:
         obs_qc.set_plane_sink(qc)
     try:
-        for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
-                block_items(), cfg, device, on_device_batch):
-            emit_batch(keys, lengths, out_b, out_q)
+        if wire == "stream":
+            for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
+                    block_items(), cfg, device, on_device_batch):
+                emit_batch(keys, lengths, out_b, out_q)
+        else:
+            # the producer thread runs events(), which writes the bad and
+            # singleton records: the generator's close joins it before the
+            # writers close below
+            stream = consensus_families(events(), cfg, device)
+            try:
+                for fid, codes, quals in stream:
+                    tag, members = pending.pop(fid)
+                    emit_consensus(rec_writer, tag, members, codes, quals)
+                    stats.incr("sscs_written")
+            finally:
+                stream.close()
         rec_writer.flush()
         single_surgery.flush()
         ok = True

@@ -27,6 +27,8 @@ for _i, _ch in enumerate(BASE_CHARS):
     _ENCODE_LUT[ord(_ch)] = _i
     _ENCODE_LUT[ord(_ch.lower())] = _i
 
+_DECODE_LUT = np.frombuffer(b"ACGTN?", dtype=np.uint8)
+
 
 def encode_seq(seq: str | bytes) -> np.ndarray:
     """str/bytes sequence -> uint8 codes (A=0..N=4)."""
@@ -34,3 +36,13 @@ def encode_seq(seq: str | bytes) -> np.ndarray:
         seq = seq.encode("ascii")
     return _ENCODE_LUT[np.frombuffer(seq, dtype=np.uint8)]
 
+
+def decode_seq(codes: np.ndarray) -> str:
+    """uint8 codes -> str sequence ('?' for PAD, which should never leak out)."""
+    return _DECODE_LUT[np.asarray(codes, dtype=np.uint8)].tobytes().decode("ascii")
+
+
+def complement_codes(codes: np.ndarray) -> np.ndarray:
+    """A<->T, C<->G, N->N on the integer encoding."""
+    lut = np.array([T, G, C, A, N, PAD], dtype=np.uint8)
+    return lut[np.asarray(codes, dtype=np.uint8)]

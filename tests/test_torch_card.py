@@ -350,3 +350,68 @@ def test_qc_rider_stage_loop_keeps_device_memory_flat(card):
         (totals[dev.type],) = acc._handles
     assert grew["cuda"] <= 4096, grew  # not ~0.4 MB per batch
     assert torch.equal(totals["cuda"].cpu(), totals["cpu"])
+
+
+@pytest.mark.parametrize("qual_threshold", [0, 30])
+def test_dense_rider_matches_plain(card, qual_threshold):
+    """B1's dense form with the dense rider (every family's QC length the
+    padded width): live members' padding past their family's length holds
+    PAD with qual 0, which votes N where the threshold fails it."""
+    from consensuscruncher_tpu_torch.ops import consensus_dense
+    from consensuscruncher_tpu_torch.parallel.batching import bucket_families
+
+    rng = np.random.default_rng(40 + qual_threshold)
+    fams = []
+    for key in range(600):
+        size = int(rng.integers(2, 12))
+        lens = [int(rng.choice([90, 100, 100, 104])) for _ in range(size)]
+        fams.append((key, [rng.integers(0, 5, ln).astype(np.uint8) for ln in lens],
+                     [rng.integers(0, 41, ln).astype(np.uint8) for ln in lens]))
+    cfg = consensus_vote.ConsensusConfig(qual_threshold=qual_threshold)
+    for batch in bucket_families(iter(fams), max_batch=256):
+        before = (consensus_vote.launches, consensus_vote.qc_launches)
+        got, got_qc = consensus_dense.consensus_batch(batch, cfg, card, qc=True)
+        assert (consensus_vote.launches, consensus_vote.qc_launches) == (
+            before[0] + 1, before[1] + 1)
+        want, want_qc = consensus_dense.consensus_batch(batch, cfg, torch.device("cpu"),
+                                                        qc=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(got_qc.cpu(), want_qc)
+
+
+def test_hamming_matcher_matches_plain(card):
+    from consensuscruncher_tpu_torch.ops import singleton as hamming
+
+    rng = np.random.default_rng(41)
+    a = rng.integers(0, 3, (300, 12)).astype(np.uint8)
+    b = rng.integers(0, 3, (700, 12)).astype(np.uint8)
+    before = hamming.launches
+    got = hamming.pairwise_hamming(a, b, tile=256, device=card)
+    assert hamming.launches == before + 6  # 2 x 3 tiles
+    assert np.array_equal(got, hamming.pairwise_hamming(a, b, device="cpu"))
+    for mm in (1, 2):
+        assert np.array_equal(hamming.best_matches(a, b, mm, device=card),
+                              hamming.best_matches(a, b, mm, device="cpu"))
+    codes = np.concatenate([a, b])
+    qi = rng.integers(0, 1000, 200_000)
+    pj = rng.integers(0, 1000, 200_000)
+    got = hamming.pair_distances(codes, qi, pj, device=card, max_pairs=50_000)
+    assert np.array_equal(got, hamming.pair_distances(codes, qi, pj, device="cpu"))
+
+
+def test_dcs_walk_duplex_vote_matches_plain(card):
+    """The window walks' batched duplex vote (``_duplex_vote_batch``) on
+    the card against its plain version and the host oracle."""
+    from consensuscruncher_tpu_torch.core.duplex_cpu import duplex_consensus
+    from consensuscruncher_tpu_torch.stages.dcs_maker import _duplex_vote_batch
+
+    rng = np.random.default_rng(42)
+    s1, s2 = (rng.integers(0, 5, (5000, 100)).astype(np.uint8) for _ in range(2))
+    s2 = np.where(rng.random(s1.shape) < 0.7, s1, s2).astype(np.uint8)
+    q1, q2 = (rng.integers(0, 41, (5000, 100)).astype(np.uint8) for _ in range(2))
+    got = _duplex_vote_batch(s1, q1, s2, q2, card)
+    want = _duplex_vote_batch(s1, q1, s2, q2, torch.device("cpu"))
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    for i in (0, 1, 4999):
+        ob, oq = duplex_consensus(s1[i], q1[i], s2[i], q2[i])
+        assert np.array_equal(got[0][i], ob) and np.array_equal(got[1][i], oq)

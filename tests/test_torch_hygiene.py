@@ -1,8 +1,9 @@
 """Boundaries of the port: no JAX, the card by default, no quiet fallback.
 
 - importing the port and running its CLI imports neither ``jax`` nor any
-  module of the JAX package (checked in a fresh interpreter), a staged run
-  and a streaming run with QC alike;
+  module of the JAX package (checked in a fresh interpreter), a staged run,
+  a streaming run with QC and a run of the object paths (``--max_mismatch
+  1 --wire dense``) alike;
 - resolving the default device without CUDA raises instead of carrying on
   on the CPU, and so do the duplex op and the pipelined fused runner when
   no device is named;
@@ -63,6 +64,18 @@ def test_streaming_run_with_qc_imports_no_jax(tmp_path):
     with open(tmp_path / "sample" / "qc.json") as fh:
         qc = json.load(fh)
     assert qc["pipeline"] == "streaming" and qc["plane"]["total_votes"] > 0
+
+
+def test_object_paths_import_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, os.path.join(REPO, "test", "data", "sample_bcerr.bam"),
+         str(tmp_path), "--max_mismatch", "1", "--wire", "dense"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    with open(tmp_path / "sample_bcerr" / "singleton" / "sample_bcerr.singleton_stats.json") as fh:
+        assert json.load(fh)["max_mismatch"] == 1
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
