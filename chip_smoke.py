@@ -67,22 +67,37 @@ failure; no phase's failure is caught.  Phases:
    ``--residency`` off, streaming, staged (taps off: the finals
    byte-identical to the main run's, no intermediate written);
 6. the object paths at full width (read length 100, UMI 6, mean family
-   3): (b) ``--wire dense`` on phase 5's sample, every BAM byte-identical
-   to the stream run's, every SSCS launch B1's dense form with the dense
-   rider, which is then held to its plain version at the run's largest
-   bucket (qualscore 0 and 30) and timed with its bound; (a) phase 5's
-   settings at ``OBJECT_FRAGMENTS`` fragments, untagged and with
-   ``NM:i:0`` on every read: the tagged run's rescue and DCS take the
-   window walks on the card, and each of the two stages again with
-   ``device="cpu"`` writes the same records; (c) ``--max_mismatch 1`` on
-   the same settings with barcode errors (another seed): the Hamming
-   matcher's calls and seconds, and the rescue stage on the CPU writes the
-   same records;
-7. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
+   3): (a) phase 5's settings at ``OBJECT_FRAGMENTS`` fragments, untagged
+   and with ``NM:i:0`` on every read: the tagged run's rescue and DCS
+   take the window walks on the card, and each of the two stages again
+   with ``device="cpu"`` writes the same records; (b) ``--wire dense`` on
+   (a)'s untagged sample, every BAM byte-identical to (a)'s stream run's,
+   every SSCS launch B1's dense form with the dense rider, which is then
+   held to its plain version at the run's largest bucket (qualscore 0 and
+   30) and timed with its bound; (c) ``--max_mismatch 1`` on the same
+   settings with barcode errors (another seed): the Hamming matcher's
+   calls and seconds, and the rescue stage on the CPU writes the same
+   records;
+7. the vote policies (``--policy delegation|distilled``, torch ops on the
+   card): each policy's stream vote at the main path's batch, with and
+   without the rider, its dense vote at (b)'s largest bucket and the fused
+   API's policy branch (B15) at ``B8192_F16_L100`` against the same
+   functions on the CPU, exactly, timed beside B1 (and B2), their kernels
+   per call counted by the profiler; ``consensus --policy P`` on
+   ``sample.bam`` and on a degraded sample (``simulate_bam``,
+   ``DEGRADED_FRAGMENTS``, half the reads degraded): card records and
+   ``qc.json`` equal to the ``--device cpu`` run's, the ``qc.json`` plane
+   the majority run's, delegation's SSCS BAM other than majority's on the
+   degraded sample, and on ``sample.bam`` ``--wire dense``, streaming and
+   ``--residency False`` writing the same records; then phase 5's sample
+   under each policy, staged (walls; delegation's SSCS BAM majority's,
+   byte for byte);
+8. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
    its kernel launches counted (> 0) and its outputs equal to the
    prestaged loop's.
 
-The line before the last is the ``kernels`` JSON; the last line is
+The line before the ``kernels`` line is the ``policies`` JSON; the line
+before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,8 +148,12 @@ from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  
 from consensuscruncher_tpu_torch.utils.ragged import scatter_runs  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches  # noqa: E402
-from consensuscruncher_tpu_torch.utils.phred import N, PAD  # noqa: E402
-from consensuscruncher_tpu_torch.utils.simulate import SimConfig, simulate_bam_fast  # noqa: E402
+from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
+from consensuscruncher_tpu_torch.utils.simulate import (  # noqa: E402
+    SimConfig,
+    simulate_bam,
+    simulate_bam_fast,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # Hopper runs int32 adds, compares and selects on 64 lanes per SM
@@ -275,13 +294,20 @@ def phase_build() -> None:
     emit("build", source=VOTE["source"], seconds=build_s, ptxas=kernels)
 
 
-def _check_equal(name, got: torch.Tensor, want: torch.Tensor, errs: list) -> None:
+def _check_equal(name, got: torch.Tensor, want: torch.Tensor, errs: list,
+                 detail=None) -> None:
+    """``got`` equal to ``want`` (on one device), exactly; a mismatch fails
+    with its first positions and, through ``detail(row, column)``, what
+    decided them."""
     torch.cuda.synchronize()
     err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
     errs.append(err)
     if not torch.equal(got, want):
-        raise AssertionError(f"kernel disagrees with the plain version on {name} "
-                             f"(max abs err {err})")
+        where = torch.nonzero(got != want)[:5].tolist()
+        info = [{"at": w, "got": int(got[tuple(w)]), "want": int(want[tuple(w)]),
+                 **(detail(w[-2], w[-1]) if detail is not None else {})} for w in where]
+        raise AssertionError(f"{name}: disagrees with its reference (max abs err {err}): "
+                             f"{info}")
 
 
 CONFIGS = [consensus_vote.ConsensusConfig(),
@@ -1125,7 +1151,8 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
            **device_s, "device_calls_share": sum(device_s.values()) / wall,
            "steps_s": res["walls"]}
     emit("scale", **row)
-    return row
+    # the main run's vote plane (the resume run rewrote its qc.json without one)
+    return {**row, "qc_plane": qc_doc["plane"]}
 
 
 MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_sscs",
@@ -1311,12 +1338,13 @@ def phase_object_goldens(dev) -> dict:
     return out
 
 
-def phase_dense(dev, sim_bam: str, work: str, rates: dict) -> dict:
-    """(b) ``--wire dense`` on phase 5's sample: counts set to 0 just
-    before and read just after (every SSCS launch is B1's dense form with
-    the dense rider), every BAM byte-identical to the stream run's; then
-    B1's dense form with the rider at the run's largest bucket against its
-    plain version, timed with its bound."""
+def phase_dense(dev, obj_bam: str, work: str, rates: dict) -> tuple[dict, object]:
+    """(b) ``--wire dense`` on (a)'s untagged sample (phase 5's settings at
+    ``OBJECT_FRAGMENTS``): counts set to 0 just before and read just after
+    (every SSCS launch is B1's dense form with the dense rider), every BAM
+    byte-identical to (a)'s stream run's; then B1's dense form with the
+    rider at the run's largest bucket against its plain version, timed
+    with its bound.  Returns the row and that bucket."""
     largest = {}
     dense_batch = consensus_dense.consensus_batch
 
@@ -1331,7 +1359,7 @@ def phase_dense(dev, sim_bam: str, work: str, rates: dict) -> dict:
     try:
         consensus_vote.launches = consensus_vote.qc_launches = 0
         t = time.perf_counter()
-        res = cli_main(["consensus", "-i", sim_bam, "-o", out, "-n", "sim", "--scorrect", "True",
+        res = cli_main(["consensus", "-i", obj_bam, "-o", out, "-n", "obj", "--scorrect", "True",
                         "--device", dev.type, "--wire", "dense"])
         wall = time.perf_counter() - t
         launches, qc_launches = consensus_vote.launches, consensus_vote.qc_launches
@@ -1340,9 +1368,10 @@ def phase_dense(dev, sim_bam: str, work: str, rates: dict) -> dict:
     if launches == 0 or qc_launches != launches:
         raise AssertionError(f"the dense run launched B1 {launches} times, {qc_launches} with "
                              "the dense rider")
-    if _bam_sha256(os.path.join(out, "sim")) != _bam_sha256(os.path.join(work, "sim")):
+    if _bam_sha256(os.path.join(out, "obj")) != _bam_sha256(os.path.join(work, "untagged",
+                                                                          "obj")):
         raise AssertionError("--wire dense wrote other BAMs than the stream wire")
-    qc_plane = _qc_doc(os.path.join(out, "sim"))["plane"]
+    qc_plane = _qc_doc(os.path.join(out, "obj"))["plane"]
     shutil.rmtree(out)
 
     batch = largest["batch"]
@@ -1386,13 +1415,14 @@ def phase_dense(dev, sim_bam: str, work: str, rates: dict) -> dict:
     b = bound(2 * live_members * length + 4 * n + 2 * n * length + 8 * length,
               FOLD_OPS * live_members * length + FINALIZE_OPS * n * length
               + QC_OPS * n * length, rates)
-    row = {"card": rates["card"], "wall_s": wall, "steps_s": res["walls"], "launches": launches,
+    row = {"card": rates["card"], "fragments": OBJECT_FRAGMENTS, "wall_s": wall,
+           "steps_s": res["walls"], "launches": launches,
            "qc_launches": qc_launches, "qc_positions": qc_plane["positions"],
            "ms": min(r["ms"] for r in runs), "runs": runs, "plain_ms": plain_ms, **b,
            "max_abs_err": max(errs), "comparisons": len(errs), "path": job.plan.summary(),
            "shape": {"families": n, "F": f, "L": length, "live_members": live_members}}
     emit("dense", **row)
-    return row
+    return row, batch
 
 
 def phase_tagged(dev, work: str, card: str) -> dict:
@@ -1499,6 +1529,335 @@ def phase_mm1(dev, work: str, card: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------ vote policies
+
+POLICIES = ("delegation", "distilled")
+# the policies' rows (torch ops on the card; XLA programs in the reference)
+POLICY_ROWS = {
+    "delegation": {"name": "delegation_vote", "route": "torch",
+                   "source": "consensuscruncher_tpu_torch/policies/delegation.py",
+                   "replaces": "consensuscruncher_tpu/policies/delegation.py:82"},
+    "distilled": {"name": "distilled_vote", "route": "torch",
+                  "source": "consensuscruncher_tpu_torch/policies/distilled.py",
+                  "replaces": "consensuscruncher_tpu/policies/distilled.py:146"},
+    "duplex_batch": {"name": "duplex_batch_policy", "route": "torch",
+                     "source": "consensuscruncher_tpu_torch/ops/consensus_vote.py",
+                     "replaces": "consensuscruncher_tpu/ops/consensus_pallas.py:404"},
+}
+# the degraded sample: the port's simulate_bam at phase 5's widths with
+# half the reads degraded (quals 3-15, 8% extra errors)
+DEGRADED_FRAGMENTS = 20_000
+DEGRADED_RATE = 0.5
+
+
+def torch_launches(fn) -> dict:
+    """The CUDA kernels (and copies) one call of ``fn`` runs, as the
+    profiler sees them (None when it sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    if not names:
+        return {"launches": None, "copies": None}
+    return {"launches": len(names) - copies, "copies": copies}
+
+
+def _distilled_detail(wire, a, book, sizes, cfg, out_len, fam, pos) -> dict:
+    """The distilled head's inputs and confidence at one (family,
+    position) of a stream batch, recomputed on the host."""
+    from consensuscruncher_tpu_torch.policies import distilled
+
+    bases, quals = unpack_wire(wire, a.cpu(), torch.as_tensor(book).cpu())
+    start = int(sizes[:fam].sum())
+    rows = slice(start, start + int(sizes[fam]))
+    b, q = bases[rows, pos], quals[rows, pos]
+    eff = torch.where(q >= cfg.qual_threshold, b, N)
+    counts = torch.stack([(eff == k).sum() for k in range(NUM_BASES)]).to(torch.int32)
+    qsums = torch.stack([torch.where(eff == k, q.to(torch.int32), 0).sum()
+                         for k in range(NUM_BASES)]).to(torch.int32)
+    feats = distilled.features(counts[None], qsums[None], int(sizes[fam]),
+                               qual_cap=cfg.qual_cap)
+    logits = distilled.DistilledPolicy().head(torch.device("cpu"))(feats)
+    return {"family": fam, "position": pos, "counts": counts.tolist(),
+            "qsums": qsums.tolist(), "confidence": float(distilled.confidence(logits)[0]),
+            "logits": logits[0].tolist()}
+
+
+def phase_policy_batches(dev, sim_bam: str, dense_batch, rates: dict) -> dict:
+    """(1) Each policy's stream vote at the main path's batch, with and
+    without the rider, and its dense vote at the dense run's largest
+    bucket, on the card against the same function on the CPU (exact),
+    timed with CUDA events beside B1's call on the same inputs, its
+    kernels per call counted by the profiler; B15 (``duplex_batch`` under
+    a policy) likewise at ``B8192_F16_L100`` with degraded members."""
+    batch = main_path_batch(sim_bam)
+    n = batch.n_real
+    wire, a, w = consensus_segment.encode_member_batch(batch)
+    a_h, book = torch.from_numpy(a), torch.from_numpy(w)
+    a_d = a_h.to(dev)
+    b_d = book.to(dev) if wire == "raw" else book
+    b_h = book
+    sizes = torch.from_numpy(batch.sizes[:n])
+    lengths = torch.from_numpy(batch.lengths[:n])
+    out_len = consensus_segment._out_len(batch)
+    cfg = consensus_vote.ConsensusConfig()
+
+    def b1_call():
+        consensus_segment.stream_vote(wire, a_d, b_d, sizes, cfg, out_len, lengths)
+
+    rows: dict[str, dict] = {}
+    b1_ms = [cuda_ms(b1_call, 200)]
+    for policy in POLICIES:
+        errs: list[int] = []
+        detail = None
+        if policy == "distilled":
+            def detail(fam, pos):
+                return _distilled_detail(wire, a_h, b_h, sizes, cfg, out_len, fam, pos)
+        before = consensus_vote.launches
+        for lens in (None, lengths):
+            got = consensus_segment.stream_vote(wire, a_d, b_d, sizes, cfg, out_len, lens,
+                                                policy=policy)
+            want = consensus_segment.stream_vote(wire, a_h, b_h, sizes, cfg, out_len, lens,
+                                                 policy=policy)
+            if lens is None:
+                _check_equal(f"{policy}/main_path_batch", got.cpu(), want, errs, detail)
+            else:
+                _check_equal(f"{policy}/main_path_batch/qc_planes", got[0].cpu(), want[0], errs,
+                             detail)
+                _check_equal(f"{policy}/main_path_batch/qc", got[1].cpu(), want[1], errs)
+        if consensus_vote.launches != before:
+            raise AssertionError(f"{policy}: the policy vote launched B1")
+
+        def call(policy=policy):
+            consensus_segment.stream_vote(wire, a_d, b_d, sizes, cfg, out_len, policy=policy)
+
+        def qc_call(policy=policy):
+            consensus_segment.stream_vote(wire, a_d, b_d, sizes, cfg, out_len, lengths,
+                                          policy=policy)
+
+        t = time.perf_counter()
+        consensus_segment.stream_vote(wire, a_h, b_h, sizes, cfg, out_len, policy=policy)
+        cpu_s = time.perf_counter() - t
+        runs = [cuda_ms(call, 20), cuda_ms(qc_call, 20), cuda_ms(qc_call, 20), cuda_ms(call, 20)]
+        rows[policy] = {"ms": min(runs[0], runs[3]), "qc_ms": min(runs[1], runs[2]),
+                        "runs": runs, "cpu_s": cpu_s, **torch_launches(call),
+                        "qc_launches_per_call": torch_launches(qc_call)["launches"],
+                        "errs": errs}
+    b1_ms.append(cuda_ms(b1_call, 200))
+    shape = {"wire": wire, "families": n, "members": int(batch.n_members),
+             "cap": consensus_segment.pick_member_cap(batch.sizes[:n]), "out_len": out_len}
+    emit("policy_batch", card=rates["card"], shape=shape, b1_call_ms=min(b1_ms),
+         b1_call_runs=b1_ms, **{p: {k: v for k, v in r.items() if k != "errs"}
+                                for p, r in rows.items()})
+
+    # the dense run's largest bucket
+    n_d = dense_batch.n_real
+    host = [torch.from_numpy(x[:n_d]) for x in (dense_batch.bases, dense_batch.quals)]
+    card_planes = [x.to(dev) for x in host]
+    d_sizes = torch.from_numpy(dense_batch.fam_sizes[:n_d])
+
+    def b1_dense():
+        consensus_vote.consensus_batch(*card_planes, d_sizes, cfg, qc=True)
+
+    dense = {"b1_ms": cuda_ms(b1_dense, 100)}
+    for policy in POLICIES:
+        errs = rows[policy]["errs"]
+        got = consensus_vote.consensus_batch(*card_planes, d_sizes, cfg, qc=True, policy=policy)
+        want = consensus_vote.consensus_batch(*host, d_sizes, cfg, qc=True, policy=policy)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            _check_equal(f"{policy}/dense_largest_bucket/{i}", g.cpu(), w_, errs)
+
+        def dense_call(policy=policy):
+            consensus_vote.consensus_batch(*card_planes, d_sizes, cfg, qc=True, policy=policy)
+
+        dense[policy] = {"ms": min(cuda_ms(dense_call, 20), cuda_ms(dense_call, 20)),
+                         **torch_launches(dense_call)}
+    dense["shape"] = {"families": n_d, "F": int(dense_batch.bases.shape[1]),
+                      "L": int(dense_batch.bases.shape[2])}
+    emit("policy_dense_bucket", card=rates["card"], **dense)
+
+    # B15: the fused API's policy branch, at B8192_F16_L100, degraded members
+    rng = np.random.default_rng(61)
+    strands = []
+    for _ in range(2):
+        b_, q_, s_ = _dense_strand(rng, 8192, 16, 100)
+        # members mostly agree with their first; every other one degraded
+        b_ = np.where((rng.random(b_.shape) < 0.75) & (b_ != PAD), b_[:, :1], b_)
+        q_[:, ::2] = np.minimum(q_[:, ::2], 15)
+        strands.append((torch.from_numpy(b_), torch.from_numpy(q_), s_))
+    card_strands = [(x.to(dev), y.to(dev), s_) for x, y, s_ in strands]
+    b15: dict[str, object] = {"errs": []}
+    before = consensus_vote.fused_launches
+    for policy in POLICIES:
+        got = consensus_vote.duplex_batch(*card_strands[0], *card_strands[1], policy=policy)
+        want = consensus_vote.duplex_batch(*strands[0], *strands[1], policy=policy)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            _check_equal(f"duplex_batch/{policy}/{i}", g.cpu(), w_, b15["errs"])
+
+        def fused_call(policy=policy):
+            consensus_vote.duplex_batch(*card_strands[0], *card_strands[1], policy=policy)
+
+        b15[policy] = {"ms": min(cuda_ms(fused_call, 10), cuda_ms(fused_call, 10)),
+                       **torch_launches(fused_call)}
+    if consensus_vote.fused_launches != before:
+        raise AssertionError("duplex_batch under a policy launched B2")
+
+    def b2_call():
+        consensus_vote.duplex_batch(*card_strands[0], *card_strands[1])
+
+    b15["b2_ms"] = cuda_ms(b2_call, 50)
+    emit("policy_b15", card=rates["card"], shape="B8192_F16_L100",
+         **{k: v for k, v in b15.items() if k != "errs"})
+    return {"batch": rows, "shape": shape, "b1_call_ms": min(b1_ms), "dense": dense,
+            "b15": b15}
+
+
+def _policy_run(bam, out, name, policy, device, *extra) -> dict:
+    """One ``consensus`` run under ``policy``: its policy stream votes
+    counted and timed (synchronised), and its B1 launches (each count set
+    to 0 just before, read just after)."""
+    calls: dict[str, int] = {}
+    acc: dict[str, float] = {}
+    restore = _synced_timer(consensus_segment, "policy_stream_vote", acc, "stream", calls)
+    consensus_vote.launches = 0
+    try:
+        t = time.perf_counter()
+        res = cli_main(["consensus", "-i", bam, "-o", out, "-n", name, "--scorrect", "True",
+                        "--policy", policy, "--device", device, *extra])
+        wall = time.perf_counter() - t
+    finally:
+        restore()
+    return {"wall_s": wall, "steps_s": res["walls"], "pipeline": res["pipeline"],
+            "policy_stream_calls": calls["stream"], "policy_stream_s": acc["stream"],
+            "b1_launches": consensus_vote.launches}
+
+
+def phase_policy_runs(dev, work: str, card: str) -> dict:
+    """(2) ``sample.bam`` and a degraded sample (``DEGRADED_FRAGMENTS``)
+    under each policy: the card run's records and ``qc.json`` equal to the
+    ``--device cpu`` run's; the ``qc.json`` plane the majority run's; on
+    the degraded sample delegation's BAMs differ from majority's; on
+    ``sample.bam`` ``--wire dense``, streaming (taps) and ``--residency
+    False`` write the staged stream run's records."""
+    degraded = os.path.join(work, "degraded.bam")
+    t = time.perf_counter()
+    simulate_bam(degraded, SimConfig(n_fragments=DEGRADED_FRAGMENTS, seed=7,
+                                     degraded_read_rate=DEGRADED_RATE,
+                                     ref_len=40 * DEGRADED_FRAGMENTS))
+    sim_s = time.perf_counter() - t
+    sample = os.path.join(REPO, "test", "data", "sample.bam")
+    out: dict[str, dict] = {"simulate_s": sim_s}
+    for label, bam in (("sample", sample), ("degraded", degraded)):
+        root = os.path.join(work, f"policy_{label}")
+        majority = _policy_run(bam, os.path.join(root, "majority"), "p", "majority", dev.type)
+        base_m = os.path.join(root, "majority", "p")
+        plane = _qc_doc(base_m)["plane"]
+        shas_m = _bam_sha256(base_m)
+        for policy in POLICIES:
+            base = os.path.join(root, policy, "p")
+            run = _policy_run(bam, os.path.join(root, policy), "p", policy, dev.type)
+            if run["policy_stream_calls"] == 0 or run["b1_launches"]:
+                raise AssertionError(f"{label}/{policy}: {run['policy_stream_calls']} policy "
+                                     f"votes, {run['b1_launches']} B1 launches")
+            cpu = _policy_run(bam, os.path.join(root, f"{policy}_cpu"), "p", policy, "cpu")
+            shas = _bam_sha256(base)
+            _same_records(base, os.path.join(root, f"{policy}_cpu", "p"), shas)
+            qc = _qc_doc(base)
+            if qc != _qc_doc(os.path.join(root, f"{policy}_cpu", "p")):
+                raise AssertionError(f"{label}/{policy}: the card's qc.json differs from the CPU's")
+            if qc["plane"] != plane or qc["policy"] != policy:
+                raise AssertionError(f"{label}/{policy}: qc.json's plane is not majority's")
+            differs = shas["sscs/p.sscs.sorted.bam"] != shas_m["sscs/p.sscs.sorted.bam"]
+            if label == "degraded" and policy == "delegation" and not differs:
+                raise AssertionError("degraded: delegation wrote majority's SSCS BAM")
+            turns = {}
+            if label == "sample":
+                for turn, extra in (("dense", ["--wire", "dense"]),
+                                    ("streaming", ["--pipeline", "streaming",
+                                                   "--intermediate_taps", "True"]),
+                                    ("residency_off", ["--residency", "False"])):
+                    other = os.path.join(root, f"{policy}_{turn}")
+                    turns[turn] = _policy_run(bam, other, "p", policy, dev.type, *extra)
+                    _same_records(os.path.join(other, "p"), base, shas)
+            out[f"{label}/{policy}"] = {"card": run, "cpu": cpu, "sscs_differs_from_majority":
+                                        differs, "turns": turns}
+            emit("policy_run", input=label, policy=policy, card_run=run, cpu_wall_s=cpu["wall_s"],
+                 records_equal_to_cpu=True, qc_equal_to_cpu=True, plane_is_majority=True,
+                 sscs_differs_from_majority=differs,
+                 turns={k: v["wall_s"] for k, v in turns.items()})
+        out[f"{label}/majority"] = majority
+        shutil.rmtree(root)
+    return out
+
+
+def phase_policy_scale(dev, sim_bam: str, work: str, plane: dict, card: str) -> dict:
+    """(3) Phase 5's sample, staged, under each policy: walls and the SSCS
+    step beside the majority run of this call (phase 5's counted run);
+    delegation's SSCS BAM equals majority's byte for byte (every read has
+    quals 25-40, so every member is high), the ``qc.json`` plane is
+    majority's (``plane``, the majority run's: its ``qc.json`` now holds
+    the resume run's); the policy votes per run counted, no B1 launch."""
+    shas_m = _bam_sha256(os.path.join(work, "sim"))
+    rows = {}
+    for policy in POLICIES:
+        out = os.path.join(work, f"scale_{policy}")
+        run = _policy_run(sim_bam, out, "sim", policy, dev.type)
+        shas = _bam_sha256(os.path.join(out, "sim"))
+        same = shas["sscs/sim.sscs.sorted.bam"] == shas_m["sscs/sim.sscs.sorted.bam"]
+        if policy == "delegation" and not same:
+            raise AssertionError("delegation's SSCS BAM differs from majority's on the "
+                                 "phase-5 sample, whose quals are all >= 25")
+        if _qc_doc(os.path.join(out, "sim"))["plane"] != plane:
+            raise AssertionError(f"{policy}: the phase-5 qc.json plane is not majority's")
+        if run["policy_stream_calls"] == 0 or run["b1_launches"]:
+            raise AssertionError(f"{policy}: {run['policy_stream_calls']} policy votes, "
+                                 f"{run['b1_launches']} B1 launches")
+        shutil.rmtree(out)
+        rows[policy] = {**run, "sscs_equal_to_majority": same}
+        emit("policy_scale", card=card, policy=policy, **rows[policy])
+    return rows
+
+
+def policies_line(policies: dict, policy_scale: dict, policy_runs: dict, scale: dict,
+                  card: str) -> dict:
+    """The ``{"policies": [...]}`` line: per policy (and B15), its route,
+    source, the JAX function it replaces, time and torch launches per call,
+    calls per phase-5-size run and ``max_abs_err`` card against CPU."""
+    b15 = policies["b15"]
+    rows = [
+        {**POLICY_ROWS[p], "ms": policies["batch"][p]["ms"],
+         "qc_ms": policies["batch"][p]["qc_ms"],
+         "b1_call_ms": policies["b1_call_ms"], "shape": policies["shape"],
+         "calls_per_run": policy_scale[p]["policy_stream_calls"],
+         "launches_per_call": policies["batch"][p]["launches"],
+         "qc_launches_per_call": policies["batch"][p]["qc_launches_per_call"],
+         "copies_per_call": policies["batch"][p]["copies"],
+         "max_abs_err": max(policies["batch"][p]["errs"]),
+         "dense_ms": policies["dense"][p]["ms"],
+         "dense_launches_per_call": policies["dense"][p]["launches"],
+         "dense_b1_ms": policies["dense"]["b1_ms"],
+         "run_wall_s": policy_scale[p]["wall_s"],
+         "run_policy_vote_s": policy_scale[p]["policy_stream_s"],
+         "run_sscs_s": policy_scale[p]["steps_s"]["sscs"],
+         "majority_wall_s": scale["wall_s"], "majority_sscs_s": scale["steps_s"]["sscs"]}
+        for p in POLICIES]
+    rows.append(
+        {**POLICY_ROWS["duplex_batch"], "ms": {p: b15[p]["ms"] for p in POLICIES},
+         "b2_ms": b15["b2_ms"], "shape": "B8192_F16_L100", "calls_per_run": 0,
+         "calls_note": "the fused API; the consensus command does not call it",
+         "launches_per_call": {p: b15[p]["launches"] for p in POLICIES},
+         "max_abs_err": max(b15["errs"])})
+    degraded = {k: v["card"]["wall_s"] for k, v in policy_runs.items()
+                if isinstance(v, dict) and "card" in v}
+    return {"policies": rows, "card": card, "degraded_runs": degraded}
+
+
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1532,9 +1891,13 @@ def main() -> None:
         phase_object_goldens(dev)
         scale = phase_scale(dev, sim_bam, truth, work, rates["card"])
         phase_walls(dev, sim_bam, work, rates["card"])
-        dense = phase_dense(dev, sim_bam, work, rates)
         phase_tagged(dev, work, rates["card"])
+        dense, dense_batch = phase_dense(dev, os.path.join(work, "obj.bam"), work, rates)
         phase_mm1(dev, work, rates["card"])
+        policies = phase_policy_batches(dev, sim_bam, dense_batch, rates)
+        policy_runs = phase_policy_runs(dev, work, rates["card"])
+        policy_scale = phase_policy_scale(dev, sim_bam, work, scale["qc_plane"],
+                                          rates["card"])
         path = phase_fused_path(dev, book, batches, reference)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1563,6 +1926,8 @@ def main() -> None:
                                               "bound_by", "path")}
                     for tag, row in shapes.items()}},
     ]
+    print(json.dumps(policies_line(policies, policy_scale, policy_runs, scale,
+                                   rates["card"])), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

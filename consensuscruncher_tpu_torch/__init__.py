@@ -11,8 +11,9 @@ on the streaming one (``--pipeline streaming``) — the SSCS vote over the
 packed member-stream wire with its QC rider (a hand-written CUDA kernel,
 ``csrc/consensus_vote.cu``), the vectorized singleton rescue, DCS, the
 all-unique merges, the BAI indexes, and the run's ``qc.json``,
-``manifest.json`` (``--resume``) and ``run.metrics.json``; and the fused
-SSCS+DCS API.  Entry points run on the CUDA card
+``manifest.json`` (``--resume``) and ``run.metrics.json``; the vote
+policies (``--policy majority|delegation|distilled``, ``policies/``); and
+the fused SSCS+DCS API.  Entry points run on the CUDA card
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where each kernel's plain PyTorch version runs instead.
 """

@@ -4,7 +4,8 @@
         [--scorrect True] [--device cuda|cpu] [--residency True|False] \\
         [--resume True] [--intermediate_level 0-9] \\
         [--pipeline staged|streaming] [--intermediate_taps True] \\
-        [--max_mismatch N] [--wire stream|dense] ...
+        [--max_mismatch N] [--wire stream|dense] \\
+        [--policy majority|delegation|distilled] ...
 
 Port of ``consensuscruncher_tpu/cli.py``'s ``_consensus_impl`` (the staged
 pipeline) and ``_consensus_streaming``: SSCS -> singleton rescue -> rescued
@@ -14,7 +15,7 @@ merge -> DCS -> all-unique merges -> BAI indexes, under
 ``--resume`` skips by) and ``run.metrics.json``.  The device votes run on
 the CUDA card unless ``--device cpu`` is given; on the stream wire the SSCS
 planes stay on the device for rescue and DCS unless ``--residency False``
-is given.
+is given.  ``--policy`` picks the SSCS family vote (``policies/``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from consensuscruncher_tpu_torch.io.bai import index_bam
 from consensuscruncher_tpu_torch.io.bam import merge_bams
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops.packing import resident_planes
+from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction, sscs_maker
 from consensuscruncher_tpu_torch.stages.dcs_maker import DcsResult, run_dcs
 from consensuscruncher_tpu_torch.stages.singleton_correction import (
@@ -98,6 +100,9 @@ def consensus(args) -> dict:
     t0 = time.perf_counter()
     io_before = bgzf.write_stats()
     device = resolve_device(args.device)
+    # the vote policy (and the distilled checkpoint) is resolved before any
+    # output exists: an unknown name or a bad checkpoint writes nothing
+    get_policy(args.policy).prepare()
     args.scorrect, args.cleanup = _bool(args.scorrect), _bool(args.cleanup)
     args.resume, args.intermediate_taps = _bool(args.resume), _bool(args.intermediate_taps)
     name = args.name or os.path.basename(args.input).split(".")[0]
@@ -161,11 +166,15 @@ def _consensus_staged(run: _Run, residency) -> dict:
     sscs = checkpointed(
         "sscs", [args.input],
         [sscs_paths[k] for k in ("sscs", "singleton", "stats_txt", "stats_json", "families")],
+        # "policy" joins the params only when it is not the default, so a
+        # pre-policy manifest still satisfies a default --resume
         {"cutoff": args.cutoff, "qualscore": args.qualscore, "bdelim": args.bdelim,
-         "input_range": None},
+         "input_range": None,
+         **({"policy": args.policy} if args.policy != DEFAULT_POLICY else {})},
         run=lambda: run_sscs(args.input, sscs_prefix, device, cutoff=args.cutoff,
                              qual_threshold=args.qualscore, bdelim=args.bdelim, level=ilevel,
-                             residency=residency, qc=qc_acc, wire=args.wire),
+                             residency=residency, qc=qc_acc, wire=args.wire,
+                             policy=args.policy),
         rebuild=lambda: SscsResult.from_prefix(sscs_prefix))
     walls.mark("sscs")
     sscs_parts = [sscs.sscs_bam]
@@ -261,7 +270,8 @@ def _consensus_streaming(run: _Run, residency) -> dict:
         sscs = run_sscs(args.input, os.path.join(dirs["sscs"], name), device,
                         cutoff=args.cutoff, qual_threshold=args.qualscore,
                         bdelim=args.bdelim, level=ilevel, residency=residency,
-                        qc=qc_acc, stream_out=stream, wire=args.wire)
+                        qc=qc_acc, stream_out=stream, wire=args.wire,
+                        policy=args.policy)
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -338,7 +348,7 @@ def _finish(run: _Run, pipeline: str, index_parts, doomed, qc_acc) -> None:
     if qc_acc is not None:
         obs_qc.write_qc(os.path.join(base, "qc.json"),
                         obs_qc.collect_run(base, name, pipeline=pipeline, acc=qc_acc,
-                                           policy="majority"))
+                                           policy=args.policy))
     print(f"consensus: outputs under {base} ({pipeline} pipeline, "
           f"{device_name(run.device)})")
 
@@ -411,6 +421,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SSCS vote layout: 'stream' (packed member stream, the "
                         "default) or 'dense' (padded (B, F, L) family batches). "
                         "Byte-identical outputs; residency needs 'stream'")
+    c.add_argument("--policy", default=DEFAULT_POLICY,
+                   help="consensus vote policy of the SSCS family vote: 'majority' "
+                        "(the reference rational-cutoff vote, the default), "
+                        "'delegation' (members below Phred 20 hand their vote "
+                        "weight to the family's high-quality members) or "
+                        "'distilled' (the small frozen MLP head of "
+                        "policies/checkpoints/distilled_v1.json)")
     c.add_argument("--residency", default="True",
                    help="keep SSCS consensus planes on the device so rescue and "
                         "DCS vote by gather instead of uploading them again "

@@ -6,8 +6,13 @@ member stream (every real read exactly once, packed per
 :func:`encode_member_batch`) plus per-family ``sizes``; the CUDA kernels
 of ``ops.consensus_vote`` decode the wire and vote every family in one
 launch (their plain versions, after ``ops.packing.unpack_wire``, on the
-CPU).  The kernels handle any family size, so the JAX package's 512-member
-gather cap and its segment-scatter fallback have no counterpart here.
+CPU).  The kernels handle any family size, so the JAX package's
+segment-scatter fallback for families over 512 members has no counterpart
+here.  A vote policy other than majority (``policies/``) votes as the JAX
+package's gather path does: the wire decoded by ``unpack_wire``, each
+family gathered into a dense ``(NF, cap, L)`` block and voted by torch
+ops on the wire's device; a batch with a family over ``MAX_DENSE_CAP``
+members is refused, as the reference refuses it.
 
 Two users: the SSCS stage (:func:`consensus_blocks_stream_batched`, the
 SSCS vote), and the fused SSCS+DCS API (:func:`segment_duplex_step`,
@@ -34,11 +39,13 @@ from consensuscruncher_tpu_torch.ops.packing import (
     pack,
     pack4,
     pack6,
+    unpack_wire,
 )
 from consensuscruncher_tpu_torch.parallel.batching import (
     QUAL_FILL_SENTINEL,
     bucket_member_blocks,
 )
+from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.utils.phred import N
 
 
@@ -91,17 +98,66 @@ def encode_member_batch(batch):
 
 def stream_vote(wire: str, a: torch.Tensor, b: torch.Tensor, sizes,
                 config: ConsensusConfig = ConsensusConfig(),
-                out_len: int | None = None, qc_lengths=None):
-    """The port of ``_stream_vote_fn``: decode the wire, vote every family
-    (one kernel launch on the card).  Returns the stacked ``(2, NF,
-    out_len)`` uint8 planes (consensus bases, quals) on the wire's device;
-    ``out_len=None`` keeps every position.  A packed wire's codebook ``b``
-    may stay on the host.  ``qc_lengths`` (each family's true length) adds
-    the QC rider, ``with_qc``: returns ``(planes, qc)``, ``qc`` the ``(2,
-    out_len)`` int32 sums of votes and of votes disagreeing with the modal
-    base over the families, at positions below their lengths."""
-    return consensus_vote.vote_wire(wire, a, b, torch.as_tensor(sizes), config,
-                                    length=out_len, qc_lengths=qc_lengths)
+                out_len: int | None = None, qc_lengths=None, policy=DEFAULT_POLICY):
+    """The port of ``_stream_vote_fn``: decode the wire, vote every family.
+    Returns the stacked ``(2, NF, out_len)`` uint8 planes (consensus bases,
+    quals) on the wire's device; ``out_len=None`` keeps every position.  A
+    packed wire's codebook ``b`` may stay on the host.  ``qc_lengths``
+    (each family's true length) adds the QC rider, ``with_qc``: returns
+    ``(planes, qc)``, ``qc`` the ``(2, out_len)`` int32 sums of votes and of
+    votes disagreeing with the modal base over the families, at positions
+    below their lengths.
+
+    ``policy`` (a name or a ``policies.VotePolicy``): majority, the default,
+    is one launch of the SSCS kernel (``consensus_vote.vote_wire``); any
+    other policy votes by :func:`policy_stream_vote`."""
+    policy = get_policy(policy)
+    if policy.name == DEFAULT_POLICY:
+        return consensus_vote.vote_wire(wire, a, b, torch.as_tensor(sizes), config,
+                                        length=out_len, qc_lengths=qc_lengths)
+    return policy_stream_vote(policy, wire, a, b, sizes, config, out_len, qc_lengths)
+
+
+def policy_stream_vote(policy, wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
+                       out_len=None, qc_lengths=None):
+    """A non-majority policy's stream vote, the port of the JAX package's
+    ``_gather_dense_vote`` under ``_stream_vote_fn``: decode the wire
+    (``unpack_wire``), gather family ``f``'s rows into slots ``0 ..
+    sizes[f] - 1`` of an ``(NF, cap, out_len)`` block (``cap`` =
+    :func:`pick_member_cap`; dead slots gather row 0 and are no members)
+    and vote it with ``policy.family_vote_fn``, all on the wire's device.
+    Returns as :func:`stream_vote`; the QC rider sums the policy-independent
+    per-family votes and disagreements at positions below each family's
+    length.  A batch whose largest family exceeds :data:`MAX_DENSE_CAP`
+    raises the reference's ``ValueError``."""
+    sizes, _starts, length, qc_lengths = consensus_vote._wire_checks(
+        wire, a, b, sizes, config, out_len, None, qc_lengths)
+    cap = pick_member_cap(sizes.numpy())
+    if cap is None:
+        raise ValueError(
+            f"vote policy {policy.name!r} requires the gather path (a family "
+            f"exceeded MAX_DENSE_CAP={MAX_DENSE_CAP} members); only the "
+            "majority default supports the segment-scatter fallback")
+    dev = a.device
+    bases, quals = unpack_wire(wire, a, torch.as_tensor(b).to(dev))
+    if bases.shape[0] == 0:  # no members: one dead row for the empty slots' gather
+        bases = quals = torch.zeros((1, bases.shape[1]), dtype=torch.uint8, device=dev)
+    sizes = sizes.to(dev)
+    slot = torch.arange(cap, device=dev)
+    rows = torch.where(slot < sizes[:, None],
+                       consensus_vote._exclusive_cumsum(sizes)[:, None] + slot, 0)
+    num, den = config.cutoff_rational
+    vote = policy.family_vote_fn(num=num, den=den, qual_threshold=int(config.qual_threshold),
+                                 qual_cap=int(config.qual_cap),
+                                 with_qc=qc_lengths is not None)
+    out = vote(bases[:, :length][rows], quals[:, :length][rows], sizes)
+    planes = torch.stack(out[:2])
+    if qc_lengths is None:
+        return planes
+    live = torch.arange(length, device=dev) < qc_lengths.to(dev)[:, None]
+    qc = torch.stack([torch.where(live, out[2], 0).sum(0, dtype=torch.int32),
+                      torch.where(live, out[3], 0).sum(0, dtype=torch.int32)])
+    return planes, qc
 
 
 def _out_len(batch) -> int | None:
@@ -111,7 +167,7 @@ def _out_len(batch) -> int | None:
 
 
 def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.device,
-                             on_device_batch=None):
+                             on_device_batch=None, policy=DEFAULT_POLICY):
     """MemberBatch iterable -> one ``(keys, lengths, out_bases, out_quals)``
     host tuple per batch (the ``(n_real, out_len)`` result planes; callers
     slice rows by ``lengths``).  Serial: encode, upload, vote, download.
@@ -128,7 +184,9 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
     added on ``device`` into one int64 ``(2, longest out_len)`` total (no
     wait per batch, and no batch's buffers kept alive); the total goes to
     the sink as one handle when the batches end, and the sink copies it to
-    the host when it is finalized."""
+    the host when it is finalized.
+
+    ``policy``: the vote policy of every batch (see :func:`stream_vote`)."""
     from consensuscruncher_tpu_torch.obs import qc as obs_qc
 
     qc_sink = obs_qc.plane_sink()
@@ -143,7 +201,7 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
             planes = stream_vote(wire, torch.from_numpy(a).to(device),
                                  b.to(device) if wire == "raw" else b,
                                  torch.from_numpy(batch.sizes[:n]), config,
-                                 _out_len(batch), lengths)
+                                 _out_len(batch), lengths, policy)
             if qc_sink is not None:
                 planes, qc = planes
                 qc_total = _add_qc(qc_total, qc)
@@ -166,14 +224,15 @@ def _add_qc(total: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
 
 
 def consensus_blocks_stream_batched(items, config: ConsensusConfig,
-                                    device: torch.device, on_device_batch=None):
+                                    device: torch.device, on_device_batch=None,
+                                    policy=DEFAULT_POLICY):
     """FamilyBlock items ``(block, fam_idx, keys)`` (see
     ``parallel.batching.bucket_member_blocks``) -> per-batch
-    ``(keys, lengths, out_bases, out_quals)`` tuples, voted on ``device``;
-    ``on_device_batch`` is the residency capture hook (see
-    :func:`_run_member_batch_stream`)."""
+    ``(keys, lengths, out_bases, out_quals)`` tuples, voted on ``device``
+    under ``policy``; ``on_device_batch`` is the residency capture hook
+    (see :func:`_run_member_batch_stream`)."""
     yield from _run_member_batch_stream(bucket_member_blocks(items), config, device,
-                                        on_device_batch)
+                                        on_device_batch, policy)
 
 
 # ------------------------------------------------- fused SSCS + DCS (B9)
@@ -195,9 +254,9 @@ def build_member_stream(size_arrays: list[np.ndarray]):
     return fam_ids, ranks, sizes
 
 
-# The JAX package's largest gather-to-dense member capacity.  Kept for API
-# parity: the port's kernel takes any family size, so a capacity only
-# validates (a family larger than it raises) and never picks a program.
+# The JAX package's largest gather-to-dense member capacity: the gather
+# block of a non-majority policy's stream vote (the majority kernels take
+# any family size, and there a capacity only validates).
 MAX_DENSE_CAP = 512
 
 

@@ -359,7 +359,8 @@ def _duplex_checks(strand_a, strand_b, config, length):
 
 
 def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
-                    config: ConsensusConfig = ConsensusConfig(), qc: bool = False):
+                    config: ConsensusConfig = ConsensusConfig(), qc: bool = False,
+                    policy="majority"):
     """Dense form, the port of ``consensus_batch_pallas``: ``(B, F, L)``
     uint8 planes + ``(B,)`` sizes -> ``(out_b, out_q)`` ``(B, L)`` uint8.
     Member slots ``>= size`` are never read.  Same kernel, with family ``i``
@@ -372,12 +373,28 @@ def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
     vote`` summed over the batch: no length mask, so a live member's
     padding past its family's length votes N where its qual 0 fails the
     threshold, and joins no lane where it passes).  It is the stream
-    rider's kernel form with every family's length set to ``L``."""
+    rider's kernel form with every family's length set to ``L``.
+
+    ``policy`` (a name or a ``policies.VotePolicy``): the kernel runs the
+    majority default; any other policy votes the batch with its
+    ``family_vote_fn`` (torch ops on the planes' device), the JAX package's
+    ``_compiled_batch_fn``, with the same rider."""
     b, f, length = bases.shape
     sizes = torch.as_tensor(fam_sizes).to(device="cpu", dtype=torch.int64)
-    starts = torch.arange(b, dtype=torch.int64) * f
     if sizes.numel() and int(sizes.max()) > f:
         raise ValueError(f"family size exceeds the member capacity {f}")
+    policy = _policy(policy)
+    if policy is not None:
+        num, den = config.cutoff_rational
+        out = policy.family_vote_fn(num=num, den=den,
+                                    qual_threshold=int(config.qual_threshold),
+                                    qual_cap=int(config.qual_cap), with_qc=qc)(
+            bases, quals, sizes.to(bases.device))
+        if not qc:
+            return out
+        return out[0], out[1], torch.stack([out[2].sum(0, dtype=torch.int32),
+                                            out[3].sum(0, dtype=torch.int32)])
+    starts = torch.arange(b, dtype=torch.int64) * f
     flat_b, flat_q = bases.reshape(b * f, length), quals.reshape(b * f, length)
     if not qc:
         out = vote_members(flat_b, flat_q, sizes, config, starts=starts)
@@ -387,14 +404,28 @@ def consensus_batch(bases: torch.Tensor, quals: torch.Tensor, fam_sizes,
     return out[0], out[1], sums
 
 
+def _policy(policy):
+    """The resolved ``policies.VotePolicy``, or None for the majority
+    default (which the kernels run)."""
+    from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
+
+    policy = get_policy(policy)
+    return None if policy.name == DEFAULT_POLICY else policy
+
+
 def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
                  bases_b: torch.Tensor, quals_b: torch.Tensor, sizes_b,
-                 config: ConsensusConfig = ConsensusConfig()):
+                 config: ConsensusConfig = ConsensusConfig(), policy="majority"):
     """Dense form, the port of ``duplex_batch_pallas``: two ``(B, F, L)``
     uint8 strand batches (pairs aligned on the batch axis) + ``(B,)`` sizes
     each -> the six ``(B, L)`` uint8 planes ``(sscs_a_b, sscs_a_q,
     sscs_b_b, sscs_b_q, dcs_b, dcs_q)``.  Member slots ``>= size`` are
-    never read; no family-major transpose and no batch padding."""
+    never read; no family-major transpose and no batch padding.
+
+    ``policy``: the fused kernel runs the majority default.  Under any
+    other policy, as in the reference, each strand is voted by
+    :func:`consensus_batch` under that policy and the pair combined by
+    ``ops.duplex.duplex_vote`` with the both-strands-present mask."""
     if not bases_a.shape == quals_a.shape == bases_b.shape == quals_b.shape:
         raise ValueError(f"strand batches must share a shape, got "
                          f"{tuple(bases_a.shape)} vs {tuple(bases_b.shape)}")
@@ -404,6 +435,13 @@ def duplex_batch(bases_a: torch.Tensor, quals_a: torch.Tensor, sizes_a,
              for s in (sizes_a, sizes_b)]
     if any(s.numel() and int(s.max()) > f for s in sizes):
         raise ValueError(f"family size exceeds the member capacity {f}")
+    if _policy(policy) is not None:
+        sa_b, sa_q = consensus_batch(bases_a, quals_a, sizes[0], config, policy=policy)
+        sb_b, sb_q = consensus_batch(bases_b, quals_b, sizes[1], config, policy=policy)
+        both = ((sizes[0] > 0) & (sizes[1] > 0)).to(sa_b.device)[:, None]
+        dcs_b, dcs_q = duplex_vote(sa_b, sa_q, sb_b, sb_q, qual_cap=int(config.qual_cap),
+                                   agree_mask=both)
+        return sa_b, sa_q, sb_b, sb_q, dcs_b, dcs_q
     starts = torch.arange(b, dtype=torch.int64) * f
     out = duplex_members(bases_a.reshape(b * f, length), quals_a.reshape(b * f, length),
                          sizes[0], bases_b.reshape(b * f, length),

@@ -51,6 +51,7 @@ from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
+from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.stages.grouping import (
     stream_families_columnar,
     stream_family_blocks,
@@ -152,6 +153,7 @@ def run_sscs(
     qc=None,
     stream_out=None,
     wire: str = "stream",
+    policy: str = DEFAULT_POLICY,
 ) -> SscsResult:
     """Run the SSCS stage with the family votes on ``device``.
 
@@ -174,9 +176,21 @@ def run_sscs(
     BAM still materializes (final output, via the write-behind pool) but
     the singleton BAM becomes a debug tap, written only when the stream
     asked for taps.  ``in_bam`` may then also be an in-memory batch
-    source instead of a path."""
+    source instead of a path.
+
+    ``policy``: the registered vote policy of the family votes
+    (``policies/``), resolved (and its checkpoint loaded) before any
+    output exists; majority, the default, runs the SSCS kernel, any other
+    policy votes by torch ops on ``device`` on either wire.  A
+    non-default policy is recorded under the ``policy`` stats key, so
+    default sidecars keep their golden bytes.  Unlike the JAX package,
+    whose numpy ``cpu`` backend refuses a non-majority policy, every
+    policy runs on either device: the port's CPU runs the same torch
+    program as the card."""
     if wire not in ("stream", "dense"):
         raise ValueError(f"unknown wire {wire!r} (expected 'stream' or 'dense')")
+    vote_policy = get_policy(policy)
+    vote_policy.prepare()
     tracker = TimeTracker()
     stats = StageStats("SSCS")
     hist = FamilySizeHistogram()
@@ -325,13 +339,13 @@ def run_sscs(
     try:
         if wire == "stream":
             for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
-                    block_items(), cfg, device, on_device_batch):
+                    block_items(), cfg, device, on_device_batch, vote_policy):
                 emit_batch(keys, lengths, out_b, out_q)
         else:
             # the producer thread runs events(), which writes the bad and
             # singleton records: the generator's close joins it before the
             # writers close below
-            stream = consensus_families(events(), cfg, device)
+            stream = consensus_families(events(), cfg, device, policy=vote_policy)
             try:
                 for fid, codes, quals in stream:
                     tag, members = pending.pop(fid)
@@ -367,6 +381,8 @@ def run_sscs(
 
     stats.set("backend", device.type)
     stats.set("cutoff", cutoff)
+    if vote_policy.name != DEFAULT_POLICY:
+        stats.set("policy", vote_policy.name)
     stats.write(paths["stats_txt"])
     hist.write(paths["families"])
     tracker.write(paths["time_tracker"])

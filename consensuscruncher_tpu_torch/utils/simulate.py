@@ -1,22 +1,25 @@
 """Synthetic duplex-sequencing dataset generator (benchmark-scale data).
 
-Port of ``consensuscruncher_tpu/utils/simulate.py`` (``SimConfig`` and
-``simulate_bam_fast`` only).  It fabricates duplex fragments the same way
-the wet lab does: a true molecule sequence, two strands, R1/R2 per strand,
-per-read sequencing errors, barcodes recorded in swapped order on opposite
-strands (see core/tags.py's physical model).  Numpy only, seeded by
-``SimConfig.seed``: the same seed writes the same BAM as the JAX package's
-generator.
+Port of ``consensuscruncher_tpu/utils/simulate.py``: ``SimConfig``, the
+per-read generator ``simulate_bam`` (with the degraded-read regime the
+vote policies are judged on) and the vectorized ``simulate_bam_fast``
+(benchmark scale; no degraded regime, as in the reference).  It
+fabricates duplex fragments the same way the wet lab does: a true
+molecule sequence, two strands, R1/R2 per strand, per-read sequencing
+errors, barcodes recorded in swapped order on opposite strands (see
+core/tags.py's physical model).  Numpy only, seeded by ``SimConfig.seed``:
+the same config writes the same BAM as the JAX package's generator.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from consensuscruncher_tpu_torch.core.tags import BARCODE_SEP, DEFAULT_BDELIM
-from consensuscruncher_tpu_torch.io.bam import BamHeader, BamWriter
+from consensuscruncher_tpu_torch.io.bam import BamHeader, BamRead, BamWriter, sort_bam
 
 BASES = "ACGT"
 
@@ -36,8 +39,103 @@ class SimConfig:
     # Hamming-1 from the true family's, the exact population
     # --max_mismatch rescue exists to reclaim.
     barcode_error_rate: float = 0.0
+    # Low-quality regime (``simulate_bam`` only): each read independently
+    # degrades with this probability — its Phred scores drop into
+    # ``degraded_qual`` (below the delegation policy's Phred-20 floor; the
+    # healthy band at 25-40 stays above it) and its bases pick up extra
+    # substitutions at ``degraded_error_rate`` on top of ``error_rate``.
+    # No draw is made at rate 0, so the rng stream is unchanged by default.
+    degraded_read_rate: float = 0.0
+    degraded_error_rate: float = 0.08
+    degraded_qual: tuple = (3, 16)
     seed: int = 0
     bdelim: str = DEFAULT_BDELIM
+
+
+@dataclass
+class SimTruth:
+    """Ground truth of ``simulate_bam``: fragment -> molecule sequence and
+    family sizes."""
+
+    molecules: dict = field(default_factory=dict)  # frag id -> (start, seq)
+    family_sizes: dict = field(default_factory=dict)  # frag id -> (a_size, b_size)
+
+
+def _rand_seq(rng, n):
+    return "".join(BASES[i] for i in rng.integers(0, 4, n))
+
+
+def _mutate(rng, seq: str, rate: float) -> str:
+    if rate <= 0:
+        return seq
+    arr = list(seq)
+    for i in np.nonzero(rng.random(len(arr)) < rate)[0]:
+        arr[i] = BASES[int(rng.integers(0, 4))]
+    return "".join(arr)
+
+
+def simulate_bam(path: str, cfg: SimConfig) -> SimTruth:
+    """Write a coordinate-sorted, barcode-extracted BAM of duplex families,
+    one read at a time (test-fixture scale), and return its truth."""
+    rng = np.random.default_rng(cfg.seed)
+    header = BamHeader.from_refs([(cfg.ref_name, cfg.ref_len)])
+    truth = SimTruth()
+    tmp = path + ".unsorted"
+    serial = 0
+    with BamWriter(tmp, header) as w:
+        for frag in range(cfg.n_fragments):
+            lo = int(rng.integers(1000, cfg.ref_len - 3 * cfg.read_len))
+            hi = lo + 2 * cfg.read_len + int(rng.integers(0, cfg.read_len))
+            mol = _rand_seq(rng, hi + cfg.read_len - lo)
+            umi_a = _rand_seq(rng, cfg.umi_len)
+            umi_b = _rand_seq(rng, cfg.umi_len)
+            a_size = max(1, int(rng.poisson(cfg.mean_family_size)))
+            b_size = (max(1, int(rng.poisson(cfg.mean_family_size)))
+                      if rng.random() < cfg.duplex_fraction else 0)
+            truth.molecules[frag] = (lo, mol)
+            truth.family_sizes[frag] = (a_size, b_size)
+            r1_seq = mol[: cfg.read_len]
+            r2_seq = mol[hi - lo: hi - lo + cfg.read_len]
+            for strand, size in (("A", a_size), ("B", b_size)):
+                bc = (f"{umi_a}{BARCODE_SEP}{umi_b}" if strand == "A"
+                      else f"{umi_b}{BARCODE_SEP}{umi_a}")
+                for _ in range(size):
+                    serial += 1
+                    bc_read = bc
+                    # no draw at rate 0: the rng stream of older datasets
+                    if cfg.barcode_error_rate > 0 and rng.random() < cfg.barcode_error_rate:
+                        chars = list(bc_read)
+                        pool = [i for i, c in enumerate(chars) if c != BARCODE_SEP]
+                        i = pool[int(rng.integers(0, len(pool)))]
+                        chars[i] = BASES[(BASES.index(chars[i]) + 1
+                                          + int(rng.integers(0, 3))) % 4]
+                        bc_read = "".join(chars)
+                    qname = f"sim:{frag}:{strand}:{serial}{cfg.bdelim}{bc_read}"
+                    s1 = _mutate(rng, r1_seq, cfg.error_rate)
+                    s2 = _mutate(rng, r2_seq, cfg.error_rate)
+                    q1 = rng.integers(25, 41, cfg.read_len).astype(np.uint8)
+                    q2 = rng.integers(25, 41, cfg.read_len).astype(np.uint8)
+                    if cfg.degraded_read_rate > 0 and rng.random() < cfg.degraded_read_rate:
+                        qlo, qhi = cfg.degraded_qual
+                        s1 = _mutate(rng, s1, cfg.degraded_error_rate)
+                        s2 = _mutate(rng, s2, cfg.degraded_error_rate)
+                        q1 = rng.integers(qlo, qhi, cfg.read_len).astype(np.uint8)
+                        q2 = rng.integers(qlo, qhi, cfg.read_len).astype(np.uint8)
+                    # strand A: R1 fwd@lo / R2 rev@hi ; strand B mirrored
+                    r1_read1 = strand == "A"
+                    w.write(BamRead(
+                        qname=qname, flag=(0x1 | 0x2 | 0x20 | (0x40 if r1_read1 else 0x80)),
+                        ref=cfg.ref_name, pos=lo, mapq=60, cigar=[("M", cfg.read_len)],
+                        mate_ref=cfg.ref_name, mate_pos=hi, tlen=hi - lo + cfg.read_len,
+                        seq=s1, qual=q1))
+                    w.write(BamRead(
+                        qname=qname, flag=(0x1 | 0x2 | 0x10 | (0x80 if r1_read1 else 0x40)),
+                        ref=cfg.ref_name, pos=hi, mapq=60, cigar=[("M", cfg.read_len)],
+                        mate_ref=cfg.ref_name, mate_pos=lo, tlen=-(hi - lo + cfg.read_len),
+                        seq=s2, qual=q2))
+    sort_bam(tmp, path)
+    os.unlink(tmp)
+    return truth
 
 
 def _mix64(x: np.ndarray) -> np.ndarray:

@@ -415,3 +415,75 @@ def test_dcs_walk_duplex_vote_matches_plain(card):
     for i in (0, 1, 4999):
         ob, oq = duplex_consensus(s1[i], q1[i], s2[i], q2[i])
         assert np.array_equal(got[0][i], ob) and np.array_equal(got[1][i], oq)
+
+
+# ---------------------------------------------------- the vote policies
+
+
+def _degraded_stream(rng, wire, sizes, length):
+    """A member stream on ``wire`` whose families mostly agree, half the
+    members below Phred 20 (so delegation and the distilled head decide
+    differently from majority)."""
+    m = int(sizes.sum()) + 9
+    top = 4 if wire in ("pack4", "pack6") else 6
+    bases = rng.integers(0, top, (m, length), dtype=np.uint8)
+    start = 0
+    for size in sizes:
+        keep = rng.random((size, length)) < 0.75
+        bases[start:start + size] = np.where(keep, bases[start], bases[start:start + size])
+        start += size
+    levels = {"raw": np.arange(3, 42, dtype=np.uint8),
+              "pack8": np.array([3, 8, 12, 15, 20, 25, 30, 35, 40], np.uint8),
+              "pack6": np.array([4, 9, 14, 22, 26, 30, 34, 38], np.uint8),
+              "pack4": np.array([7, 12, 30, 37], np.uint8)}[wire]
+    quals = rng.choice(levels, (m, length)).astype(np.uint8)
+    a, b = encode_wire(wire, bases, quals)
+    return torch.from_numpy(np.ascontiguousarray(a)), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("policy", ["delegation", "distilled"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_policy_stream_vote_on_card_matches_cpu(card, wire, policy):
+    rng = np.random.default_rng(50 + WIRES.index(wire))
+    length = 104
+    # a batch at the main path's cap (16 slots), and one with a family of
+    # 512 members, the largest the gather takes
+    for sizes in (rng.integers(0, 12, 20000), np.array([3, 0, 512, 1, 9])):
+        sizes = sizes.astype(np.int64)
+        a, b = _degraded_stream(rng, wire, sizes, length)
+        lengths = torch.from_numpy(rng.integers(60, length + 1, sizes.shape[0]))
+        for cfg in (consensus_vote.ConsensusConfig(),
+                    consensus_vote.ConsensusConfig(cutoff=0.5, qual_threshold=20)):
+            before = consensus_vote.launches
+            got = consensus_segment.stream_vote(wire, a.to(card),
+                                                _book_or_quals(wire, b, card), sizes, cfg, 96,
+                                                lengths, policy=policy)
+            assert consensus_vote.launches == before  # the policies never launch B1
+            assert got[0].device == a.to(card).device
+            want = consensus_segment.stream_vote(wire, a, b, sizes, cfg, 96, lengths,
+                                                 policy=policy)
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    with pytest.raises(ValueError, match="MAX_DENSE_CAP"):
+        sizes[2] = 513
+        consensus_segment.stream_vote(wire, a.to(card), _book_or_quals(wire, b, card), sizes,
+                                      policy=policy)
+
+
+@pytest.mark.parametrize("policy", ["delegation", "distilled"])
+def test_policy_dense_and_duplex_on_card_match_cpu(card, policy):
+    rng = np.random.default_rng(60)
+    ba, qa, sa = _strand(rng, 4096, 16, 100, empty_every=7)
+    bb, qb, sb = _strand(rng, 4096, 16, 100, empty_every=5)
+    qa[:, ::2] = np.minimum(qa[:, ::2], 15)       # degraded members
+    host = [torch.from_numpy(x) for x in (ba, qa, bb, qb)]
+    dev = [x.to(card) for x in host]
+    for qc in (False, True):
+        got = consensus_vote.consensus_batch(dev[0], dev[1], sa, qc=qc, policy=policy)
+        want = consensus_vote.consensus_batch(host[0], host[1], sa, qc=qc, policy=policy)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    before = consensus_vote.fused_launches
+    got = consensus_vote.duplex_batch(dev[0], dev[1], sa, dev[2], dev[3], sb, policy=policy)
+    assert consensus_vote.fused_launches == before  # B15 composes, B2 stays majority's
+    want = consensus_vote.duplex_batch(host[0], host[1], sa, host[2], host[3], sb,
+                                       policy=policy)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

@@ -2,14 +2,18 @@
 
 - importing the port and running its CLI imports neither ``jax`` nor any
   module of the JAX package (checked in a fresh interpreter), a staged run,
-  a streaming run with QC and a run of the object paths (``--max_mismatch
-  1 --wire dense``) alike;
+  a streaming run with QC, a run of the object paths (``--max_mismatch
+  1 --wire dense``) and a ``--policy distilled`` run alike;
 - resolving the default device without CUDA raises instead of carrying on
   on the CPU, and so do the duplex op and the pipelined fused runner when
   no device is named;
 - the vote wrappers (SSCS, with and without the QC rider, and fused
   duplex) never hand a CUDA tensor to the plain version: they launch the
-  kernel or raise.
+  kernel or raise;
+- a default run (no ``--policy``) never enters the policy path, and a
+  policy vote stays on its planes' device: run on ``meta`` tensors (which
+  hold no data, so any copy to the host raises), every output is on that
+  device and no op reads member planes on the CPU.
 """
 
 import json
@@ -22,7 +26,9 @@ import pytest
 import torch
 
 from consensuscruncher_tpu_torch import device as device_mod
-from consensuscruncher_tpu_torch.ops import consensus_vote, duplex
+from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote, duplex
+from consensuscruncher_tpu_torch.ops.packing import WIRES, encode_wire
+from consensuscruncher_tpu_torch.policies import base as policy_base
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,6 +84,100 @@ def test_object_paths_import_no_jax(tmp_path):
         assert json.load(fh)["max_mismatch"] == 1
 
 
+def test_distilled_policy_run_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, os.path.join(REPO, "test", "data", "sample.bam"),
+         str(tmp_path), "--policy", "distilled", "--wire", "dense"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    with open(tmp_path / "sample" / "sscs" / "sample.sscs_stats.json") as fh:
+        assert json.load(fh)["policy"] == "distilled"
+
+
+@pytest.mark.parametrize("extra", [[], ["--wire", "dense"], ["--pipeline", "streaming"]])
+def test_default_run_never_enters_the_policy_path(tmp_path, monkeypatch, extra):
+    """A run with no ``--policy`` votes through B1 only: the policy stream
+    vote and every policy's ``family_vote_fn`` are never called, and no
+    sidecar or manifest names a policy."""
+    from consensuscruncher_tpu_torch.cli import main
+
+    calls = {"b1": 0}
+
+    def refuse(*a, **k):
+        raise AssertionError("a default run entered the policy path")
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            calls["b1"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(consensus_segment, "policy_stream_vote", refuse)
+    monkeypatch.setattr(policy_base.VotePolicy, "family_vote_fn", refuse)
+    monkeypatch.setattr(consensus_vote, "vote_wire", counting(consensus_vote.vote_wire))
+    monkeypatch.setattr(consensus_vote, "vote_members", counting(consensus_vote.vote_members))
+    main(["consensus", "-i", os.path.join(REPO, "test", "data", "sample.bam"),
+          "-o", str(tmp_path), "--device", "cpu", *extra])
+    assert calls["b1"] > 0
+    base = tmp_path / "sample"
+    with open(base / "sscs" / "sample.sscs_stats.json") as fh:
+        assert "policy" not in json.load(fh)
+    with open(base / "manifest.json") as fh:
+        for entry in json.load(fh)["stages"].values():
+            assert "policy" not in entry["params"]
+    with open(base / "qc.json") as fh:
+        assert json.load(fh)["policy"] == "majority"
+
+
+class _HostReads(torch.overrides.TorchFunctionMode):
+    """Records every torch op that takes a uint8 CPU tensor of two or more
+    dimensions: member planes (the host's own checks read 1-D sizes, a
+    codebook is 1-D, and the distilled head's float weights go to the
+    device once)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in list(args) + list(kwargs.values()):
+            if (isinstance(t, torch.Tensor) and t.device.type == "cpu" and t.dim() >= 2
+                    and t.dtype == torch.uint8):
+                self.seen.append(getattr(func, "__name__", str(func)))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("policy", ["delegation", "distilled"])
+def test_policy_vote_stays_on_its_device(policy):
+    rng = np.random.default_rng(0)
+    sizes = np.array([2, 3, 0, 4], np.int32)
+    bases = rng.integers(0, 4, (9, 32)).astype(np.uint8)
+    quals = rng.choice(np.array([10, 20, 30, 40], np.uint8), (9, 32))
+    dev = torch.device("meta")
+    outs = []
+    mode = _HostReads()
+    for wire in WIRES:
+        a, b = (torch.from_numpy(x) for x in encode_wire(wire, bases, quals))
+        a = a.to(dev)
+        b = b.to(dev) if wire == "raw" else b  # a codebook may stay on the host
+        with mode:
+            outs += consensus_segment.stream_vote(wire, a, b, sizes, out_len=24,
+                                                  qc_lengths=torch.tensor([20, 24, 3, 10]),
+                                                  policy=policy)
+            outs.append(consensus_segment.stream_vote(wire, a, b, sizes, policy=policy))
+    planes = torch.zeros((4, 5, 32), dtype=torch.uint8, device=dev)
+    with mode:
+        outs += consensus_vote.consensus_batch(planes, planes, sizes, qc=True, policy=policy)
+        outs += consensus_vote.duplex_batch(planes, planes, sizes, planes, planes, sizes,
+                                            policy=policy)
+    assert len(outs) == 4 * 3 + 3 + 6
+    assert all(o.device == dev for o in outs)
+    assert mode.seen == []
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -96,13 +196,14 @@ def test_duplex_op_defaults_to_cuda(monkeypatch):
     assert (out_b == 0).all() and (out_q == 0).all()
 
 
-def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
+@pytest.mark.parametrize("policy", [[], ["--policy", "distilled"]])
+def test_cli_defaults_to_cuda(monkeypatch, tmp_path, policy):
     from consensuscruncher_tpu_torch.cli import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["consensus", "-i", os.path.join(REPO, "test", "data", "sample.bam"),
-              "-o", str(tmp_path)])
+              "-o", str(tmp_path), *policy])
     assert not (tmp_path / "sample").exists()
 
 
