@@ -63,9 +63,10 @@ failure; no phase's failure is caught.  Phases:
    QC rider), the resident duplex votes (pairs and rescues, each > 0) and
    a ``qc.json`` with its vote plane; then ``--resume True`` on the same
    output (every stage skipped, no launch, every BAM's sha256 kept); then
-   three more runs of it with their step walls: staged with
-   ``--residency`` off, streaming, staged (taps off: the finals
-   byte-identical to the main run's, no intermediate written);
+   the command again, uninstrumented, staged (every BAM byte-identical to
+   the main run's: the N = 1 wall of phase 9) and streaming (taps off: the
+   finals byte-identical to the main run's, no intermediate written), the
+   step walls of each beside the main run's;
 6. the object paths at full width (read length 100, UMI 6, mean family
    3): (a) phase 5's settings at ``OBJECT_FRAGMENTS`` fragments, untagged
    and with ``NM:i:0`` on every read: the tagged run's rescue and DCS
@@ -75,8 +76,8 @@ failure; no phase's failure is caught.  Phases:
    every SSCS launch B1's dense form with the dense rider, which is then
    held to its plain version at the run's largest bucket (qualscore 0 and
    30) and timed with its bound; (c) ``--max_mismatch 1`` on the same
-   settings with barcode errors (another seed): the Hamming matcher's
-   calls and seconds, and the rescue stage on the CPU writes the same
+   settings at ``MM1_FRAGMENTS`` with barcode errors (another seed): the
+   Hamming matcher's calls and seconds, and the rescue stage on the CPU writes the same
    records;
 7. the vote policies (``--policy delegation|distilled``, torch ops on the
    card): each policy's stream vote at the main path's batch, with and
@@ -90,11 +91,29 @@ failure; no phase's failure is caught.  Phases:
    the majority run's, delegation's SSCS BAM other than majority's on the
    degraded sample, and on ``sample.bam`` ``--wire dense``, streaming and
    ``--residency False`` writing the same records; then phase 5's sample
-   under each policy, staged (walls; delegation's SSCS BAM majority's,
-   byte for byte);
+   under each policy of ``SCALE_POLICIES``, staged (walls; delegation's
+   SSCS BAM majority's, byte for byte);
 8. the fused path: ``run_duplex_pipelined`` over the stage-loop batches,
    its kernel launches counted (> 0) and its outputs equal to the
-   prestaged loop's.
+   prestaged loop's;
+9. the whole command: (i) ``--host_workers 2`` and ``4`` on phase 5's
+   sample, each parent a process of its own that opens no CUDA context,
+   its workers sharing the card: every merged BAM record by record and
+   the stats to phase 5's counted run, each worker's SSCS sidecar on the
+   card with bytes uploaded, the walls beside phase 5's uninstrumented
+   staged turn (N = 1) and the host's cores; (ii) a two-sample batch of phase 6 (a)'s untagged sample
+   and phase 7's degraded sample (majority): each tree, records, stats
+   and ``qc.json``, equal to that sample's own run, the second sample
+   prestaged, the batch's wall beside the sum of the two; (iii) ``-c
+   config.ini`` (``backend = tpu``: the card) on ``sample.bam``: the
+   goldens; then ``-c config.ini --profile DIR`` on phase 6 (a)'s
+   untagged sample, in a process of its own: its records equal to that
+   sample's run, and the Chrome trace names ``vote_tiles_kernel``, with
+   the device's busy share of the traced window (a whole run at real
+   size); (iv) in every tree, the three PNGs decode and the stage
+   sidecars carry their ``cumulative`` block.
+
+Every JSON line carries ``t_s``, the seconds since the script started.
 
 The line before the ``kernels`` line is the ``policies`` JSON; the line
 before the last is the ``kernels`` JSON; the last line is
@@ -105,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -122,6 +142,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from consensuscruncher_tpu_torch import cli as port_cli  # noqa: E402
 from consensuscruncher_tpu_torch.cli import main as cli_main  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import open_batch_source  # noqa: E402
 from consensuscruncher_tpu_torch.ops import (  # noqa: E402
@@ -146,9 +167,11 @@ from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
 from consensuscruncher_tpu_torch.utils.ragged import scatter_runs  # noqa: E402
+from consensuscruncher_tpu_torch.stages.generate_plots import decode_png  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
+from consensuscruncher_tpu_torch.utils.profiling import trace_summary  # noqa: E402
 from consensuscruncher_tpu_torch.utils.simulate import (  # noqa: E402
     SimConfig,
     simulate_bam,
@@ -188,8 +211,11 @@ DENSE_SHAPES = {"B8192_F16_L100": (8192, 16, 100), "B65536_F8_L100": (65536, 8, 
 STAGE_PAIRS, STAGE_L, STAGE_BATCHES = 8192, 128, 8
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1157,22 +1183,28 @@ def phase_scale(dev, sim_bam: str, truth, work: str, card: str) -> dict:
 
 MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merge_all_sscs",
                    "merge_all_dcs")
-# (pipeline, residency) per turn: residency off, streaming, staged (the main
-# run is a staged-on run too)
-WALL_TURNS = (("staged", "False"), ("streaming", "True"), ("staged", "True"))
+# (pipeline, residency) per turn, uninstrumented: staged (phase 9's N = 1
+# wall) and streaming (the residency-off turn was cut to make room for
+# phase 9; PERF.md section 4 lists the cuts).
+WALL_TURNS = (("staged", "True"), ("streaming", "True"))
 # the object-path samples (tagged input, --max_mismatch 1): phase 5's
 # settings at a quarter of its fragments (the walks decode every record in
 # Python, and each stage runs again on the CPU for its reference)
 OBJECT_FRAGMENTS = 50_000
+# the --max_mismatch 1 cell's sample, cut from OBJECT_FRAGMENTS to make
+# room for phase 9 (its rescue walk is host-bound, ~0.45 ms a fragment)
+MM1_FRAGMENTS = 20_000
 BARCODE_ERROR_RATE = 0.15  # test/make_test_data.py's sample_bcerr.bam rate
 # the stage-to-stage BAMs streaming writes only as taps
 INTERMEDIATES = ("sscs/sim.singleton.sorted.bam", "singleton/sim.sscs.rescue.sorted.bam",
                  "singleton/sim.singleton.rescue.sorted.bam", "dcs/sim.sscs.rescued.bam")
 
 
-def phase_walls(dev, sim_bam: str, work: str, card: str) -> dict:
+def phase_walls(dev, sim_bam: str, work: str, card: str, main_wall: float) -> dict:
     """The phase-5 command again, uninstrumented, in turns (``WALL_TURNS``):
-    step walls and ``run.metrics.json`` per run.  A staged run's BAMs must
+    step walls and ``run.metrics.json`` per run, beside ``main_wall``, phase
+    5's counted (staged) run's, whose device calls were synchronised for
+    their timers.  A staged run's BAMs must
     be the main run's; a streaming run (taps off) must write the main
     run's finals byte for byte and no intermediate.  Each turn's launch
     counts are set to 0 just before it and read just after: every turn
@@ -1209,14 +1241,11 @@ def phase_walls(dev, sim_bam: str, work: str, card: str) -> dict:
         return [r["wall_s"] for r in runs
                 if (r["pipeline"], r["residency"]) == (pipeline, resident)]
 
-    staged, streaming = walls("staged", "True"), walls("streaming", "True")
+    staged, streaming = [main_wall] + walls("staged", "True"), walls("streaming", "True")
     row = {"card": card, "turns": [list(t) for t in WALL_TURNS], "bams": len(want),
            "staged_walls_s": staged, "streaming_walls_s": streaming,
-           "staged_spread_s": max(staged) - min(staged),
-           "streaming_spread_s": max(streaming) - min(streaming),
-           "streaming_minus_staged_least_s": min(streaming) - min(staged),
-           "residency_off_wall_s": walls("staged", "False")[0],
-           "residency_on_minus_off_least_s": min(staged) - walls("staged", "False")[0]}
+           "staged_uninstrumented_wall_s": walls("staged", "True")[0],
+           "streaming_minus_staged_least_s": min(streaming) - min(staged)}
     emit("walls", **row)
     return row
 
@@ -1488,12 +1517,12 @@ def phase_tagged(dev, work: str, card: str) -> dict:
 
 
 def phase_mm1(dev, work: str, card: str) -> dict:
-    """(c) ``--max_mismatch 1`` on phase 5's settings at ``OBJECT_FRAGMENTS``
+    """(c) ``--max_mismatch 1`` on phase 5's settings at ``MM1_FRAGMENTS``
     fragments with barcode errors (another seed): Hamming launches and
     their synchronised seconds; the rescue stage again with
     ``device="cpu"`` writes the same records."""
     bam = os.path.join(work, "mm1.bam")
-    cfg = SimConfig(n_fragments=OBJECT_FRAGMENTS, ref_len=40 * OBJECT_FRAGMENTS,
+    cfg = SimConfig(n_fragments=MM1_FRAGMENTS, ref_len=40 * MM1_FRAGMENTS,
                     barcode_error_rate=BARCODE_ERROR_RATE, seed=43)
     simulate_bam_fast(bam, cfg)
     hamming.launches, hamming.hamming_s = 0, 0.0
@@ -1519,7 +1548,7 @@ def phase_mm1(dev, work: str, card: str) -> dict:
         if _records(got) != _records(os.path.join(base, want)):
             raise AssertionError(f"mm1 {want}: the card's records differ from the CPU's")
     stats = json.load(open(os.path.join(base, "singleton", "mm1.singleton_stats.json")))
-    row = {"card": card, "fragments": OBJECT_FRAGMENTS, "barcode_error_rate": BARCODE_ERROR_RATE,
+    row = {"card": card, "fragments": MM1_FRAGMENTS, "barcode_error_rate": BARCODE_ERROR_RATE,
            "wall_s": wall, "steps_s": res["walls"], "hamming_launches": launches,
            "hamming_s": ham_s, "cpu_rescue_s": cpu_s,
            "singletons": stats.get("singletons_total"),
@@ -1532,6 +1561,9 @@ def phase_mm1(dev, work: str, card: str) -> dict:
 # ------------------------------------------------------------ vote policies
 
 POLICIES = ("delegation", "distilled")
+# the policies run at phase 5's scale: distilled's run there was cut to
+# make room for phase 9 (PERF.md section 6 keeps its earlier numbers)
+SCALE_POLICIES = ("delegation",)
 # the policies' rows (torch ops on the card; XLA programs in the reference)
 POLICY_ROWS = {
     "delegation": {"name": "delegation_vote", "route": "torch",
@@ -1792,20 +1824,23 @@ def phase_policy_runs(dev, work: str, card: str) -> dict:
                  sscs_differs_from_majority=differs,
                  turns={k: v["wall_s"] for k, v in turns.items()})
         out[f"{label}/majority"] = majority
+        if label == "degraded":  # phase 9's batch holds its tree to this run
+            os.replace(os.path.join(root, "majority"), os.path.join(work, "degraded_majority"))
         shutil.rmtree(root)
     return out
 
 
 def phase_policy_scale(dev, sim_bam: str, work: str, plane: dict, card: str) -> dict:
-    """(3) Phase 5's sample, staged, under each policy: walls and the SSCS
-    step beside the majority run of this call (phase 5's counted run);
+    """(3) Phase 5's sample, staged, under each of ``SCALE_POLICIES``: walls
+    and the SSCS step beside the majority run of this call (phase 5's
+    counted run);
     delegation's SSCS BAM equals majority's byte for byte (every read has
     quals 25-40, so every member is high), the ``qc.json`` plane is
     majority's (``plane``, the majority run's: its ``qc.json`` now holds
     the resume run's); the policy votes per run counted, no B1 launch."""
     shas_m = _bam_sha256(os.path.join(work, "sim"))
     rows = {}
-    for policy in POLICIES:
+    for policy in SCALE_POLICIES:
         out = os.path.join(work, f"scale_{policy}")
         run = _policy_run(sim_bam, out, "sim", policy, dev.type)
         shas = _bam_sha256(os.path.join(out, "sim"))
@@ -1830,11 +1865,16 @@ def policies_line(policies: dict, policy_scale: dict, policy_runs: dict, scale: 
     source, the JAX function it replaces, time and torch launches per call,
     calls per phase-5-size run and ``max_abs_err`` card against CPU."""
     b15 = policies["b15"]
+
+    def at_scale(p, key, sub=None):
+        run = policy_scale.get(p)  # None: not run at phase 5's scale (SCALE_POLICIES)
+        return None if run is None else (run[key][sub] if sub else run[key])
+
     rows = [
         {**POLICY_ROWS[p], "ms": policies["batch"][p]["ms"],
          "qc_ms": policies["batch"][p]["qc_ms"],
          "b1_call_ms": policies["b1_call_ms"], "shape": policies["shape"],
-         "calls_per_run": policy_scale[p]["policy_stream_calls"],
+         "calls_per_run": at_scale(p, "policy_stream_calls"),
          "launches_per_call": policies["batch"][p]["launches"],
          "qc_launches_per_call": policies["batch"][p]["qc_launches_per_call"],
          "copies_per_call": policies["batch"][p]["copies"],
@@ -1842,9 +1882,9 @@ def policies_line(policies: dict, policy_scale: dict, policy_runs: dict, scale: 
          "dense_ms": policies["dense"][p]["ms"],
          "dense_launches_per_call": policies["dense"][p]["launches"],
          "dense_b1_ms": policies["dense"]["b1_ms"],
-         "run_wall_s": policy_scale[p]["wall_s"],
-         "run_policy_vote_s": policy_scale[p]["policy_stream_s"],
-         "run_sscs_s": policy_scale[p]["steps_s"]["sscs"],
+         "run_wall_s": at_scale(p, "wall_s"),
+         "run_policy_vote_s": at_scale(p, "policy_stream_s"),
+         "run_sscs_s": at_scale(p, "steps_s", "sscs"),
          "majority_wall_s": scale["wall_s"], "majority_sscs_s": scale["steps_s"]["sscs"]}
         for p in POLICIES]
     rows.append(
@@ -1858,6 +1898,250 @@ def policies_line(policies: dict, policy_scale: dict, policy_runs: dict, scale: 
     return {"policies": rows, "card": card, "degraded_runs": degraded}
 
 
+# ----------------------------------------------------- phase 9: the whole command
+
+HOST_WORKERS = (2, 4)
+# A host-sharded parent in a process of its own: it opens no CUDA context
+# (the smoke's own process holds one), so it reports whether torch did.
+_PARENT = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from consensuscruncher_tpu_torch.cli import main
+t = time.perf_counter()
+res = main(sys.argv[2:])
+print(json.dumps({"wall_s": time.perf_counter() - t, "steps_s": res["walls"],
+                  "pipeline": res["pipeline"],
+                  "parent_cuda_initialized": torch.cuda.is_initialized()}))
+"""
+SIDECARS = ("sscs/{n}.metrics.json", "singleton/{n}.singleton.metrics.json",
+            "dcs/{n}.dcs.metrics.json")
+PLOTS = ("family_size", "read_recovery", "stage_times")
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_digest(path: str) -> str:
+    """:func:`_record_digest` of a run's BAM that several trees are held
+    to (phase 5's, read once)."""
+    return _record_digest(path)
+
+
+def _record_digest(path: str) -> str:
+    """sha256 of a BAM's header text and its records' bytes, in file order
+    (records are length-prefixed, so equal digests mean equal records,
+    tags included), whatever the BGZF blocking."""
+    h = hashlib.sha256()
+    with ColumnarReader(path) as reader:
+        h.update(reader.header.text.encode())
+        for batch in reader.batches():
+            h.update(batch.buf[:int(batch.rec_off[-1])].tobytes())
+    return h.hexdigest()
+
+
+def _no_backend(path: str) -> list:
+    with open(path) as fh:
+        return [ln for ln in fh if "backend" not in ln]
+
+
+def _bam_rels(base: str, name: str) -> list:
+    """The BAMs of run ``name`` under ``base`` (not a worker's), as
+    ``dir/{n}.suffix`` patterns."""
+    return sorted(os.path.join(os.path.relpath(root, base), "{n}" + f[len(name):])
+                  for root, _dirs, files in os.walk(base) if ".ranges" not in root
+                  for f in files if f.endswith(".bam") and f.startswith(name + "."))
+
+
+def _same_tree(base: str, name: str, other: str, other_name: str) -> int:
+    """``base`` (run ``name``) against ``other`` (run ``other_name``):
+    every BAM record by record, the stats and ``read_families.txt`` less
+    their backend lines.  Returns the number of BAMs held."""
+    rels = _bam_rels(base, name)
+    if rels != _bam_rels(other, other_name) or len(rels) != 11:
+        raise AssertionError(f"{base}: BAMs {rels}, against {_bam_rels(other, other_name)}")
+    for rel in rels:
+        mine = os.path.join(base, rel.format(n=name))
+        if _record_digest(mine) != _reference_digest(
+                os.path.join(other, rel.format(n=other_name))):
+            raise AssertionError(f"{mine}: records differ from {other}'s")
+    for rel in ("sscs/{n}.sscs_stats.txt", "singleton/{n}.singleton_stats.txt",
+                "dcs/{n}.dcs_stats.txt", "sscs/{n}.read_families.txt"):
+        if _no_backend(os.path.join(base, rel.format(n=name))) != \
+                _no_backend(os.path.join(other, rel.format(n=other_name))):
+            raise AssertionError(f"{base}: {rel.format(n=name)} differs from {other}'s")
+    return len(rels)
+
+
+def _outputs_whole(base: str, name: str, sidecar_bases) -> None:
+    """(iv) the three PNGs decode and every run's three stage sidecars
+    exist with a ``cumulative`` block (for a host-sharded tree, each
+    worker's under ``.ranges``)."""
+    for plot in PLOTS:
+        with open(os.path.join(base, "plots", f"{name}.{plot}.png"), "rb") as fh:
+            decode_png(fh.read())
+    for run_base, run_name in sidecar_bases:
+        for rel in SIDECARS:
+            with open(os.path.join(run_base, rel.format(n=run_name))) as fh:
+                if "cumulative" not in json.load(fh):
+                    raise AssertionError(f"{run_base}: {rel} has no cumulative block")
+
+
+def phase_host_workers(dev, sim_bam: str, work: str, scale: dict, n1_wall: float,
+                       card: str) -> dict:
+    """(i) ``--host_workers 2`` and ``4`` on phase 5's sample, each parent
+    in a process of its own, on the card: every merged tree record by
+    record and its stats to phase 5's counted run; the walls beside
+    ``n1_wall``, the uninstrumented staged turn's (the N = 1 wall); each
+    worker's SSCS sidecar on the card with bytes uploaded; the parent
+    opened no CUDA context.  ``--resume True`` on a fresh output keeps the
+    worker trees (``.ranges``) for those checks; nothing is skipped."""
+    rows = {"card": card, "cores": len(os.sched_getaffinity(0)), "n1_wall_s": n1_wall,
+            "n1_counted_wall_s": scale["wall_s"]}
+    for n in HOST_WORKERS:
+        out = os.path.join(work, f"hw{n}")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PARENT, REPO, "consensus", "-i", sim_bam, "-o", out,
+             "-n", "sim", "--scorrect", "True", "--device", dev.type, "--host_workers", str(n),
+             "--resume", "True"],
+            capture_output=True, text=True, timeout=900)
+        command_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"--host_workers {n} failed:\n{proc.stderr[-4000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        if run["parent_cuda_initialized"] or run["pipeline"] != f"host_sharded[{n}]":
+            raise AssertionError(f"--host_workers {n}: {run}")
+        base = os.path.join(out, "sim")
+        bams = _same_tree(base, "sim", os.path.join(work, "sim"), "sim")
+        workers = [(os.path.join(base, ".ranges", f"r{i}"), f"r{i}") for i in range(n)]
+        _outputs_whole(base, "sim", workers)
+        uploads = []
+        for wbase, wname in workers:
+            with open(os.path.join(wbase, "sscs", f"{wname}.metrics.json")) as fh:
+                doc = json.load(fh)
+            if doc["backend"] != dev.type or (dev.type == "cuda"
+                                              and doc["cumulative"]["bytes_h2d"] <= 0):
+                raise AssertionError(f"worker {wname}: {doc['backend']}, "
+                                     f"{doc['cumulative']['bytes_h2d']} bytes uploaded")
+            uploads.append(doc["cumulative"]["bytes_h2d"])
+        shutil.rmtree(out)
+        rows[f"n{n}"] = {"wall_s": run["wall_s"], "command_s": command_s,
+                         "steps_s": run["steps_s"], "bams_equal": bams,
+                         "worker_bytes_h2d": uploads, "parent_cuda_initialized": False}
+        emit("host_workers", card=card, workers=n, cores=rows["cores"], **rows[f"n{n}"],
+             n1_wall_s=n1_wall, n1_counted_wall_s=scale["wall_s"])
+    return rows
+
+
+def phase_batch(dev, work: str, single_walls: dict, card: str) -> dict:
+    """(ii) a two-sample batch, majority: phase 6 (a)'s untagged sample and
+    phase 7's degraded sample, in one process, each tree equal record by
+    record, stats and ``qc.json`` (less its run name) to that sample's own
+    run in this call; the second sample's decode prestaged."""
+    bams = {"obj": os.path.join(work, "obj.bam"), "degraded": os.path.join(work, "degraded.bam")}
+    singles = {"obj": (os.path.join(work, "untagged", "obj"), "obj"),
+               "degraded": (os.path.join(work, "degraded_majority", "p"), "p")}
+    prestaged = []
+    run_sscs = port_cli.run_sscs
+
+    def spy(*args, **kwargs):
+        prestaged.append(kwargs.get("prestaged") is not None)
+        return run_sscs(*args, **kwargs)
+
+    out = os.path.join(work, "batch")
+    port_cli.run_sscs = spy
+    consensus_vote.launches = 0
+    try:
+        t = time.perf_counter()
+        cli_main(["consensus", "-i", ",".join(bams.values()), "-o", out, "--scorrect", "True",
+                  "--device", dev.type])
+        wall = time.perf_counter() - t
+    finally:
+        port_cli.run_sscs = run_sscs
+    launches = consensus_vote.launches
+    if launches == 0 or prestaged != [False, True]:
+        raise AssertionError(f"the batch launched B1 {launches} times, prestaged {prestaged}")
+    held = {}
+    for name, (single, single_name) in singles.items():
+        base = os.path.join(out, name)
+        held[name] = _same_tree(base, name, single, single_name)
+        mine, theirs = _qc_doc(base), _qc_doc(single)
+        mine.pop("run"), theirs.pop("run")
+        if mine != theirs:
+            raise AssertionError(f"batch {name}: qc.json differs from its single run's")
+        _outputs_whole(base, name, [(base, name)])
+    shutil.rmtree(out)
+    row = {"card": card, "wall_s": wall, "single_walls_s": single_walls,
+           "single_sum_s": sum(single_walls.values()), "second_prestaged": prestaged[1],
+           "b1_launches": launches, "bams_equal": held}
+    emit("batch", **row)
+    return row
+
+
+def phase_config_profile(dev, work: str, card: str) -> dict:
+    """(iii) ``-c config.ini`` (the committed file: ``backend = tpu``, so
+    the card) on ``sample.bam``: the goldens hold.  Then ``-c config.ini
+    --profile DIR`` on phase 6 (a)'s untagged sample (``OBJECT_FRAGMENTS``
+    fragments), as a user runs it: ``python -m
+    consensuscruncher_tpu_torch.cli`` in a process of its own (a trace
+    taken late in a long process can miss kernels).  Its records equal
+    that sample's run in this call; the Chrome trace names
+    ``vote_tiles_kernel``; the device's busy share of the traced window
+    (``utils.profiling.trace_summary``) is that of a whole run at real
+    size."""
+    golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
+    config = os.path.join(REPO, "config.ini")
+    device = ["--device", "cpu"] if dev.type == "cpu" else []
+    out = os.path.join(work, "config")
+    consensus_vote.launches = 0
+    cli_main(["consensus", "-c", config, "-i", os.path.join(REPO, "test", "data", "sample.bam"),
+              "-o", out, "-n", "golden", *device])
+    base = os.path.join(out, "golden")
+    bad = golden_mismatches(base, golden["consensus"])
+    if bad or _qc_doc(base)["plane"] is None or consensus_vote.launches == 0:
+        raise AssertionError(f"-c config.ini: goldens {bad}, qc.json {_qc_doc(base)}, "
+                             f"{consensus_vote.launches} launches")
+    _outputs_whole(base, "golden", [(base, "golden")])
+    shutil.rmtree(out)
+
+    out, prof = os.path.join(work, "profiled"), os.path.join(work, "profile")
+    t = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "consensus", "-c", config,
+         "-i", os.path.join(work, "obj.bam"), "-o", out, "-n", "obj", "--profile", prof,
+         *device],
+        cwd=REPO, check=True, capture_output=True, timeout=600)
+    wall = time.perf_counter() - t
+    base = os.path.join(out, "obj")
+    bams = _same_tree(base, "obj", os.path.join(work, "untagged", "obj"), "obj")
+    _outputs_whole(base, "obj", [(base, "obj")])
+    with open(os.path.join(base, "run.metrics.json")) as fh:
+        run_wall = json.load(fh)["wall_s"]
+    (trace,) = os.listdir(prof)
+    summary = trace_summary(os.path.join(prof, trace))
+    vote = {k: v for k, v in summary["kernels"].items() if KERNEL in k}
+    if not vote:
+        with open(os.path.join(prof, trace)) as fh:
+            events = json.load(fh)["traceEvents"]
+        cats: dict = {}
+        for ev in events:
+            cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+        raise AssertionError(f"the trace names no {KERNEL}: categories {cats}, kernels "
+                             f"{sorted(k[:80] for k in summary['kernels'])}")
+    top = sorted(summary["kernels"].items(), key=lambda kv: -kv[1]["us"])[:5]
+    row = {"card": card, "fragments": OBJECT_FRAGMENTS, "command_s": wall,
+           "run_wall_s": run_wall, "bams_equal": bams,
+           "trace_bytes": os.path.getsize(os.path.join(prof, trace)),
+           "window_us": summary["window_us"], "device_busy_us": summary["device_busy_us"],
+           "device_busy_share": summary["device_busy_share"],
+           "device_events": summary["device_events"],
+           "vote_launches": sum(k["count"] for k in vote.values()),
+           "vote_us": sum(k["us"] for k in vote.values()),
+           "top_kernels": [{"name": k[:120], **v} for k, v in top]}
+    shutil.rmtree(out)
+    shutil.rmtree(prof)
+    emit("config_profile", **row)
+    return row
+
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1870,6 +2154,7 @@ def main() -> None:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    started = time.perf_counter()
     rates = phase_card()
     phase_build()
 
@@ -1890,8 +2175,8 @@ def main() -> None:
         phase_goldens(dev)
         phase_object_goldens(dev)
         scale = phase_scale(dev, sim_bam, truth, work, rates["card"])
-        phase_walls(dev, sim_bam, work, rates["card"])
-        phase_tagged(dev, work, rates["card"])
+        walls = phase_walls(dev, sim_bam, work, rates["card"], scale["wall_s"])
+        tagged = phase_tagged(dev, work, rates["card"])
         dense, dense_batch = phase_dense(dev, os.path.join(work, "obj.bam"), work, rates)
         phase_mm1(dev, work, rates["card"])
         policies = phase_policy_batches(dev, sim_bam, dense_batch, rates)
@@ -1899,8 +2184,17 @@ def main() -> None:
         policy_scale = phase_policy_scale(dev, sim_bam, work, scale["qc_plane"],
                                           rates["card"])
         path = phase_fused_path(dev, book, batches, reference)
+        t = time.perf_counter()
+        phase_host_workers(dev, sim_bam, work, scale, walls["staged_uninstrumented_wall_s"],
+                           rates["card"])
+        phase_batch(dev, work, {"obj": tagged["untagged"]["wall_s"],
+                                "degraded": policy_runs["degraded/majority"]["wall_s"]},
+                    rates["card"])
+        phase_config_profile(dev, work, rates["card"])
+        emit("whole_command", seconds=time.perf_counter() - t)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    emit("smoke", seconds=time.perf_counter() - started)
 
     shapes["stage_loop"] = stage
     kernels = [

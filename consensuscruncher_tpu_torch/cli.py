@@ -1,28 +1,42 @@
 """Command line of the PyTorch/CUDA port.
 
-    python -m consensuscruncher_tpu_torch.cli consensus -i X.bam -o OUT \\
-        [--scorrect True] [--device cuda|cpu] [--residency True|False] \\
-        [--resume True] [--intermediate_level 0-9] \\
+    python -m consensuscruncher_tpu_torch.cli consensus -i X.bam[,Y.bam...] \\
+        -o OUT [-c config.ini] [--scorrect True] [--device cuda|cpu] \\
+        [--residency True|False] [--resume True] [--intermediate_level 0-9] \\
         [--pipeline staged|streaming] [--intermediate_taps True] \\
         [--max_mismatch N] [--wire stream|dense] \\
-        [--policy majority|delegation|distilled] ...
+        [--policy majority|delegation|distilled] [--host_workers N] \\
+        [--profile DIR] ...
 
-Port of ``consensuscruncher_tpu/cli.py``'s ``_consensus_impl`` (the staged
-pipeline) and ``_consensus_streaming``: SSCS -> singleton rescue -> rescued
-merge -> DCS -> all-unique merges -> BAI indexes, under
-``<output>/<name>/{sscs,singleton,dcs,all_unique}``, plus the run's
-``qc.json`` (``CCT_QC``, on by default), ``manifest.json`` (what
-``--resume`` skips by) and ``run.metrics.json``.  The device votes run on
-the CUDA card unless ``--device cpu`` is given; on the stream wire the SSCS
-planes stay on the device for rescue and DCS unless ``--residency False``
-is given.  ``--policy`` picks the SSCS family vote (``policies/``).
+Port of ``consensuscruncher_tpu/cli.py``'s ``consensus``: SSCS -> singleton
+rescue -> rescued merge -> DCS -> all-unique merges -> BAI indexes ->
+plots, under ``<output>/<name>/{sscs,singleton,dcs,all_unique,plots}``,
+plus the run's ``qc.json`` (``CCT_QC``, on by default), ``manifest.json``
+(what ``--resume`` skips by), ``run.metrics.json`` and each stage's
+``*.metrics.json``.  The device votes run on the CUDA card unless
+``--device cpu`` is given; on the stream wire the SSCS planes stay on the
+device for rescue and DCS unless ``--residency False`` is given.
+``--policy`` picks the SSCS family vote (``policies/``).
+
+Flags take precedence over the ``[consensus]`` section of ``-c
+config.ini``, which takes precedence over the built-in defaults; the
+``[obs]``, ``[qc]`` and ``[io]`` sections fold into their environment
+variables (a variable already set wins).  A comma-separated ``--input``
+runs a sample batch, each sample under its own ``<output>/<stem>/``, the
+next sample's decode prestaged while the current one runs.
+``--host_workers N`` runs N worker processes over BAI coordinate ranges of
+the input (sharing the visible CUDA cards) and merges their outputs.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import configparser
+import copy
 import json
 import os
+import shutil
 import sys
 import time
 from dataclasses import dataclass
@@ -32,22 +46,104 @@ from consensuscruncher_tpu_torch.core.tags import DEFAULT_BDELIM
 from consensuscruncher_tpu_torch.device import device_name, resolve_device
 from consensuscruncher_tpu_torch.io import bgzf
 from consensuscruncher_tpu_torch.io.bai import index_bam
-from consensuscruncher_tpu_torch.io.bam import merge_bams
+from consensuscruncher_tpu_torch.io.bam import BamReader, merge_bams
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops.packing import resident_planes
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
+from consensuscruncher_tpu_torch.parallel import hostshard
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction, sscs_maker
 from consensuscruncher_tpu_torch.stages.dcs_maker import DcsResult, run_dcs
+from consensuscruncher_tpu_torch.stages.generate_plots import (
+    plot_family_size,
+    plot_read_recovery,
+    plot_stage_times,
+)
 from consensuscruncher_tpu_torch.stages.singleton_correction import (
     SingletonResult,
     run_singleton_correction,
 )
 from consensuscruncher_tpu_torch.stages.sscs_maker import SscsResult, run_sscs
 from consensuscruncher_tpu_torch.utils.manifest import RunManifest
+from consensuscruncher_tpu_torch.utils.profiling import maybe_profile
+from consensuscruncher_tpu_torch.utils.stats import TimeTracker
+
+
+def _config_defaults(path: str | None, section: str) -> dict:
+    if not path:
+        return {}
+    parser = configparser.ConfigParser()
+    if not parser.read(path):
+        raise SystemExit(f"config file not found: {path}")
+    if section not in parser:
+        return {}
+    return dict(parser[section])
 
 
 def _bool(v) -> bool:
     return str(v).lower() in ("1", "true", "yes", "on")
+
+
+def _apply_obs_config(path: str | None) -> None:
+    """The ``[obs]`` config section: the JAX package folds it into the
+    environment of its span tracer, sampler, history and canary, which the
+    port has not ported.  A key set there is named on stderr as ignored,
+    never taken silently; ``--profile DIR`` is the port's trace."""
+    keys = [k for k, v in _config_defaults(path, "obs").items() if str(v) != ""]
+    if keys:
+        print(f"config [obs] {', '.join(sorted(keys))}: ignored (this port has no span "
+              "tracer, sampler, history or canary yet; use --profile DIR for a trace)",
+              file=sys.stderr)
+
+
+def _apply_qc_config(path: str | None) -> None:
+    """Fold the ``[qc]`` config section into the QC env flag:
+    ``enabled`` maps onto ``CCT_QC`` (setdefault — a real environment
+    variable wins)."""
+    enabled = _config_defaults(path, "qc").get("enabled")
+    if enabled not in (None, ""):
+        os.environ.setdefault("CCT_QC", "1" if _bool(enabled) else "0")
+
+
+def _apply_io_config(path: str | None) -> None:
+    """Fold the ``[io]`` config section into the BGZF codec knobs.
+
+    ``bgzf_threads`` sizes the parallel deflate pool (0 = serial);
+    ``async_writer`` toggles the writer's background deflate thread.
+    ``bgzf.configure`` sits below the environment check, so
+    CCT_BGZF_THREADS / CCT_ASYNC_WRITER still win, as over ``[qc]``.
+    """
+    io_cfg = _config_defaults(path, "io")
+    if not io_cfg:
+        return
+    threads = io_cfg.get("bgzf_threads")
+    async_write = io_cfg.get("async_writer")
+    bgzf.configure(
+        threads=int(threads) if threads not in (None, "") else None,
+        async_write=_bool(async_write) if async_write not in (None, "") else None,
+    )
+
+
+# The JAX package's [consensus] ``backend`` key, read as the port's device.
+_BACKEND_DEVICE = {"tpu": "cuda", "xla_cpu": "cpu"}
+
+
+def device_of_backend(backend: str | None) -> str | None:
+    """The port's device for a config.ini ``backend`` value (None when
+    unset): ``tpu`` (the device kernels) is the card, ``xla_cpu`` (the same
+    kernels on the CPU) the CPU.  ``cpu`` and ``reference`` name the JAX
+    package's numpy twin and object path, which the port has not: they
+    exit, naming ``--device``."""
+    if backend in (None, ""):
+        return None
+    if backend in _BACKEND_DEVICE:
+        return _BACKEND_DEVICE[backend]
+    if backend in ("cpu", "reference"):
+        raise SystemExit(
+            f"config backend = {backend}: this port has no numpy or object-path "
+            "backend; set device = cpu in [consensus] (or pass --device cpu) to run "
+            "its CPU path, or device = cuda for the card")
+    raise SystemExit(f"config backend = {backend!r}: expected tpu, xla_cpu, cpu or "
+                     "reference (or set device = cuda|cpu)")
 
 
 @dataclass
@@ -95,21 +191,240 @@ def make_checkpointed(manifest: RunManifest, resume: bool, label: str):
 
 
 def consensus(args) -> dict:
-    """Run the consensus pipeline; returns the output paths, the directory
-    map, the wall seconds of each step and the pipeline that ran."""
+    """Run the consensus pipeline on one input, or on each input of a
+    comma-separated batch (``{input: result}``).  A run's result holds its
+    output paths, the directory map, the wall seconds of each step and the
+    pipeline that ran.  ``--profile DIR`` traces the whole command."""
+    inputs = [p.strip() for p in str(args.input).split(",") if p.strip()]
+    # only a process that drives the card traces it: a host-sharded parent
+    # opens no CUDA context
+    on_card = args.device == "cuda" and args.host_workers <= 1
+    with maybe_profile(args.profile, cuda=on_card):
+        if len(inputs) <= 1:
+            return _run_one(args)
+        if args.name:
+            raise SystemExit(
+                "--name cannot combine with a multi-sample --input batch "
+                "(every sample names its own output tree by file stem)")
+        return _consensus_batch(args, inputs)
+
+
+def _run_one(args) -> dict:
+    if args.host_workers > 1:
+        return _consensus_host_sharded(args)
+    return _consensus_one(args)
+
+
+def _consensus_batch(args, inputs: list[str]) -> dict:
+    """The sample batch: every input through the pipeline in this process,
+    each under its own ``<output>/<stem>/`` tree.  While sample N runs,
+    sample N+1's columnar decode and grouping run on a producer thread
+    (``sscs_maker.prestage_blocks``); host-sharded samples run their own
+    worker processes instead.  A prestage that fails is reported and the
+    sample decodes on its own turn (where a real fault raises); every
+    prestage is closed whatever happens."""
+    overlap = args.host_workers <= 1
+    results = {}
+    prestaged = None
+    for idx, inp in enumerate(inputs):
+        sub = copy.copy(args)
+        sub.input = inp
+        sub.name = None  # per-sample stem
+        sub._prestaged = prestaged
+        nxt = inputs[idx + 1] if idx + 1 < len(inputs) else None
+        next_stage = None
+        try:
+            if nxt is not None and overlap:
+                try:
+                    next_stage = sscs_maker.prestage_blocks(nxt, bdelim=args.bdelim)
+                except Exception as e:
+                    # a bad NEXT input must not kill the CURRENT sample; the
+                    # real error surfaces on that sample's own turn
+                    print(f"consensus: prestage of {nxt} failed ({e}); "
+                          "continuing without overlap", file=sys.stderr)
+            print(f"consensus: batch sample {inp}"
+                  + (" (next sample prestaging)" if next_stage else ""))
+            results[inp] = _run_one(sub)
+        except BaseException:
+            if next_stage is not None:
+                next_stage.close()
+            raise
+        finally:
+            if prestaged is not None:
+                prestaged.close()  # idempotent; covers a stage --resume skipped
+        prestaged = next_stage
+    return results
+
+
+def _consensus_host_sharded(args) -> dict:
+    """``--host_workers N``: coordinate-range data parallelism over worker
+    processes (see ``parallel.hostshard``), the JAX package's
+    ``_consensus_host_sharded``.  The whole consensus flow is
+    position-local, so N workers each run the standard pipeline on a
+    disjoint BAI range of the shared input and this parent merges every
+    output class, sums the stats and histograms, merges the workers'
+    ``qc.json`` and draws the plots.
+
+    On the card the parent opens no CUDA context: it builds the kernel
+    library once (``nvcc`` needs no card) so N workers do not compile it N
+    times, and worker *i* opens its own context on visible card *i mod
+    count*."""
+    n = int(args.host_workers)
+    resume = args.resume
+    device = resolve_device(args.device)  # checks for a card; opens no context
+    name = args.name or os.path.basename(args.input).split(".")[0]
+    base = os.path.join(args.output, name)
+    dirs = _make_dirs(base)
+    ranges_dir = os.path.join(base, ".ranges")
+    os.makedirs(ranges_dir, exist_ok=True)
+    tracker = TimeTracker()
+
+    # Workers read BAI coordinate ranges straight out of the shared input.
+    # The plan is deterministic for (input, n); under --resume the recorded
+    # plan must match, else worker outputs would pair with stale ranges.
+    plan_path = os.path.join(ranges_dir, "ranges.json")
+    input_sig = {"path": os.path.abspath(args.input),
+                 "size": os.path.getsize(args.input),
+                 "mtime": int(os.path.getmtime(args.input)), "n": n}
+    ranges = hostshard.plan_bai_ranges(args.input, n)
+    plan = {"sig": input_sig, "ranges": [hostshard.range_argv(r) for r in ranges]}
+    if resume and os.path.exists(plan_path):
+        with open(plan_path) as f:
+            prev = json.load(f)
+        if prev.get("sig") != input_sig or prev.get("ranges") != plan["ranges"]:
+            raise SystemExit(
+                "--resume: the input, --host_workers, or the computed range "
+                f"plan changed since the interrupted run (recorded "
+                f"{prev.get('sig')}, now {input_sig}); stale worker outputs "
+                "cannot pair with new ranges — rerun without --resume")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    tracker.mark("split")
+
+    n_cards = 0
+    if device.type == "cuda":
+        import torch
+
+        from consensuscruncher_tpu_torch.ops import cuda_lib
+
+        cuda_lib.build("consensus_vote")
+        n_cards = torch.cuda.device_count()
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base_env = dict(os.environ)
+    # -m resolves via the child's sys.path; splice the repo root in so the
+    # workers import this checkout regardless of their cwd
+    base_env["PYTHONPATH"] = repo_root + os.pathsep + base_env.get("PYTHONPATH", "")
+    workers = []
+    for i, rng in enumerate(ranges):
+        spec = hostshard.range_argv(rng)
+        argv = hostshard.worker_argv(args.input, ranges_dir, f"r{i}", args,
+                                     range_spec=spec, resume=resume)
+        # retries always resume: a relaunched worker reuses the stages it
+        # committed before dying
+        retry_argv = hostshard.worker_argv(args.input, ranges_dir, f"r{i}", args,
+                                           range_spec=spec, resume=True)
+        # worker stderr goes to a file: a PIPE drained only after earlier
+        # workers finish could fill and block a chatty later worker
+        workers.append({
+            "name": f"r{i}",
+            "cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", *argv],
+            "retry_cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli",
+                          *retry_argv],
+            "env": hostshard.worker_env(base_env, i, device.type, n_cards),
+            "err_path": os.path.join(ranges_dir, f"r{i}.stderr"),
+        })
+    hostshard.run_workers(workers, retries=int(os.environ.get("CCT_WORKER_RETRIES", "1")))
+    tracker.mark("workers")
+
+    def rpaths(rel_fmt: str) -> list[str]:
+        return [os.path.join(ranges_dir, f"r{i}", rel_fmt.format(n=f"r{i}")) for i in range(n)]
+
+    level = args.compress_level
+    ilevel = level if args.intermediate_level is None else args.intermediate_level
+    # BAM classes: disjoint sorted ranges -> the merge is an ordered
+    # concatenation with a fresh inline index
+    bam_classes = [
+        ("sscs/{n}.sscs.sorted.bam", "sscs", "sscs.sorted.bam", ilevel),
+        ("sscs/{n}.singleton.sorted.bam", "sscs", "singleton.sorted.bam", ilevel),
+        ("dcs/{n}.dcs.sorted.bam", "dcs", "dcs.sorted.bam", ilevel),
+        ("dcs/{n}.sscs.singleton.sorted.bam", "dcs", "sscs.singleton.sorted.bam", ilevel),
+        ("all_unique/{n}.all.unique.sscs.bam", "all_unique", "all.unique.sscs.bam", level),
+        ("all_unique/{n}.all.unique.dcs.bam", "all_unique", "all.unique.dcs.bam", level),
+    ]
+    if args.scorrect:
+        bam_classes += [
+            ("singleton/{n}.sscs.rescue.sorted.bam", "singleton", "sscs.rescue.sorted.bam",
+             ilevel),
+            ("singleton/{n}.singleton.rescue.sorted.bam", "singleton",
+             "singleton.rescue.sorted.bam", ilevel),
+            ("singleton/{n}.remaining.singleton.sorted.bam", "singleton",
+             "remaining.singleton.sorted.bam", ilevel),
+        ]
+    if args.scorrect and not args.cleanup:
+        # the rescued-merge DCS input survives a non-cleanup one-process
+        # run; keep the sharded tree's shape the same
+        bam_classes.append(("dcs/{n}.sscs.rescued.bam", "dcs", "sscs.rescued.bam",
+                            min(1, ilevel)))
+    for rel, sub, suffix, lvl in bam_classes:
+        parts = [p for p in rpaths(rel) if os.path.exists(p)]
+        merge_bams(parts, os.path.join(dirs[sub], f"{name}.{suffix}"), level=lvl)
+    # badReads: unsorted diagnostic stream — ordered concatenation (skipped
+    # under --cleanup, which deletes it at the end of a one-process run)
+    if not args.cleanup:
+        with BamReader(args.input) as reader:
+            in_header = reader.header
+        hostshard.concat_bams(
+            [p for p in rpaths("sscs/{n}.badReads.bam") if os.path.exists(p)],
+            os.path.join(dirs["sscs"], f"{name}.badReads.bam"), in_header, level=ilevel)
+
+    hostshard.aggregate_stats(rpaths("sscs/{n}.sscs_stats.json"), "SSCS",
+                              os.path.join(dirs["sscs"], f"{name}.sscs_stats.txt"))
+    if args.scorrect:
+        hostshard.aggregate_stats(
+            rpaths("singleton/{n}.singleton_stats.json"), "singleton_correction",
+            os.path.join(dirs["singleton"], f"{name}.singleton_stats.txt"))
+    hostshard.aggregate_stats(rpaths("dcs/{n}.dcs_stats.json"), "DCS",
+                              os.path.join(dirs["dcs"], f"{name}.dcs_stats.txt"))
+    hostshard.aggregate_histograms(rpaths("sscs/{n}.read_families.txt"),
+                                   os.path.join(dirs["sscs"], f"{name}.read_families.txt"))
+    tracker.mark("merge")
+    tracker.write(os.path.join(dirs["sscs"], f"{name}.time_tracker.txt"))
+
+    # the workers' per-range qc.json shards merge into the run's (before
+    # .ranges goes): spectra and yields sum over disjoint ranges, vote
+    # planes pad-add.  No best-effort catch, as in the port's one-process
+    # runs.
+    if obs_qc.enabled():
+        docs = [obs_qc.read_qc(p) for p in rpaths("qc.json") if os.path.exists(p)]
+        if docs:
+            doc = obs_qc.merge_docs(docs)
+            doc["run"] = name
+            doc["pipeline"] = f"host_sharded[{n}]"
+            obs_qc.write_qc(os.path.join(base, "qc.json"), doc)
+    _draw_plots(dirs, name, args.scorrect, rpaths("sscs/{n}.metrics.json"))
+
+    # A resumed run keeps the worker checkpoint tree (unless --cleanup):
+    # it is the evidence of what was skipped and what recomputed, and a
+    # further resume after a later failure reuses it.  Plain runs drop it.
+    if args.cleanup or not resume:
+        shutil.rmtree(ranges_dir, ignore_errors=True)
+    print(f"consensus: outputs under {base} ({n} host workers, {device.type})")
+    return {"all_sscs": os.path.join(dirs["all_unique"], f"{name}.all.unique.sscs.bam"),
+            "all_dcs": os.path.join(dirs["all_unique"], f"{name}.all.unique.dcs.bam"),
+            "dirs": dirs, "walls": tracker.as_phases(), "pipeline": f"host_sharded[{n}]"}
+
+
+def _consensus_one(args) -> dict:
+    """One sample, one process: the staged or the streaming pipeline."""
     t0 = time.perf_counter()
     io_before = bgzf.write_stats()
     device = resolve_device(args.device)
     # the vote policy (and the distilled checkpoint) is resolved before any
     # output exists: an unknown name or a bad checkpoint writes nothing
     get_policy(args.policy).prepare()
-    args.scorrect, args.cleanup = _bool(args.scorrect), _bool(args.cleanup)
-    args.resume, args.intermediate_taps = _bool(args.resume), _bool(args.intermediate_taps)
     name = args.name or os.path.basename(args.input).split(".")[0]
     base = os.path.join(args.output, name)
-    dirs = {k: os.path.join(base, k) for k in ("sscs", "singleton", "dcs", "all_unique")}
-    for d in dirs.values():
-        os.makedirs(d, exist_ok=True)
+    dirs = _make_dirs(base)
     manifest = RunManifest(os.path.join(base, "manifest.json"))
     # Per-output-class deflate: the per-stage BAMs may take
     # --intermediate_level while the finals keep --compress_level (default:
@@ -128,8 +443,9 @@ def consensus(args) -> dict:
         return None
 
     # The object-walk rescue (--max_mismatch > 0) re-reads its inputs as
-    # files, so such a run takes the staged pipeline, as in the JAX package.
-    if (args.pipeline == "streaming" and not args.resume
+    # files, and a host worker's range is no whole input, so such runs take
+    # the staged pipeline, as in the JAX package.
+    if (args.pipeline == "streaming" and not args.resume and not args.input_range
             and (not args.scorrect or int(args.max_mismatch) == 0)):
         from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
 
@@ -144,6 +460,11 @@ def consensus(args) -> dict:
             # files), so a device fault always raises.
             print(f"consensus: streaming pipeline cannot finish in memory ({e}); "
                   "falling back to the staged pipeline", file=sys.stderr, flush=True)
+            # the streaming SSCS stage consumed (and closed) a batch's
+            # prestage: the staged run decodes the input anew.  The JAX
+            # package hands the closed prestage on and its staged SSCS
+            # reads nothing (ROADMAP Queue C)
+            args._prestaged = None
     return _consensus_staged(run, store())
 
 
@@ -160,21 +481,23 @@ def _consensus_staged(run: _Run, residency) -> dict:
     sscs_prefix = os.path.join(dirs["sscs"], name)
     sscs_paths = sscs_maker.output_paths(sscs_prefix)
     # badReads.bam is no manifest output (--cleanup deletes it and nothing
-    # downstream reads it), nor is time_tracker (it changes every run).
-    # "input_range" keeps the params the JAX package records (the port
-    # reads whole inputs only), so either package resumes the other's run.
+    # downstream reads it), nor are time_tracker and metrics.json (they
+    # change every run).  --input_range (a host worker's share) reads one
+    # BAI coordinate range of the shared input.
+    input_range = hostshard.parse_range_argv(args.input_range) if args.input_range else None
     sscs = checkpointed(
         "sscs", [args.input],
         [sscs_paths[k] for k in ("sscs", "singleton", "stats_txt", "stats_json", "families")],
         # "policy" joins the params only when it is not the default, so a
         # pre-policy manifest still satisfies a default --resume
         {"cutoff": args.cutoff, "qualscore": args.qualscore, "bdelim": args.bdelim,
-         "input_range": None,
+         "input_range": args.input_range,
          **({"policy": args.policy} if args.policy != DEFAULT_POLICY else {})},
         run=lambda: run_sscs(args.input, sscs_prefix, device, cutoff=args.cutoff,
                              qual_threshold=args.qualscore, bdelim=args.bdelim, level=ilevel,
                              residency=residency, qc=qc_acc, wire=args.wire,
-                             policy=args.policy),
+                             policy=args.policy, input_range=input_range,
+                             prestaged=getattr(args, "_prestaged", None)),
         rebuild=lambda: SscsResult.from_prefix(sscs_prefix))
     walls.mark("sscs")
     sscs_parts = [sscs.sscs_bam]
@@ -271,7 +594,7 @@ def _consensus_streaming(run: _Run, residency) -> dict:
                         cutoff=args.cutoff, qual_threshold=args.qualscore,
                         bdelim=args.bdelim, level=ilevel, residency=residency,
                         qc=qc_acc, stream_out=stream, wire=args.wire,
-                        policy=args.policy)
+                        policy=args.policy, prestaged=getattr(args, "_prestaged", None))
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -331,13 +654,15 @@ def _consensus_streaming(run: _Run, residency) -> dict:
 
 
 def _finish(run: _Run, pipeline: str, index_parts, doomed, qc_acc) -> None:
-    """The end of a run, either pipeline: index every surviving BAM, delete
-    the intermediates under --cleanup, write run.metrics.json and
-    qc.json."""
+    """The end of a run, either pipeline: index every surviving BAM, draw
+    the plots, delete the intermediates under --cleanup, write
+    run.metrics.json and qc.json."""
     args, base, name = run.args, run.base, run.name
     for path in index_parts:
         if os.path.exists(path):
             index_bam(path, skip_if_fresh=True)
+    _draw_plots(run.dirs, name, args.scorrect,
+                [os.path.join(run.dirs["sscs"], f"{name}.metrics.json")])
     if args.cleanup:
         for path in doomed:
             if os.path.exists(path):
@@ -351,6 +676,28 @@ def _finish(run: _Run, pipeline: str, index_parts, doomed, qc_acc) -> None:
                                            policy=args.policy))
     print(f"consensus: outputs under {base} ({pipeline} pipeline, "
           f"{device_name(run.device)})")
+
+
+def _make_dirs(base: str) -> dict:
+    """The output tree of a run under ``base``, made."""
+    dirs = {k: os.path.join(base, k)
+            for k in ("sscs", "singleton", "dcs", "all_unique", "plots")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    return dirs
+
+
+def _draw_plots(dirs: dict, name: str, scorrect: bool, metrics_jsons: list[str]) -> None:
+    """``plots/``: the family-size spectrum, the read-recovery funnel over
+    the stage stats, and the stage walls of ``metrics_jsons``."""
+    stats_jsons = [os.path.join(dirs["sscs"], f"{name}.sscs_stats.json")]
+    if scorrect:
+        stats_jsons.append(os.path.join(dirs["singleton"], f"{name}.singleton_stats.json"))
+    stats_jsons.append(os.path.join(dirs["dcs"], f"{name}.dcs_stats.json"))
+    plot_family_size(os.path.join(dirs["sscs"], f"{name}.read_families.txt"),
+                     os.path.join(dirs["plots"], f"{name}.family_size.png"))
+    plot_read_recovery(stats_jsons, os.path.join(dirs["plots"], f"{name}.read_recovery.png"))
+    plot_stage_times(metrics_jsons, os.path.join(dirs["plots"], f"{name}.stage_times.png"))
 
 
 def _write_run_metrics(base, name, dirs, pipeline, t0, io_before) -> None:
@@ -378,67 +725,144 @@ def _write_run_metrics(base, name, dirs, pipeline, t0, io_before) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    # Every value-bearing flag defaults to None so the precedence is the
+    # JAX package's: CLI flag > config.ini value > built-in default
+    # (applied in parse_args; argparse defaults would mask the config).
     p = argparse.ArgumentParser(prog="consensuscruncher_tpu_torch",
                                 description="PyTorch/CUDA port of ConsensusCruncher")
     sub = p.add_subparsers(dest="command", required=True)
     c = sub.add_parser("consensus", help="collapse UMI families into SSCS/DCS")
-    c.add_argument("--input", "-i", required=True, help="coordinate-sorted barcoded BAM")
-    c.add_argument("--output", "-o", required=True)
+    c.add_argument("-c", "--config", default=None,
+                   help="config.ini whose [consensus] section gives defaults "
+                        "(flags win) and whose [obs]/[qc]/[io] sections fold into "
+                        "their environment variables (a variable already set wins)")
+    c.add_argument("--input", "-i",
+                   help="coordinate-sorted barcoded BAM; comma-separate several "
+                        "to run a sample batch (each sample under its own "
+                        "<output>/<stem>/ tree)")
+    c.add_argument("--output", "-o")
     c.add_argument("--name", "-n")
-    c.add_argument("--cutoff", type=float, default=0.7)
-    c.add_argument("--qualscore", "-q", type=int, default=0)
-    c.add_argument("--scorrect", default="True", help="singleton correction on/off")
-    c.add_argument("--max_mismatch", type=int, default=0,
+    c.add_argument("--cutoff", type=float)
+    c.add_argument("--qualscore", "-q", type=int)
+    c.add_argument("--scorrect", help="singleton correction on/off")
+    c.add_argument("--max_mismatch", type=int,
                    help="barcode Hamming tolerance for singleton rescue (default "
                         "0: exact complementary match; > 0 runs the object walk "
                         "with the Hamming matcher, on the staged pipeline)")
-    c.add_argument("--bdelim", default=DEFAULT_BDELIM)
-    c.add_argument("--cleanup", default="False", help="remove intermediate BAMs")
-    c.add_argument("--resume", default="False",
+    c.add_argument("--bdelim")
+    c.add_argument("--cleanup", help="remove intermediate BAMs")
+    c.add_argument("--resume",
                    help="skip stages whose manifest-recorded inputs, outputs and "
                         "params are intact (default False)")
-    c.add_argument("--compress_level", type=int, choices=range(0, 10), default=6,
-                   metavar="0-9", help="BGZF deflate level of output BAMs")
+    c.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run into DIR "
+                        "(consensus.<pid>.trace.json; the card's kernels and "
+                        "copies too when the run drives it)")
+    c.add_argument("--compress_level", type=int, choices=range(0, 10),
+                   metavar="0-9", help="BGZF deflate level of output BAMs (default 6)")
+    c.add_argument("--host_workers", type=int, metavar="N",
+                   help="coordinate-range data parallelism (0 = all cores): N "
+                        "worker processes each run the full pipeline on a "
+                        "disjoint BAI range of the input, on the card sharing "
+                        "the visible CUDA cards; outputs merge by "
+                        "concatenation. Default 1")
     c.add_argument("--intermediate_level", type=int, choices=range(0, 10), default=None,
                    metavar="0-9",
                    help="BGZF deflate level of the per-stage BAMs (sscs/singleton, "
                         "rescue BAMs, dcs parts, badReads); default: follow "
                         "--compress_level")
-    c.add_argument("--pipeline", choices=("staged", "streaming"), default="staged",
+    c.add_argument("--input_range", default=None, help=argparse.SUPPRESS)
+    c.add_argument("--pipeline", choices=("staged", "streaming"),
                    help="'staged' (default): each stage writes its BAM, the next "
                         "re-reads it. 'streaming': stages hand sorted record batches "
                         "over in memory, intermediate BAMs are skipped (see "
                         "--intermediate_taps), finals are byte-identical; --resume "
-                        "runs take the staged path, and a run whose sort buffer "
-                        "spills or whose background write fails re-runs staged")
-    c.add_argument("--intermediate_taps", default="False",
+                        "and host-worker runs take the staged path, and a run whose "
+                        "sort buffer spills or whose background write fails re-runs "
+                        "staged")
+    c.add_argument("--intermediate_taps",
                    help="with --pipeline streaming: also write the stage-to-stage "
                         "BAMs, reproducing the staged output tree (default False)")
-    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+    c.add_argument("--device", choices=("cuda", "cpu"),
                    help="where the votes run (default cuda; cpu runs the "
-                        "kernels' plain PyTorch versions)")
+                        "kernels' plain PyTorch versions). A config.ini "
+                        "'backend' key reads as tpu -> cuda, xla_cpu -> cpu")
     c.add_argument("--wire", choices=("stream", "dense"), default="stream",
                    help="SSCS vote layout: 'stream' (packed member stream, the "
                         "default) or 'dense' (padded (B, F, L) family batches). "
                         "Byte-identical outputs; residency needs 'stream'")
-    c.add_argument("--policy", default=DEFAULT_POLICY,
+    c.add_argument("--policy",
                    help="consensus vote policy of the SSCS family vote: 'majority' "
                         "(the reference rational-cutoff vote, the default), "
                         "'delegation' (members below Phred 20 hand their vote "
                         "weight to the family's high-quality members) or "
                         "'distilled' (the small frozen MLP head of "
-                        "policies/checkpoints/distilled_v1.json)")
-    c.add_argument("--residency", default="True",
+                        "policies/checkpoints/distilled_v1.json). Host workers "
+                        "vote majority, as in the JAX package")
+    c.add_argument("--residency",
                    help="keep SSCS consensus planes on the device so rescue and "
                         "DCS vote by gather instead of uploading them again "
                         "(default True). Byte-identical outputs; 'False' "
                         "uploads every duplex vote")
-    c.set_defaults(func=consensus)
+    c.set_defaults(func=consensus, config_section="consensus",
+                   required_args=("input", "output"),
+                   builtin_defaults={
+                       "cutoff": 0.7, "qualscore": 0, "scorrect": "True",
+                       "max_mismatch": 0, "device": "cuda", "bdelim": DEFAULT_BDELIM,
+                       "cleanup": "False", "resume": "False", "compress_level": 6,
+                       "host_workers": 1, "residency": "True", "pipeline": "staged",
+                       "intermediate_taps": "False", "policy": DEFAULT_POLICY,
+                   })
     return p
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command's arguments resolved as the JAX package's ``main``
+    resolves them: a flag, else the config.ini value, else the built-in
+    default; then typed.  A config ``backend`` key reads as the device
+    (:func:`device_of_backend`) where neither ``--device`` nor a ``device``
+    key is given.  ``--host_workers 0`` means every core this process may
+    run on."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    config_values = _config_defaults(args.config, args.config_section)
+    for key, value in config_values.items():
+        if hasattr(args, key) and getattr(args, key) is None:
+            setattr(args, key, value)
+    if args.device is None:
+        args.device = device_of_backend(config_values.get("backend"))
+    for key, value in args.builtin_defaults.items():
+        if getattr(args, key) is None:
+            setattr(args, key, value)
+    missing = [a for a in args.required_args if getattr(args, a, None) in (None, "")]
+    if missing:
+        parser.error("missing required arguments (flag or config.ini): "
+                     + ", ".join("--" + m for m in missing))
+    for key in ("scorrect", "cleanup", "resume", "residency", "intermediate_taps"):
+        setattr(args, key, _bool(getattr(args, key)))
+    args.cutoff, args.qualscore = float(args.cutoff), int(args.qualscore)
+    args.max_mismatch, args.compress_level = int(args.max_mismatch), int(args.compress_level)
+    if args.intermediate_level is not None:
+        args.intermediate_level = int(args.intermediate_level)
+    args.host_workers = int(args.host_workers)
+    if args.host_workers < 0:
+        parser.error(f"--host_workers must be >= 0, got {args.host_workers}")
+    if args.host_workers == 0:
+        # 0 = all cores: affinity-aware, since a cgroup- or taskset-limited
+        # host's cpu_count() reports the machine, not the schedulable set
+        try:
+            cores = len(os.sched_getaffinity(0))
+        except (AttributeError, OSError):
+            cores = os.cpu_count() or 1
+        args.host_workers = max(1, cores)
+    return args
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
+    _apply_obs_config(args.config)
+    _apply_io_config(args.config)
+    _apply_qc_config(args.config)
     return args.func(args)
 
 

@@ -53,6 +53,15 @@ def reg2bin(beg: int, end: int) -> int:
     return 0
 
 
+def reg2bins(beg: int, end: int) -> list[int]:
+    """All bins that may hold records overlapping [beg, end) (spec §5.3)."""
+    bins = [0]
+    end -= 1
+    for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        bins.extend(range(base + (beg >> shift), base + (end >> shift) + 1))
+    return bins
+
+
 @dataclass
 class _RefIndex:
     bins: dict[int, list[list[int]]] = field(default_factory=dict)  # bin -> [[beg,end]...]
@@ -395,3 +404,49 @@ def _finish_and_write_bai(refs: list[_RefIndex], n_no_coor: int,
     commit_file(tmp, bai_path)
     return bai_path
 
+
+@dataclass
+class BaiIndex:
+    """Loaded .bai: per-ref bins/linear + metadata."""
+
+    bins: list[dict[int, list[tuple[int, int]]]]
+    linear: list[list[int]]
+    meta: list[tuple[int, int, int, int] | None]  # (off_beg, off_end, mapped, unmapped)
+    n_no_coor: int
+
+    @classmethod
+    def load(cls, path) -> "BaiIndex":
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if data[:4] != BAI_MAGIC:
+            raise ValueError(f"not a BAI index: {os.fspath(path)!r}")
+        off = 4
+        (n_ref,) = struct.unpack_from("<i", data, off)
+        off += 4
+        bins, linear, meta = [], [], []
+        for _ in range(n_ref):
+            (n_bin,) = struct.unpack_from("<i", data, off)
+            off += 4
+            ref_bins: dict[int, list[tuple[int, int]]] = {}
+            ref_meta = None
+            for _ in range(n_bin):
+                b, n_chunk = struct.unpack_from("<Ii", data, off)
+                off += 8
+                chunks = []
+                for _ in range(n_chunk):
+                    beg, end = struct.unpack_from("<QQ", data, off)
+                    off += 16
+                    chunks.append((beg, end))
+                if b == _PSEUDO_BIN:
+                    ref_meta = (chunks[0][0], chunks[0][1], chunks[1][0], chunks[1][1])
+                else:
+                    ref_bins[b] = chunks
+            (n_intv,) = struct.unpack_from("<i", data, off)
+            off += 4
+            ref_linear = list(struct.unpack_from(f"<{n_intv}Q", data, off))
+            off += 8 * n_intv
+            bins.append(ref_bins)
+            linear.append(ref_linear)
+            meta.append(ref_meta)
+        n_no_coor = struct.unpack_from("<Q", data, off)[0] if off + 8 <= len(data) else 0
+        return cls(bins=bins, linear=linear, meta=meta, n_no_coor=n_no_coor)

@@ -209,6 +209,13 @@ def scan_block_metas(buf: bytes, tolerant: bool = False) -> tuple[tuple, int]:
     return metas, pos
 
 
+# --------------------------------------------------------------- knobs
+#
+# config.ini ``[io]`` values land here via :func:`configure` (the CLI
+# folds them in before any writer is built).  Environment variables
+# still win so operators can override a config file per-invocation.
+_cfg: dict[str, object] = {"threads": None, "async_write": None}
+
 # ---------------------------------------------------------- write stats
 #
 # Process-wide accumulator for what the writer layer actually spent:
@@ -234,6 +241,25 @@ def write_stats() -> dict[str, int]:
         return dict(_stats)
 
 
+def configure(threads: int | None = None, async_write: bool | None = None) -> None:
+    """Fold config-file ``[io]`` knobs into the codec defaults.
+
+    ``threads``: deflate pool size (native pthread pool AND the pure-
+    Python block pool); ``async_write``: default for the writer's
+    background deflate thread.  CCT_BGZF_THREADS / CCT_ASYNC_WRITER
+    environment overrides still win over values set here.
+    """
+    global _python_pool_obj
+    with _python_pool_lock:
+        if threads is not None:
+            _cfg["threads"] = max(0, int(threads))
+            if _python_pool_obj is not None:
+                _python_pool_obj.shutdown(wait=False)
+                _python_pool_obj = None
+        if async_write is not None:
+            _cfg["async_write"] = bool(async_write)
+
+
 def codec_threads() -> int:
     """Worker threads for the deflate pools (native per-batch pthread
     pool and the pure-Python per-block thread pool).
@@ -243,7 +269,8 @@ def codec_threads() -> int:
     leverage on multi-core hosts (zlib is the single largest host cost
     after the columnar passes).
     Default: cpu_count-1 capped at 8; 0 (inline) on single-core hosts.
-    Override with CCT_BGZF_THREADS.
+    Override with CCT_BGZF_THREADS (wins) or config.ini ``[io]
+    bgzf_threads`` via :func:`configure`.
     """
     env = os.environ.get("CCT_BGZF_THREADS")
     if env:
@@ -251,13 +278,16 @@ def codec_threads() -> int:
             return max(0, int(env))
         except ValueError:
             pass
+    if _cfg["threads"] is not None:
+        return int(_cfg["threads"])  # type: ignore[arg-type]
     n = os.cpu_count() or 1
     return 0 if n <= 1 else min(8, n - 1)
 
 
 # Shared pure-Python deflate pool: per-block compression is order-
 # independent (writeback below is ordered), so one process-wide pool
-# serves every writer.  Created lazily.
+# serves every writer.  Created lazily; resized by dropping it when
+# :func:`configure` changes the thread count.
 _python_pool_lock = threading.Lock()
 _python_pool_obj = None
 
@@ -371,17 +401,26 @@ class BgzfReader(io.RawIOBase):
     path serves identical bytes.
     """
 
-    def __init__(self, path_or_fh, salvage: bool = False):
-        """``salvage``: serve bytes up to the last intact block of a
-        truncated file instead of raising :class:`TruncatedBgzfError`."""
+    def __init__(self, path_or_fh, start_voffset: int | None = None,
+                 salvage: bool = False):
+        """``start_voffset``: begin mid-file at a BAI virtual offset
+        (``coffset << 16 | within``) — seek to the block boundary and
+        discard the intra-block prefix.  The caller owns pointing at a
+        record boundary (BAI offsets do).  ``salvage``: serve bytes up to
+        the last intact block of a truncated file instead of raising
+        :class:`TruncatedBgzfError`."""
         self._own = _is_pathlike(path_or_fh)
         self._fh = open(path_or_fh, "rb") if self._own else path_or_fh
+        if start_voffset is not None:
+            self._fh.seek(start_voffset >> 16)
         if native.available():
             self._blocks = _iter_chunks_native(self._fh, salvage=salvage)
         else:
             self._blocks = iter_blocks(self._fh, salvage=salvage)
         self._buf = b""
         self._pos = 0
+        if start_voffset is not None and start_voffset & 0xFFFF:
+            self.read(start_voffset & 0xFFFF)
 
     def readable(self) -> bool:
         return True
@@ -426,11 +465,14 @@ def async_write_default() -> bool:
     dispatch/waits, native codec legs, numpy passes) — on the multi-core
     deployment target that is most of the pipeline.  On
     a single-core host the deflate contends for the same core, so default
-    off there.  Override with CCT_ASYNC_WRITER=0/1.
+    off there.  Override with CCT_ASYNC_WRITER=0/1 (wins) or config.ini
+    ``[io] async_writer`` via :func:`configure`.
     """
     env = os.environ.get("CCT_ASYNC_WRITER")
     if env in ("0", "1"):
         return env == "1"
+    if _cfg["async_write"] is not None:
+        return bool(_cfg["async_write"])
     return (os.cpu_count() or 1) > 1
 
 

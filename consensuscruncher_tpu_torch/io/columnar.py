@@ -32,6 +32,7 @@ import os
 import struct
 from dataclasses import dataclass
 from functools import cached_property
+from typing import NamedTuple
 
 import numpy as np
 
@@ -264,18 +265,74 @@ def _make_batch(header: BamHeader, buf: np.ndarray, rec_off: np.ndarray) -> Colu
     )
 
 
+# Packed (rid, pos) ordering key for coordinate-sorted BAMs.  Unplaced
+# records (rid < 0) sort last and all share the sentinel, so a range
+# boundary can never split the unplaced tail.
+UNPLACED_KEY = np.int64(1) << 62
+
+
+def pack_coord_key(rid: int, pos: int) -> int:
+    """Scalar (rid, pos) -> int64 ordering key (rid < 0 -> UNPLACED_KEY).
+    pos clamps at 0: a placed-but-POS-less record (rid >= 0, pos == -1, the
+    SAM-legal unmapped-with-RNAME shape) must not key below its rid."""
+    return int(UNPLACED_KEY) if rid < 0 else ((int(rid) << 32) | max(int(pos), 0))
+
+
+def pack_coord_keys(rid: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    rid64 = rid.astype(np.int64)
+    return np.where(rid64 < 0, UNPLACED_KEY,
+                    (rid64 << 32) | np.maximum(pos.astype(np.int64), 0))
+
+
+class BamRange(NamedTuple):
+    """Half-open coordinate range of a sorted BAM for direct index reads.
+
+    ``start_voffset`` is a BAI virtual offset at or before the first record
+    with key >= ``start_key`` (records before it are skipped); reading
+    stops at the first record with key >= ``end_key`` (None = EOF,
+    including the unplaced tail).  Used by ``--host_workers`` to read
+    worker ranges straight out of the shared input (no materialized slice
+    files).
+    """
+
+    start_voffset: int
+    start_key: int
+    end_key: int | None
+
+
+def _slice_batch(header, batch, i: int, j: int):
+    off = batch.rec_off
+    lo, hi = int(off[i]), int(off[j])
+    return _make_batch(header, batch.buf[lo:hi], off[i:j + 1] - off[i])
+
+
 class ColumnarReader:
     """Streaming columnar BAM reader: ``for batch in reader.batches(): ...``
 
     ``batch_bytes`` bounds memory (uncompressed bytes per batch); records
     never split across batches.
+
+    ``bam_range``: read only a :class:`BamRange` of a coordinate-sorted,
+    path-addressed BAM — the header is decoded from the file start, then
+    the stream re-opens at the range's virtual offset and batches are
+    trimmed to the key range.
     """
 
-    def __init__(self, path, batch_bytes: int = 64 << 20):
+    def __init__(self, path, batch_bytes: int = 64 << 20,
+                 bam_range: BamRange | None = None):
         self._bgzf = bgzf.BgzfReader(path)
         self._batch_bytes = batch_bytes
         self.header = read_bam_header(self._bgzf)
         self._carry = b""
+        self._range = bam_range
+        self._start_pending = bam_range is not None
+        if bam_range is not None and bam_range.start_voffset:
+            # voffset 0 means "from the first record": the sequential
+            # reader is already positioned right after the header.
+            if not isinstance(path, (str, bytes, os.PathLike)):
+                raise ValueError("bam_range requires a path-addressed BAM")
+            self._bgzf.close()
+            self._bgzf = bgzf.BgzfReader(path, start_voffset=bam_range.start_voffset)
 
     def batches(self):
         while True:
@@ -294,7 +351,38 @@ class ColumnarReader:
                 continue
             self._carry = chunk[end:]
             buf = np.frombuffer(chunk, dtype=np.uint8, count=end)
-            yield _make_batch(self.header, buf, offs)
+            batch = _make_batch(self.header, buf, offs)
+            if self._range is not None:
+                batch, done = self._trim(batch)
+                if batch is not None and batch.n:
+                    yield batch
+                if done:
+                    return
+                continue
+            yield batch
+
+    def _trim(self, batch):
+        """Apply the range's start/end key bounds to one batch.  Returns
+        ``(trimmed_batch_or_None, done)``."""
+        keys = pack_coord_keys(batch.ref_id, batch.pos)
+        i = 0
+        if self._start_pending:
+            # keys ascend in a coordinate-sorted file; skip the prefix the
+            # linear-index voffset conservatively included
+            i = int(np.searchsorted(keys, self._range.start_key))
+            if i < batch.n:
+                self._start_pending = False
+        if self._range.end_key is not None:
+            j = int(np.searchsorted(keys, self._range.end_key))
+            if j < batch.n:
+                if j <= i:
+                    return None, True
+                return _slice_batch(self.header, batch, i, j), True
+        if i >= batch.n:
+            return None, False
+        if i:
+            return _slice_batch(self.header, batch, i, batch.n), False
+        return batch, False
 
     def close(self) -> None:
         self._bgzf.close()

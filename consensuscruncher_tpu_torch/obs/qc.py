@@ -35,6 +35,8 @@ import tempfile
 
 import numpy as np
 
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+
 QC_VERSION = 1
 
 _ENV_FLAG = "CCT_QC"
@@ -130,6 +132,7 @@ def _host(x) -> np.ndarray:
     """A vector of a handle on the host (a torch tensor may lie on the
     card: it is copied once, here)."""
     if hasattr(x, "detach"):
+        obs_metrics.note_transfer("d2h", x.nbytes, x.device)
         x = x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_segment import _add_qc
@@ -43,6 +44,7 @@ def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.d
     neither uploaded nor voted; they vote all-N and no QC), and with
     ``qc`` the rider's ``(2, L)`` int32 sums."""
     n = batch.n_real
+    obs_metrics.note_transfer("h2d", batch.bases[:n].nbytes + batch.quals[:n].nbytes, device)
     bases = torch.from_numpy(batch.bases[:n]).to(device)
     quals = torch.from_numpy(batch.quals[:n]).to(device)
     out = consensus_vote.consensus_batch(bases, quals, torch.from_numpy(batch.fam_sizes[:n]),
@@ -76,6 +78,7 @@ def consensus_families(families, config: ConsensusConfig, device: torch.device,
         if qc_sink is not None:
             planes, sums = planes
             qc_total = _add_qc(qc_total, sums)
+        obs_metrics.note_transfer("d2h", planes.nbytes, device)
         return start_fetch(planes)
 
     def fetch(batch, handle):

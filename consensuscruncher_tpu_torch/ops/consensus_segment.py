@@ -28,6 +28,7 @@ import torch
 
 from consensuscruncher_tpu_torch.device import resolve_device
 from consensuscruncher_tpu_torch.io import native
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.packing import (
@@ -198,6 +199,8 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
             # the codebook of a packed wire rides in the kernel's arguments
             b = torch.from_numpy(b)
             lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
+            obs_metrics.note_transfer("h2d", a.nbytes + (b.nbytes if wire == "raw" else 0),
+                                      device)
             planes = stream_vote(wire, torch.from_numpy(a).to(device),
                                  b.to(device) if wire == "raw" else b,
                                  torch.from_numpy(batch.sizes[:n]), config,
@@ -208,6 +211,7 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
             if on_device_batch is not None:
                 on_device_batch(batch, planes)
             out = planes.cpu().numpy()
+            obs_metrics.note_transfer("d2h", out.nbytes, device)
             yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
     finally:
         if qc_sink is not None and qc_total.shape[1]:

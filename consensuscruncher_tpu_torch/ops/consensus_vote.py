@@ -58,6 +58,7 @@ from consensuscruncher_tpu_torch.core.consensus_cpu import (
     DEFAULT_QUAL_THRESHOLD,
     cutoff_fraction,
 )
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.ops import tiles
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote
 from consensuscruncher_tpu_torch.ops.packing import WIRES, unpack_wire, wire_width
@@ -696,6 +697,7 @@ class TileLaunch:
         explicit = self.plan.explicit
         used = head + records + (0 if explicit is None else explicit.size)
         meta = host[:used].to(dev, non_blocking=True)
+        obs_metrics.note_transfer("h2d", 8 * used, dev)
         self.stats = meta[:2].view(torch.int32)
         self.qc = meta[2:2 + length].view(torch.int32).view(2, length) if self.with_qc else None
         self._keep = planes

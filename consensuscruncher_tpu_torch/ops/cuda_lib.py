@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -95,6 +97,7 @@ def build(name: str) -> str:
         with open(so + ".log", "w") as fh:
             fh.write(proc.stderr)
         os.replace(tmp, so)
+        obs_metrics.note_build()
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

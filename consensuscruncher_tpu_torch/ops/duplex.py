@@ -15,6 +15,7 @@ import torch
 
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.device import resolve_device
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.utils.phred import N
 
 
@@ -39,5 +40,7 @@ def duplex_batch_host(seq1, qual1, seq2, qual2, qual_cap: int = DEFAULT_QUAL_CAP
     dev = resolve_device(device)
     planes = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
               for x in (seq1, qual1, seq2, qual2)]
+    obs_metrics.note_transfer("h2d", sum(p.nbytes for p in planes), dev)
     out_b, out_q = duplex_vote(*planes, qual_cap=int(qual_cap))
+    obs_metrics.note_transfer("d2h", out_b.nbytes + out_q.nbytes, dev)
     return out_b.cpu().numpy(), out_q.cpu().numpy()

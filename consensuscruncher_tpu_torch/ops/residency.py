@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote
 from consensuscruncher_tpu_torch.utils.ragged import scatter_runs
 
@@ -146,6 +147,7 @@ class ResidentPlanes:
 
     def _gather(self, idx: np.ndarray, length: int):
         rows = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(self.device)
+        obs_metrics.note_transfer("h2d", rows.nbytes, self.device)
         picked = self._planes[:, :, :length].index_select(1, rows)
         return picked[0], picked[1]
 
@@ -159,6 +161,7 @@ class ResidentPlanes:
         b1, q1 = self._gather(idx1, length)
         b2, q2 = self._gather(idx2, length)
         out = torch.stack(duplex_vote(b1, q1, b2, q2, qual_cap=qc)).cpu().numpy()
+        obs_metrics.note_transfer("d2h", out.nbytes, self.device)
         pair_votes += len(idx1)
         return out[0], out[1]
 
@@ -173,11 +176,13 @@ class ResidentPlanes:
         qc = self.qual_cap if qual_cap is None else int(qual_cap)
         up = [torch.from_numpy(np.ascontiguousarray(x[:, :length], dtype=np.uint8))
               .to(self.device) for x in (s1, q1)]
+        obs_metrics.note_transfer("h2d", up[0].nbytes + up[1].nbytes, self.device)
         b2, q2 = self._gather(idx2, length)
         planes = torch.stack(duplex_vote(up[0], up[1], b2, q2, qual_cap=qc))
         k = len(idx2)
         if register_keys is not None:
             self.append(register_keys, [length] * k, planes, k)
         out = planes.cpu().numpy()
+        obs_metrics.note_transfer("d2h", out.nbytes, self.device)
         against_votes += k
         return out[0], out[1]

@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.device import resolve_device
 
 launches = 0
@@ -80,8 +81,11 @@ def pairwise_hamming(a, b, tile: int = 2048, device=None) -> np.ndarray:
                 def call(ta=ta, tb=tb):
                     da = torch.from_numpy(ta).to(dev)
                     db = torch.from_numpy(tb).to(dev)
-                    return (da[:, None, :] != db[None, :, :]).sum(
+                    obs_metrics.note_transfer("h2d", ta.nbytes + tb.nbytes, dev)
+                    d = (da[:, None, :] != db[None, :, :]).sum(
                         -1, dtype=torch.int32).cpu().numpy()
+                    obs_metrics.note_transfer("d2h", d.nbytes, dev)
+                    return d
                 block = _on_card(call)
             out[i:i + tile, j:j + tile] = block
     return out
@@ -127,12 +131,15 @@ def pair_distances(codes: np.ndarray, qi: np.ndarray, pj: np.ndarray,
 
     def call():
         table = torch.from_numpy(codes).to(dev)
+        obs_metrics.note_transfer("h2d", codes.nbytes, dev)
         for s in range(0, qi.shape[0], max_pairs):
             q = torch.from_numpy(qi[s:s + max_pairs]).to(dev)
             p = torch.from_numpy(pj[s:s + max_pairs]).to(dev)
             d = (table.index_select(0, q) != table.index_select(0, p)).sum(
                 1, dtype=torch.int32)
             out[s:s + max_pairs] = d.cpu().numpy()
+            obs_metrics.note_transfer("h2d", q.nbytes + p.nbytes, dev)
+            obs_metrics.note_transfer("d2h", d.nbytes, dev)
         return out
 
     if qi.shape[0] == 0:

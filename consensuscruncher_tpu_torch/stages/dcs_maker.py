@@ -8,6 +8,7 @@ Outputs:
   pair per mate — both R1-side and R2-side DCS, pairable by qname)
 - ``<p>.sscs.singleton.sorted.bam``  SSCSes with no complementary partner
 - ``<p>.dcs_stats.txt|.json``
+- ``<p>.dcs.metrics.json``           phase walls and the cumulative counters
 
 Pairing model (see core/tags.py): an SSCS's partner is ``duplex_tag(tag)``
 (mirrored barcode halves, flipped read number) anchored at the SAME
@@ -48,6 +49,12 @@ from consensuscruncher_tpu_torch.stages.grouping import (
     consensus_windows_columnar,
     duplex_pair_blocks,
     fam_size_of,
+)
+from consensuscruncher_tpu_torch.utils.profiling import (
+    Counters,
+    add_counter_deltas,
+    counter_marks,
+    write_metrics,
 )
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
@@ -244,7 +251,7 @@ def _store_keys(sources, src_arr, row_arr, ps) -> np.ndarray:
 
 
 def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
-                         device: torch.device, resident=None) -> None:
+                         device: torch.device, resident=None, cum=None) -> None:
     """Vectorized pairing (``grouping.duplex_pair_blocks``): unpaired reads
     pass through as raw blobs, pairs vote in one device batch per length
     group, and duplex records assemble through the columnar record writer.
@@ -351,6 +358,9 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
                 s1, q1 = member_rows(blk.pair_canon_src, blk.pair_canon_row, miss, L)
                 s2, q2 = member_rows(blk.pair_other_src, blk.pair_other_row, miss, L)
                 out_b[~hit], out_q[~hit] = _duplex_vote_batch(s1, q1, s2, q2, device)
+            if cum is not None:
+                cum.add("resident_pair_votes", int(hit.sum()))
+                cum.add("staged_pair_votes", int((~hit).sum()))
             k = len(ps)
             # canon cigar bytes per pair, gathered per source batch
             cig_lens = ncigc[ps]
@@ -398,6 +408,8 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     (the CLI re-runs the staged pipeline)."""
     tracker = TimeTracker()
     stats = StageStats("DCS")
+    cum = Counters()
+    marks = counter_marks()
     paths = output_paths(out_prefix)
     reader = open_batch_source(sscs_bam)
     dcs_writer = SortingBamWriter(paths["dcs"], reader.header, level=level)
@@ -407,7 +419,7 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     try:
         try:
             _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
-                                 residency)
+                                 residency, cum)
         except ForeignTagLayout as exc:
             if stream_out is not None:
                 raise StreamFallback(f"DCS: {exc}") from exc
@@ -443,4 +455,11 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     stats.set("backend", device.type)
     stats.write(paths["stats_txt"])
     tracker.write(f"{out_prefix}.dcs.time_tracker.txt")
+    add_counter_deltas(cum, marks)
+    cumulative = cum.snapshot()
+    write_metrics(
+        f"{out_prefix}.dcs.metrics.json", "DCS", tracker.as_phases(),
+        {"backend": device.type, "jax_backend": None, "pairs": stats.get("pairs"),
+         "sscs_total": stats.get("sscs_total"), "recompiles": cumulative["recompiles"]},
+        cumulative=cumulative)
     return DcsResult(paths["dcs"], paths["unpaired"], stats)

@@ -10,6 +10,8 @@ genomic anchor — an SSCS (singleton-SSCS rescue) or another singleton
 - ``<p>.singleton.rescue.sorted.bam``  singletons corrected against a singleton
 - ``<p>.remaining.singleton.sorted.bam``  uncorrected singletons
 - ``<p>.singleton_stats.txt|.json``
+- ``<p>.singleton.metrics.json``  phase walls (and, on the block path, the
+  cumulative counters)
 
 The correction is the duplex vote of singleton vs partner
 (``dcs_maker._duplex_vote_batch`` on ``device``): agreement keeps the base
@@ -54,6 +56,12 @@ from consensuscruncher_tpu_torch.stages.grouping import (
     singleton_rescue_blocks,
 )
 from consensuscruncher_tpu_torch.utils.phred import decode_seq, encode_seq
+from consensuscruncher_tpu_torch.utils.profiling import (
+    Counters,
+    add_counter_deltas,
+    counter_marks,
+    write_metrics,
+)
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 
@@ -88,7 +96,7 @@ def output_paths(out_prefix: str) -> dict[str, str]:
 
 
 def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
-                       resident=None) -> None:
+                       resident=None, cum=None) -> None:
     """RescueBlock decisions -> batched duplex votes -> columnar record
     rebuild (original record + new seq/qual + appended XR tag).
 
@@ -96,7 +104,9 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
     singleton-vs-SSCS route a resident partner is gathered on the card
     instead of uploaded, and the rescue output is registered in the store
     under the singleton's key, so the later DCS pass gathers it too.
-    Misses vote by upload; identical bytes either way."""
+    Misses vote by upload; identical bytes either way.  ``cum``: a
+    ``utils.profiling.Counters`` that counts the resident and the uploaded
+    pair votes."""
     s_reader = open_batch_source(singleton_bam)
     x_reader = open_batch_source(sscs_bam)
     try:
@@ -202,6 +212,9 @@ def _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device,
                         s2m, q2m = member_mat(blk.partner_src, blk.partner_row, miss, L)
                         out_b[~hit], out_q[~hit] = _duplex_vote_batch(
                             s1m[~hit], q1m[~hit], s2m, q2m, device)
+                    if cum is not None:
+                        cum.add("resident_pair_votes", int(hit.sum()))
+                        cum.add("staged_pair_votes", int((~hit).sum()))
                     kk = len(ps)
                     # original qname / cigar / tag bytes, gathered per source
                     qn_start = np.empty(kk, np.int64)
@@ -543,6 +556,8 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
     staged pipeline) and ``max_mismatch > 0`` raises ``ValueError``."""
     tracker = TimeTracker()
     stats = StageStats("singleton_correction")
+    cum = Counters()
+    marks = counter_marks()
     all_paths = output_paths(out_prefix)
     paths = {k: all_paths[k] for k in ("sscs_rescue", "singleton_rescue", "remaining")}
     if stream_out is not None and max_mismatch != 0:
@@ -557,7 +572,8 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
         writers = {k: SortingBamWriter(p, header, level=level) for k, p in paths.items()}
         ok = False
         try:
-            _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device, residency)
+            _run_rescue_blocks(singleton_bam, sscs_bam, writers, stats, device, residency,
+                               cum)
             ok = True
         except ForeignTagLayout as exc:
             if stream_out is not None:
@@ -593,5 +609,13 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
     stats.write(all_paths["stats_txt"])
     tracker.mark("rescue")
     tracker.write(f"{out_prefix}.singleton.time_tracker.txt")
+    # as in the JAX package, the walk's sidecar carries no cumulative block
+    if not walk:
+        add_counter_deltas(cum, marks)
+    write_metrics(
+        f"{out_prefix}.singleton.metrics.json", "singleton_correction", tracker.as_phases(),
+        {"backend": device.type, "jax_backend": None,
+         "singletons": stats.get("singletons_total")},
+        cumulative=None if walk else cum.snapshot())
     return SingletonResult(paths["sscs_rescue"], paths["singleton_rescue"],
                            paths["remaining"], stats)

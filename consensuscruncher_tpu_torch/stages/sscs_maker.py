@@ -12,6 +12,8 @@ Outputs (pinned names; ``<p>`` = output prefix):
 - ``<p>.sscs_stats.txt|.json``  stage stats
 - ``<p>.read_families.txt``     family-size histogram
 - ``<p>.time_tracker.txt``      wall-clock marks
+- ``<p>.metrics.json``          phase walls, families/s, reads/s and the
+  cumulative counters (batches, families, transfer bytes, deflate)
 
 The host decodes the BAM column-wise and groups reads into families of
 size >= 2 that ship to ``device`` and come back voted, on one of two wires
@@ -25,7 +27,9 @@ size >= 2 that ship to ``device`` and come back voted, on one of two wires
 
 The sorting writers buffer records in memory and write the
 coordinate-sorted BAMs at close, or hand them to the next stage in memory
-(``stream_out``).
+(``stream_out``).  A host worker reads one BAI coordinate range of the
+shared input (``input_range``); a sample batch hands the stage its
+input's decode already running (``prestaged``, :func:`prestage_blocks`).
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS, modal_cigar
 from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed, ragged
 from consensuscruncher_tpu_torch.io.bam import BamWriter
-from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
+from consensuscruncher_tpu_torch.io.columnar import (
+    ColumnarReader,
+    SortingBamWriter,
+    open_batch_source,
+)
 from consensuscruncher_tpu_torch.io.encode import (
     ConsensusRecordWriter,
     RenameRetagWriter,
@@ -51,10 +59,17 @@ from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
+from consensuscruncher_tpu_torch.parallel.prefetch import start_prefetch
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.stages.grouping import (
     stream_families_columnar,
     stream_family_blocks,
+)
+from consensuscruncher_tpu_torch.utils.profiling import (
+    Counters,
+    add_counter_deltas,
+    counter_marks,
+    write_metrics,
 )
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.utils.stats import (
@@ -91,6 +106,39 @@ def output_paths(out_prefix: str) -> dict[str, str]:
         "families": f"{out_prefix}.read_families.txt",
         "time_tracker": f"{out_prefix}.time_tracker.txt",
     }
+
+
+@dataclass
+class PrestagedBlocks:
+    """An input's decode already running on a producer thread.
+
+    Built by :func:`prestage_blocks` for the multi-sample batch: while
+    sample N's pipeline runs, sample N+1's columnar decode + family
+    grouping fills a bounded queue, so its SSCS stage starts with blocks
+    already in hand.  ``close()`` is idempotent and safe on an unconsumed
+    prestage (a resume-skipped stage must not leak the producer thread or
+    the open reader).
+    """
+
+    reader: object  # the input's ColumnarReader (its header heads the outputs)
+    events: object  # parallel.prefetch.start_prefetch iterator
+
+    def close(self) -> None:
+        try:
+            self.events.close()
+        finally:
+            self.reader.close()
+
+
+def prestage_blocks(in_bam: str, bdelim: str = tags_mod.DEFAULT_BDELIM,
+                    depth: int = 4) -> PrestagedBlocks:
+    """Start decoding ``in_bam`` into FamilyBlock events NOW, on a
+    background thread behind a ``depth``-bounded queue (memory bound:
+    blocks are the unit).  Consume via ``run_sscs(..., prestaged=...)``
+    with the same ``bdelim``."""
+    reader = ColumnarReader(in_bam)
+    events = start_prefetch(stream_family_blocks(reader, reader.header, bdelim), depth=depth)
+    return PrestagedBlocks(reader, events)
 
 
 def write_singleton(singleton_writer, tag, members) -> None:
@@ -154,6 +202,8 @@ def run_sscs(
     stream_out=None,
     wire: str = "stream",
     policy: str = DEFAULT_POLICY,
+    input_range=None,
+    prestaged: PrestagedBlocks | None = None,
 ) -> SscsResult:
     """Run the SSCS stage with the family votes on ``device``.
 
@@ -186,7 +236,26 @@ def run_sscs(
     default sidecars keep their golden bytes.  Unlike the JAX package,
     whose numpy ``cpu`` backend refuses a non-majority policy, every
     policy runs on either device: the port's CPU runs the same torch
-    program as the card."""
+    program as the card.
+
+    ``input_range``: an ``io.columnar.BamRange``; read only that BAI
+    coordinate range of ``in_bam`` (a ``--host_workers`` worker's share).
+
+    ``prestaged``: an eagerly-started decode of THIS input from
+    :func:`prestage_blocks` (the sample batch's overlap), consumed on the
+    stream wire; byte-identical outputs.  A prestage that cannot be
+    consumed (with ``input_range``, or on the dense wire) is closed and the
+    input decoded normally.  The stage closes it on every path.
+
+    Besides the stats, the stage writes ``<p>.metrics.json``: phase walls,
+    and in its ``cumulative`` block the batches and families voted, the
+    bytes moved to and from the card, and the BGZF deflate wall and bytes
+    (``utils.profiling.write_metrics``)."""
+    if prestaged is not None and (input_range is not None or wire != "stream"):
+        # a prestage that cannot be consumed must not leak its producer
+        # thread and open reader: close it and decode normally
+        prestaged.close()
+        prestaged = None
     if wire not in ("stream", "dense"):
         raise ValueError(f"unknown wire {wire!r} (expected 'stream' or 'dense')")
     vote_policy = get_policy(policy)
@@ -194,10 +263,17 @@ def run_sscs(
     tracker = TimeTracker()
     stats = StageStats("SSCS")
     hist = FamilySizeHistogram()
+    cum = Counters()
+    marks = counter_marks()
     cfg = ConsensusConfig(cutoff=cutoff, qual_threshold=qual_threshold)
 
     paths = output_paths(out_prefix)
-    reader = open_batch_source(in_bam)
+    if prestaged is not None:
+        reader = prestaged.reader
+    elif input_range is not None:
+        reader = ColumnarReader(in_bam, bam_range=input_range)
+    else:
+        reader = open_batch_source(in_bam)
     header = reader.header
     bad_writer = BamWriter(paths["bad"], header, atomic=True)
     sscs_writer = SortingBamWriter(paths["sscs"], header, level=level)
@@ -209,7 +285,9 @@ def run_sscs(
     def block_items():
         """Route FamilyBlock events; yield the size >= 2 families of each
         block as ``(block, fam_idx, keys)`` for the device batches."""
-        for kind, a, b in stream_family_blocks(reader, header, bdelim):
+        block_events = (prestaged.events if prestaged is not None
+                        else stream_family_blocks(reader, header, bdelim))
+        for kind, a, b in block_events:
             if kind == "bad":
                 stats.incr("total_reads")
                 stats.incr(f"bad_{b}")
@@ -340,12 +418,19 @@ def run_sscs(
         if wire == "stream":
             for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
                     block_items(), cfg, device, on_device_batch, vote_policy):
+                cum.add("batches_dispatched")
+                cum.add("families_in", len(keys))
                 emit_batch(keys, lengths, out_b, out_q)
         else:
+            def on_batch(batch):
+                cum.add("batches_dispatched")
+                cum.add("families_in", batch.n_real)
+
             # the producer thread runs events(), which writes the bad and
             # singleton records: the generator's close joins it before the
             # writers close below
-            stream = consensus_families(events(), cfg, device, policy=vote_policy)
+            stream = consensus_families(events(), cfg, device, on_batch=on_batch,
+                                        policy=vote_policy)
             try:
                 for fid, codes, quals in stream:
                     tag, members = pending.pop(fid)
@@ -359,6 +444,9 @@ def run_sscs(
     finally:
         if qc is not None:
             obs_qc.set_plane_sink(None)
+        if prestaged is not None:
+            # join the prestage producer BEFORE closing the reader it decodes
+            prestaged.close()
         reader.close()
         if not ok:  # never promote a partial output on error
             for w in (bad_writer, sscs_writer, singleton_writer):
@@ -386,4 +474,12 @@ def run_sscs(
     stats.write(paths["stats_txt"])
     hist.write(paths["families"])
     tracker.write(paths["time_tracker"])
+    cum.add("families_out", stats.get("sscs_written"))
+    add_counter_deltas(cum, marks)
+    write_metrics(
+        f"{out_prefix}.metrics.json", "SSCS", tracker.as_phases(),
+        {"backend": device.type, "jax_backend": None,
+         "n_families": stats.get("families"), "n_reads": stats.get("total_reads")},
+        cumulative=cum.snapshot())
     return SscsResult(paths["sscs"], paths["singleton"], paths["bad"], stats, hist)
+

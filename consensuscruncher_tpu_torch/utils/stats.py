@@ -93,6 +93,13 @@ class TimeTracker:
     def mark(self, label: str) -> None:
         self._marks.append((label, time.time() - self._t0))
 
+    def as_phases(self) -> dict[str, float]:
+        """Per-phase durations (seconds) between consecutive marks."""
+        out, prev = {}, 0.0
+        for label, t in self._marks:
+            out[label] = t - prev
+            prev = t
+        return out
 
     def write(self, path) -> None:
         with open(path, "w") as fh:

@@ -6,10 +6,16 @@ has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
 
+import json
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
+from consensuscruncher_tpu_torch.cli import main as cli_main
+from consensuscruncher_tpu_torch.io.columnar import ColumnarReader
 from consensuscruncher_tpu_torch.ops import consensus_segment, consensus_vote
 from consensuscruncher_tpu_torch.ops.packing import WIRES, build_codebook4, encode_wire, pack4
 from consensuscruncher_tpu_torch.utils.phred import PAD
@@ -487,3 +493,37 @@ def test_policy_dense_and_duplex_on_card_match_cpu(card, policy):
     want = consensus_vote.duplex_batch(host[0], host[1], sa, host[2], host[3], sb,
                                        policy=policy)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def _records(path):
+    with ColumnarReader(path) as reader:
+        out = [reader.header.text]
+        for batch in reader.batches():
+            off = batch.rec_off
+            out += [bytes(batch.buf[off[i]:off[i + 1]]) for i in range(batch.n)]
+    return out
+
+
+def test_host_workers_on_card_match_one_process(card, tmp_path):
+    """``--host_workers 2`` on the card (each worker its own process and
+    CUDA context on the card) writes the one-process card run's records;
+    ``--resume True`` keeps the worker trees, whose SSCS sidecars say the
+    votes ran on the card."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = str(tmp_path / "sample.bam")
+    shutil.copy(os.path.join(repo, "test", "data", "sample.bam"), src)
+    common = ["consensus", "-i", src, "-n", "s", "--scorrect", "True", "--device", "cuda"]
+    cli_main(common + ["-o", str(tmp_path / "one")])
+    res = cli_main(common + ["-o", str(tmp_path / "two"), "--host_workers", "2",
+                             "--resume", "True"])
+    assert res["pipeline"] == "host_sharded[2]"
+    one, two = tmp_path / "one" / "s", tmp_path / "two" / "s"
+    bams = sorted(os.path.relpath(os.path.join(r, f), one)
+                  for r, _d, files in os.walk(one) for f in files if f.endswith(".bam"))
+    assert len(bams) == 11
+    for rel in bams:
+        assert _records(str(two / rel)) == _records(str(one / rel)), rel
+    for i in range(2):
+        with open(two / ".ranges" / f"r{i}" / "sscs" / f"r{i}.metrics.json") as fh:
+            doc = json.load(fh)
+        assert doc["backend"] == "cuda" and doc["cumulative"]["bytes_h2d"] > 0

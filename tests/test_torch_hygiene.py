@@ -3,7 +3,9 @@
 - importing the port and running its CLI imports neither ``jax`` nor any
   module of the JAX package (checked in a fresh interpreter), a staged run,
   a streaming run with QC, a run of the object paths (``--max_mismatch
-  1 --wire dense``) and a ``--policy distilled`` run alike;
+  1 --wire dense``) and a ``--policy distilled`` run alike, and a
+  ``-c config.ini`` batch run with ``--host_workers 2`` and ``--profile``
+  in the parent and in every worker (nor matplotlib there);
 - resolving the default device without CUDA raises instead of carrying on
   on the CPU, and so do the duplex op and the pipelined fused runner when
   no device is named;
@@ -94,6 +96,59 @@ def test_distilled_policy_run_imports_no_jax(tmp_path):
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     with open(tmp_path / "sample" / "sscs" / "sample.sscs_stats.json") as fh:
         assert json.load(fh)["policy"] == "distilled"
+
+
+# A spy for every Python process of a command: at exit it writes its argv
+# and the forbidden modules it imported (JAX, the JAX package, matplotlib).
+_SPY = """
+import atexit, json, os, sys
+
+def _dump():
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "jaxlib", "consensuscruncher_tpu", "matplotlib")
+                 or m.startswith(("jax.", "jaxlib.", "consensuscruncher_tpu.", "matplotlib.")))
+    with open(os.path.join(os.environ["CCT_SPY_DIR"], f"{os.getpid()}.json"), "w") as fh:
+        json.dump({"argv": sys.argv, "bad": bad}, fh)
+
+atexit.register(_dump)
+"""
+
+
+def test_whole_command_imports_no_jax_in_parent_or_workers(tmp_path):
+    """``-c config.ini``, a two-sample batch, ``--host_workers 2`` and
+    ``--profile`` in one command: neither the parent nor any of its four
+    workers imports JAX, the JAX package or matplotlib (a
+    ``sitecustomize`` spy on every process's path records each one's
+    modules at exit)."""
+    spy, dumps = tmp_path / "spy", tmp_path / "dumps"
+    spy.mkdir()
+    dumps.mkdir()
+    (spy / "sitecustomize.py").write_text(_SPY)
+    cfg = tmp_path / "run.ini"
+    cfg.write_text("[consensus]\nbackend = xla_cpu\nscorrect = True\n[qc]\nenabled = True\n")
+    inputs = []
+    for name in ("sample.bam", "sample_adversarial.bam"):
+        inputs.append(str(tmp_path / name))
+        with open(os.path.join(REPO, "test", "data", name), "rb") as src:
+            (tmp_path / name).write_bytes(src.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(spy), CCT_SPY_DIR=str(dumps))
+    proc = subprocess.run(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "consensus", "-c", str(cfg),
+         "-i", ",".join(inputs), "-o", str(tmp_path / "out"), "--host_workers", "2",
+         "--profile", str(tmp_path / "prof")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    runs = [json.loads(p.read_text()) for p in dumps.iterdir()]
+    workers = [r for r in runs if "--input_range" in r["argv"]]
+    assert len(runs) == 5 and len(workers) == 4
+    assert all(r["argv"][r["argv"].index("--device") + 1] == "cpu" for r in workers)
+    assert [r["bad"] for r in runs] == [[]] * 5
+    assert len(os.listdir(tmp_path / "prof")) == 1
+    for name in ("sample", "sample_adversarial"):
+        with open(tmp_path / "out" / name / "qc.json") as fh:
+            assert json.load(fh)["pipeline"] == "host_sharded[2]"
+        assert (tmp_path / "out" / name / "plots" / f"{name}.stage_times.png").exists()
 
 
 @pytest.mark.parametrize("extra", [[], ["--wire", "dense"], ["--pipeline", "streaming"]])
