@@ -111,7 +111,19 @@ failure; no phase's failure is caught.  Phases:
    sample's run, and the Chrome trace names ``vote_tiles_kernel``, with
    the device's busy share of the traced window (a whole run at real
    size); (iv) in every tree, the three PNGs decode and the stage
-   sidecars carry their ``cumulative`` block.
+   sidecars carry their ``cumulative`` block;
+10. multi-device (``--devices N``; with one card, the shards take turns on
+    it), each run held to its one-device counterpart in this call: (i)
+    ``--devices 2`` staged on phase 5's sample (records, stats and
+    ``qc.json``, which has no vote plane on a mesh; one B1 launch per
+    shard; ``vote_s`` and the wall beside phase 5's), (ii) the same under
+    ``--pipeline streaming`` (the finals), (iii) ``--devices 4 --wire
+    dense`` on phase 7's degraded sample, (iv) ``--host_workers 2
+    --devices 2`` on phase 6 (a)'s untagged sample (each worker's sidecar on
+    the card), (v) the ``parallel.mesh`` library steps at
+    ``B8192_F16_L100`` over 1, 2 and 4 shards, each equal to the unsharded
+    B1 or B2 and to its plain version, stats equal, ms per step, (vi) the
+    two-process ``parallel.distributed`` dryrun (gloo) on the card.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -156,12 +168,16 @@ from consensuscruncher_tpu_torch.ops import singleton as hamming  # noqa: E402
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote  # noqa: E402
 from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
     WIRES,
+    build_codebook,
     build_codebook4,
     encode_wire,
+    pack,
     pack4,
     unpack4_device,
     unpack_wire,
 )
+from consensuscruncher_tpu_torch.parallel import distributed  # noqa: E402
+from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
 from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
@@ -2143,6 +2159,273 @@ def phase_config_profile(dev, work: str, card: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------ multi-device
+
+# phase 10 (v): the library steps' shard counts (1 = the unsharded step)
+STEP_SHARDS = (1, 2, 4)
+DRYRUN_DEADLINE_S = 300
+# A process of the two-process distributed dryrun (gloo: NCCL refuses two
+# ranks on one card), its JSON result last.
+_DRYRUN = ("consensuscruncher_tpu_torch.parallel.distributed", "--dist_backend", "gloo",
+           "--local-devices", "2", "--num-processes", "2")
+
+
+def _mesh_run(argv, counts: dict) -> tuple[float, dict]:
+    """One ``consensus --devices N`` run in this process: its wall and
+    result, with the sharded votes counted and timed (synchronised) into
+    ``counts`` and the B1 launches of the run (set to 0 just before, read
+    just after)."""
+    acc: dict[str, float] = {}
+    calls: dict[str, int] = {}
+    restores = [
+        _synced_timer(mesh_mod, "stream_vote_sharded", acc, "stream", calls),
+        _synced_timer(mesh_mod, "sharded_vote_async", acc, "dense", calls),
+        _synced_timer(dcs_maker, "duplex_batch_host_sharded", acc, "duplex", calls)]
+    consensus_vote.launches = consensus_vote.qc_launches = consensus_vote.fused_launches = 0
+    residency.pair_votes = residency.against_votes = 0
+    try:
+        t = time.perf_counter()
+        res = cli_main(argv)
+        wall = time.perf_counter() - t
+    finally:
+        for restore in restores:
+            restore()
+    counts.update(
+        b1_launches=consensus_vote.launches, qc_launches=consensus_vote.qc_launches,
+        resident_votes=residency.pair_votes + residency.against_votes,
+        stream_calls=calls["stream"], dense_calls=calls["dense"],
+        duplex_calls=calls["duplex"], vote_s=acc["stream"] + acc["dense"],
+        duplex_s=acc["duplex"])
+    if counts["qc_launches"] or counts["resident_votes"]:
+        raise AssertionError(f"a mesh run armed the QC rider or residency: {counts}")
+    return wall, res
+
+
+def _step_inputs(rng, b: int, f: int, length: int):
+    """Two strand batches of ``b`` families of up to ``f`` members at
+    ``length``: pure-ACGT bases and binned quals (every wire takes them),
+    dead slots base 0 and qual ``BINNED[0]``, strand B missing in every
+    fifth pair."""
+    strands = []
+    for _ in range(2):
+        bases = rng.integers(0, 4, (b, f, length)).astype(np.uint8)
+        quals = BINNED[rng.integers(0, 4, (b, f, length))]
+        sizes = rng.integers(1, f + 1, b).astype(np.int32)
+        dead = np.arange(f)[None, :] >= sizes[:, None]
+        bases[dead], quals[dead] = 0, BINNED[0]
+        strands.append((bases, quals, sizes))
+    strands[1][2][::5] = 0
+    return strands
+
+
+def phase_library_steps(dev, card: str) -> dict:
+    """(v) the mesh library steps at the JAX package's shape
+    ``B8192_F16_L100``, over ``STEP_SHARDS`` shards of the card, inputs on
+    the card: ``sharded_consensus_batch`` (B1's dense form per shard) and
+    ``full_pipeline_step``, ``packed_pipeline_step`` (pack8) and
+    ``packed4_pipeline_step`` (B2 per shard).  Every sharded result equals
+    the unsharded kernel's (B1's or B2's dense form) and its plain version
+    on the card, exactly, and its stats the unsharded step's; each step's
+    launches are one per shard, and its ms per step (CUDA events) is
+    printed per shard count."""
+    b, f, length = DENSE_SHAPES["B8192_F16_L100"]
+    rng = np.random.default_rng(81)
+    (ba, qa, na), (bb, qb, nb) = _step_inputs(rng, b, f, length)
+    book8 = build_codebook(BINNED)
+    book4 = build_codebook4(BINNED)
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        ba=ba, qa=qa, bb=bb, qb=qb, pa8=pack(ba, qa, book8), pb8=pack(bb, qb, book8),
+        pa4=pack4(ba, qa, book4), pb4=pack4(bb, qb, book4)).items()}
+    starts = torch.arange(b, dtype=torch.int64) * f
+    flat = {k: on_card[k].reshape(b * f, length) for k in ("ba", "qa", "bb", "qb")}
+    # the unsharded kernels and their plain versions on the same inputs
+    b1 = torch.stack(consensus_vote.consensus_batch(on_card["ba"], on_card["qa"], na))
+    b1_plain = consensus_vote.vote_members_plain(flat["ba"], flat["qa"], na, starts=starts)
+    b2 = torch.stack(consensus_vote.duplex_batch(on_card["ba"], on_card["qa"], na,
+                                                 on_card["bb"], on_card["qb"], nb))
+    b2_plain = consensus_vote.duplex_members_plain(flat["ba"], flat["qa"], na, flat["bb"],
+                                                   flat["qb"], nb, starts_a=starts,
+                                                   starts_b=starts)
+    for name, got, want in (("B1", b1, b1_plain), ("B2", b2, b2_plain)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} dense at B8192_F16_L100 differs from its plain version")
+    rows: dict[str, dict] = {}
+    base_stats: dict[str, list] = {}
+    for shards in STEP_SHARDS:
+        mesh = mesh_mod.make_mesh(devices=[dev] * shards)
+        steps = {
+            "sharded_consensus_batch": (
+                lambda m=mesh: mesh_mod.sharded_consensus_batch_async(
+                    on_card["ba"], on_card["qa"], na, m), "b1"),
+            "full_pipeline_step": (
+                lambda m=mesh: mesh_mod.full_pipeline_step(m)(
+                    on_card["ba"], on_card["qa"], na, on_card["bb"], on_card["qb"], nb), "b2"),
+            "packed_pipeline_step": (
+                lambda m=mesh: mesh_mod.packed_pipeline_step(m)(
+                    on_card["pa8"], na, on_card["pb8"], nb, book8), "b2"),
+            "packed4_pipeline_step": (
+                lambda m=mesh: mesh_mod.packed4_pipeline_step(m, length)(
+                    on_card["pa4"], na, on_card["pb4"], nb, book4), "b2"),
+        }
+        for name, (step, kind) in steps.items():
+            consensus_vote.launches = consensus_vote.fused_launches = 0
+            out = step()
+            launched = consensus_vote.launches if kind == "b1" else consensus_vote.fused_launches
+            planes, stats = torch.stack(out[:-1]), out[-1].cpu().tolist()
+            want = b1 if kind == "b1" else b2
+            if launched != shards or not torch.equal(planes, want):
+                raise AssertionError(f"{name} over {shards} shards: {launched} launches, "
+                                     f"planes equal {torch.equal(planes, want)}")
+            if base_stats.setdefault(name, stats) != stats:
+                raise AssertionError(f"{name} over {shards} shards: stats {stats}, unsharded "
+                                     f"{base_stats[name]}")
+            rows.setdefault(name, {})[str(shards)] = {"ms": cuda_ms(step, 5),
+                                                      "launches": launched}
+    row = {"card": card, "shape": "B8192_F16_L100", "shards": list(STEP_SHARDS),
+           "stats": base_stats, "steps": rows}
+    emit("library_steps", **row)
+    return row
+
+
+def phase_dryrun(dev, card: str) -> dict:
+    """(vi) the distributed dryrun: two processes of ``python -m
+    consensuscruncher_tpu_torch.parallel.distributed`` (gloo, two shards
+    each, all on this card), each with a deadline: both report the stats
+    of the same global batch's ``full_pipeline_step`` over four shards in
+    this process, ``stream_wire_ok``, and one fused and one SSCS launch per
+    local shard."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", *_DRYRUN, "--device", dev.type,
+         "--coordinator", f"127.0.0.1:{port}", "--process-id", str(i)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in range(2)]
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=DRYRUN_DEADLINE_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun process failed:\n{out[-2000:]}\n{err[-4000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:  # never leave a rendezvous-blocked sibling behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t
+    _rng, batch = distributed.dryrun_batch(2, 8, 4, 32, 7)
+    want = mesh_mod.full_pipeline_step(mesh_mod.make_mesh(devices=[dev] * 4))(*batch)[-1]
+    want = want.cpu().tolist()
+    launches = 2 if dev.type == "cuda" else 0  # one of each per local shard on the card
+    for r in results:
+        got = [r["families"], r["duplexes"], r["n_count"], r["q_sum"]]
+        if (got != want or not r["stream_wire_ok"] or r["backend"] != "gloo"
+                or r["launches"] != {"sscs": launches, "fused": launches}
+                or not r["device"].startswith(dev.type)):
+            raise AssertionError(f"dryrun process {r['process_id']}: {r}, expected stats {want}")
+    row = {"card": card, "seconds": seconds, "stats": want, "processes": results}
+    emit("dryrun", **row)
+    return row
+
+
+def phase_devices(dev, sim_bam: str, work: str, scale: dict, walls: dict, card: str) -> dict:
+    """Phase 10, multi-device (``--devices N``; on a box with one card the
+    shards take turns on it), each run held to its one-device counterpart
+    in this call: (i) ``--devices 2`` staged on phase 5's sample: records
+    and stats (less backend lines) equal to phase 5's counted run, its
+    ``qc.json`` that run's with no vote plane (a mesh arms no rider), one
+    B1 launch per shard of every batch; (ii) the same under ``--pipeline
+    streaming``: the finals byte for byte phase 5's; (iii) ``--devices 4
+    --wire dense`` on phase 7's degraded sample: its majority run's
+    records; (iv) ``--host_workers 2 --devices 2`` on phase 6 (a)'s
+    untagged sample, the parent in a process of its own: (a)'s records,
+    each worker's sidecar on the card; (v) the library steps; (vi) the
+    distributed dryrun."""
+    row: dict = {"card": card}
+    main_base = os.path.join(work, "sim")
+    want = _bam_sha256(main_base)
+    ref_qc = _qc_doc(main_base)
+    for label, extra in (("staged", []), ("streaming", ["--pipeline", "streaming"])):
+        out = os.path.join(work, f"devices2_{label}")
+        counts: dict = {}
+        wall, res = _mesh_run(["consensus", "-i", sim_bam, "-o", out, "-n", "sim",
+                               "--scorrect", "True", "--device", dev.type, "--devices", "2",
+                               *extra], counts)
+        base = os.path.join(out, "sim")
+        # one launch per shard that holds families: both, but in a batch
+        # too small to split
+        if res["pipeline"] != label or counts["duplex_calls"] == 0 or not \
+                counts["stream_calls"] < counts["b1_launches"] <= 2 * counts["stream_calls"]:
+            raise AssertionError(f"--devices 2 {label}: {res['pipeline']}, {counts}")
+        if label == "staged":
+            bams = _same_tree(base, "sim", main_base, "sim")
+            mine = _qc_doc(base)
+            if mine["plane"] is not None or {**mine, "plane": 0} != {**ref_qc, "plane": 0}:
+                raise AssertionError(f"--devices 2: qc.json {mine}")
+        else:
+            got = _bam_sha256(base)
+            finals = {k: v for k, v in want.items() if k not in INTERMEDIATES}
+            if got != finals:
+                raise AssertionError("--devices 2 streaming: other finals than phase 5's")
+            bams = len(got)
+        shutil.rmtree(out)
+        n1 = {"staged": walls["staged_uninstrumented_wall_s"],
+              "streaming": min(walls["streaming_walls_s"])}[label]
+        row[label] = {"wall_s": wall, "steps_s": res["walls"], "bams_equal": bams, **counts,
+                      "n1_wall_s": n1, "n1_counted_wall_s": scale["wall_s"],
+                      "n1_vote_s": scale["vote_s"], "n1_launches": scale["vote_kernel_launches"]}
+        emit("devices", cell=f"devices2_{label}", **row[label])
+
+    out = os.path.join(work, "devices4_dense")
+    counts = {}
+    wall, res = _mesh_run(["consensus", "-i", os.path.join(work, "degraded.bam"), "-o", out,
+                           "-n", "p", "--scorrect", "True", "--device", dev.type, "--devices",
+                           "4", "--wire", "dense"], counts)
+    if counts["dense_calls"] == 0 or counts["b1_launches"] != 4 * counts["dense_calls"]:
+        raise AssertionError(f"--devices 4 --wire dense: {counts}")
+    bams = _same_tree(os.path.join(out, "p"), "p", os.path.join(work, "degraded_majority", "p"),
+                      "p")
+    shutil.rmtree(out)
+    row["dense4"] = {"wall_s": wall, "steps_s": res["walls"], "bams_equal": bams, **counts,
+                     "fragments": DEGRADED_FRAGMENTS}
+    emit("devices", cell="devices4_dense", **row["dense4"])
+
+    out = os.path.join(work, "hw2_devices2")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARENT, REPO, "consensus", "-i", os.path.join(work, "obj.bam"),
+         "-o", out, "-n", "obj", "--scorrect", "True", "--device", dev.type,
+         "--host_workers", "2", "--devices", "2", "--resume", "True"],
+        capture_output=True, text=True, timeout=900)
+    command_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"--host_workers 2 --devices 2 failed:\n{proc.stderr[-4000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    base = os.path.join(out, "obj")
+    bams = _same_tree(base, "obj", os.path.join(work, "untagged", "obj"), "obj")
+    for i in range(2):
+        with open(os.path.join(base, ".ranges", f"r{i}", "sscs", f"r{i}.metrics.json")) as fh:
+            doc = json.load(fh)
+        if doc["backend"] != dev.type:
+            raise AssertionError(f"worker r{i}: backend {doc['backend']}")
+        with open(os.path.join(base, ".ranges", f"r{i}.stderr")) as fh:
+            shards_line = "--devices 2: 2 shards over" in fh.read()
+        if dev.type == "cuda" and torch.cuda.device_count() < 2 and not shards_line:
+            raise AssertionError(f"worker r{i} did not name its shards over the card")
+    shutil.rmtree(out)
+    row["hw2_devices2"] = {"wall_s": run["wall_s"], "command_s": command_s,
+                           "steps_s": run["steps_s"], "bams_equal": bams,
+                           "fragments": OBJECT_FRAGMENTS}
+    emit("devices", cell="host_workers2_devices2", **row["hw2_devices2"])
+    row["library_steps"] = phase_library_steps(dev, card)
+    row["dryrun"] = phase_dryrun(dev, card)
+    return row
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -2192,6 +2475,9 @@ def main() -> None:
                     rates["card"])
         phase_config_profile(dev, work, rates["card"])
         emit("whole_command", seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        phase_devices(dev, sim_bam, work, scale, walls, rates["card"])
+        emit("multi_device", seconds=time.perf_counter() - t)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("smoke", seconds=time.perf_counter() - started)

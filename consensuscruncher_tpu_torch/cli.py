@@ -6,7 +6,7 @@
         [--pipeline staged|streaming] [--intermediate_taps True] \\
         [--max_mismatch N] [--wire stream|dense] \\
         [--policy majority|delegation|distilled] [--host_workers N] \\
-        [--profile DIR] ...
+        [--devices N] [--profile DIR] ...
 
 Port of ``consensuscruncher_tpu/cli.py``'s ``consensus``: SSCS -> singleton
 rescue -> rescued merge -> DCS -> all-unique merges -> BAI indexes ->
@@ -26,6 +26,9 @@ runs a sample batch, each sample under its own ``<output>/<stem>/``, the
 next sample's decode prestaged while the current one runs.
 ``--host_workers N`` runs N worker processes over BAI coordinate ranges of
 the input (sharing the visible CUDA cards) and merges their outputs.
+``--devices N`` family-shards the SSCS votes and pair-shards the DCS votes
+over N shards laid over the visible cards (``parallel.mesh``); with
+``--device cpu``, N CPU shards.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run.
 """
 
@@ -330,7 +333,8 @@ def _consensus_host_sharded(args) -> dict:
             "cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", *argv],
             "retry_cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli",
                           *retry_argv],
-            "env": hostshard.worker_env(base_env, i, device.type, n_cards),
+            "env": hostshard.worker_env(base_env, i, device.type, n_cards,
+                                        args.devices or 1),
             "err_path": os.path.join(ranges_dir, f"r{i}.stderr"),
         })
     hostshard.run_workers(workers, retries=int(os.environ.get("CCT_WORKER_RETRIES", "1")))
@@ -432,13 +436,16 @@ def _consensus_one(args) -> dict:
     ilevel = args.compress_level if args.intermediate_level is None else args.intermediate_level
     run = _Run(args, device, name, base, dirs, manifest, ilevel, t0, io_before)
 
-    # Device-resident SSCS planes (on by default on the stream wire, as in
-    # the JAX package): rescue and DCS vote by gather on the device instead
-    # of uploading the SSCS planes again.  Outputs are byte-identical
-    # either way, so it is no manifest param; a resume that skips SSCS
-    # leaves the store empty and rescue and DCS vote by upload.
+    # Device-resident SSCS planes (on by default on the single-device
+    # stream wire, as in the JAX package): rescue and DCS vote by gather on
+    # the device instead of uploading the SSCS planes again.  Outputs are
+    # byte-identical either way, so it is no manifest param; a resume that
+    # skips SSCS leaves the store empty and rescue and DCS vote by upload.
+    # A --devices N > 1 run keeps no store: its rows come back from the
+    # shards in per-device blocks.
     def store():
-        if args.wire == "stream" and _bool(args.residency):
+        if (args.wire == "stream" and _bool(args.residency)
+                and (args.devices is None or args.devices <= 1)):
             return resident_planes(device, DEFAULT_QUAL_CAP)
         return None
 
@@ -497,7 +504,8 @@ def _consensus_staged(run: _Run, residency) -> dict:
                              qual_threshold=args.qualscore, bdelim=args.bdelim, level=ilevel,
                              residency=residency, qc=qc_acc, wire=args.wire,
                              policy=args.policy, input_range=input_range,
-                             prestaged=getattr(args, "_prestaged", None)),
+                             prestaged=getattr(args, "_prestaged", None),
+                             devices=args.devices),
         rebuild=lambda: SscsResult.from_prefix(sscs_prefix))
     walls.mark("sscs")
     sscs_parts = [sscs.sscs_bam]
@@ -532,7 +540,8 @@ def _consensus_staged(run: _Run, residency) -> dict:
     dcs_prefix = os.path.join(dirs["dcs"], name)
     dcs = checkpointed(
         "dcs", [dcs_input], list(dcs_maker.output_paths(dcs_prefix).values()), {},
-        run=lambda: run_dcs(dcs_input, dcs_prefix, device, level=ilevel, residency=residency),
+        run=lambda: run_dcs(dcs_input, dcs_prefix, device, level=ilevel, residency=residency,
+                            devices=args.devices),
         rebuild=lambda: DcsResult.from_prefix(dcs_prefix))
     walls.mark("dcs")
 
@@ -594,7 +603,8 @@ def _consensus_streaming(run: _Run, residency) -> dict:
                         cutoff=args.cutoff, qual_threshold=args.qualscore,
                         bdelim=args.bdelim, level=ilevel, residency=residency,
                         qc=qc_acc, stream_out=stream, wire=args.wire,
-                        policy=args.policy, prestaged=getattr(args, "_prestaged", None))
+                        policy=args.policy, prestaged=getattr(args, "_prestaged", None),
+                        devices=args.devices)
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -621,7 +631,8 @@ def _consensus_streaming(run: _Run, residency) -> dict:
         # overlapping the DCS stage's votes
         stream.submit(merge_memory_bams, sscs_mem_parts, all_sscs, level=level)
         dcs = run_dcs(BatchStream(dcs_in_mem), os.path.join(dirs["dcs"], name), device,
-                      level=ilevel, residency=residency, stream_out=stream)
+                      level=ilevel, residency=residency, stream_out=stream,
+                      devices=args.devices)
         walls.mark("dcs")
         merge_memory_bams([stream.memory["dcs"], stream.memory["unpaired"]], all_dcs,
                           level=level)
@@ -758,6 +769,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler Chrome trace of the run into DIR "
                         "(consensus.<pid>.trace.json; the card's kernels and "
                         "copies too when the run drives it)")
+    c.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="shard the device votes across N shards (family-data-"
+                        "parallel mesh over the packed stream wire; DCS pair "
+                        "axis sharded too), laid over the visible cards in "
+                        "turn; with --device cpu, N CPU shards. Default: 1")
     c.add_argument("--compress_level", type=int, choices=range(0, 10),
                    metavar="0-9", help="BGZF deflate level of output BAMs (default 6)")
     c.add_argument("--host_workers", type=int, metavar="N",
@@ -844,6 +860,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.max_mismatch, args.compress_level = int(args.max_mismatch), int(args.compress_level)
     if args.intermediate_level is not None:
         args.intermediate_level = int(args.intermediate_level)
+    if args.devices is not None:
+        args.devices = int(args.devices)
     args.host_workers = int(args.host_workers)
     if args.host_workers < 0:
         parser.error(f"--host_workers must be >= 0, got {args.host_workers}")

@@ -1,7 +1,7 @@
-"""Consensus defaults and the exact rational cutoff.
+"""Consensus defaults, the exact rational cutoff and the family oracle.
 
-Port of the constants and :func:`cutoff_fraction` of
-``consensuscruncher_tpu/core/consensus_cpu.py``, whose docstring pins the
+Port of the constants, :func:`cutoff_fraction` and :func:`consensus_maker`
+of ``consensuscruncher_tpu/core/consensus_cpu.py``, whose docstring pins the
 vote's semantics (reference parity target:
 ``ConsensusCruncher/consensus_helper.py:consensus_maker``).  Per position
 over a family of ``F`` reads: a read whose qual is below ``qual_threshold``
@@ -13,7 +13,12 @@ qual_cap)``, anything else is ``(N, 0)``.
 
 from __future__ import annotations
 
+from collections import Counter
 from fractions import Fraction
+
+import numpy as np
+
+from consensuscruncher_tpu_torch.utils.phred import N
 
 DEFAULT_CUTOFF = 0.7
 DEFAULT_QUAL_CAP = 60
@@ -31,3 +36,52 @@ def cutoff_fraction(cutoff: float) -> tuple[int, int]:
     """
     frac = Fraction(cutoff).limit_denominator(1000)
     return frac.numerator, frac.denominator
+
+
+def _validate_family(seqs: np.ndarray, quals: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Un-padded ``(F, L)`` code arrays with codes in A..N (0..4): PAD (5)
+    is a layout artifact the batching layers mask before consensus."""
+    seqs = np.asarray(seqs, dtype=np.uint8)
+    quals = np.asarray(quals, dtype=np.uint8)
+    if seqs.ndim != 2 or seqs.shape != quals.shape:
+        raise ValueError(f"seqs/quals must be matching (F, L) arrays, got {seqs.shape}/{quals.shape}")
+    if seqs.shape[0] == 0:
+        raise ValueError("empty family")
+    if seqs.size and seqs.max() > N:
+        raise ValueError("base codes above N (4) — strip PAD before consensus")
+    return seqs, quals
+
+
+def consensus_maker(
+    seqs: np.ndarray,
+    quals: np.ndarray,
+    cutoff: float = DEFAULT_CUTOFF,
+    qual_threshold: int = DEFAULT_QUAL_THRESHOLD,
+    qual_cap: int = DEFAULT_QUAL_CAP,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Collapse one UMI family (``(F, L)`` uint8 base codes and Phred
+    quals, one row per member) to ``(consensus_codes, consensus_quals)``,
+    two ``(L,)`` uint8 arrays: the readable per-position Counter loop, the
+    oracle the kernels are held to."""
+    seqs, quals = _validate_family(seqs, quals)
+    fam, length = seqs.shape
+    num, den = cutoff_fraction(cutoff)
+
+    out_base = np.full(length, N, dtype=np.uint8)
+    out_qual = np.zeros(length, dtype=np.uint8)
+
+    for i in range(length):
+        counter: Counter = Counter()
+        for j in range(fam):
+            b = seqs[j, i]
+            eff = N if quals[j, i] < qual_threshold else int(b)
+            counter[eff] += 1
+        modal, count = counter.most_common(1)[0]
+        if modal != N and count * den >= num * fam:
+            qsum = 0
+            for j in range(fam):
+                if seqs[j, i] == modal and quals[j, i] >= qual_threshold:
+                    qsum += int(quals[j, i])
+            out_base[i] = modal
+            out_qual[i] = min(qsum, qual_cap)
+    return out_base, out_qual

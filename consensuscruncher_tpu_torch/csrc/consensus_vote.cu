@@ -642,25 +642,36 @@ __global__ void __launch_bounds__(kBlock, kQc ? kQcMinBlocks : kMinBlocks)
   }
 }
 
+// Cards a process may address: the grid and the kernel's shared-memory
+// attribute are per card (a function attribute set on one card's context
+// does not reach another's).
+constexpr int kMaxCards = 64;
+
 template <int W, bool kDuplex, bool kQc>
 struct Launcher {
+  // the persistent grid of the current card, which the caller made the
+  // planes' card
   static int grid_blocks() {
-    static int cached = 0;
-    if (cached == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaGetDevice(&dev);
+    static int cached[kMaxCards] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= kMaxCards) return 0;
+    if (cached[dev] == 0) {
+      int sms = 0, per_sm = 0;
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       cudaFuncSetAttribute(vote_tiles_kernel<W, kDuplex, kQc>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kStages * kStageBytes);
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, vote_tiles_kernel<W, kDuplex, kQc>, kBlock, kStages * kStageBytes);
-      cached = sms * (per_sm > 0 ? per_sm : 1);
+      cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
     }
-    return cached;
+    return cached[dev];
   }
   static int launch(const Params& p, cudaStream_t stream) {
-    const int grid = p.n_tiles < grid_blocks() ? p.n_tiles : grid_blocks();
+    const int blocks = grid_blocks();
+    if (blocks == 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const int grid = p.n_tiles < blocks ? p.n_tiles : blocks;
     vote_tiles_kernel<W, kDuplex, kQc><<<grid, kBlock, kStages * kStageBytes, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
@@ -714,12 +725,13 @@ void cct_tile_constants(int duplex, int64_t* out) {
 }
 
 // Blocks of the persistent grid (SMs x resident blocks per SM) of one
-// instantiation (qc: the SSCS vote with the QC rider).
+// instantiation (qc: the SSCS vote with the QC rider) on the current card.
 int cct_tile_grid(int wire, int duplex, int qc) {
   return dispatch_form(wire, duplex, qc, nullptr, nullptr, true);
 }
 
-// One launch of the vote over a planned tile table on `stream`.
+// One launch of the vote over a planned tile table on `stream`, a stream of
+// the current card, which holds the planes.
 // planes: [strand0 bases|wire, strand0 quals, strand1 bases|wire, strand1
 // quals]; row_bytes, width, extent: per strand (extent: bytes from a plane
 // to its last row's end); fam: per family (start, size) per strand, int64;

@@ -26,6 +26,7 @@ from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_segment import _add_qc
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
+from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod
 from consensuscruncher_tpu_torch.parallel.batching import FamilyBatch, bucket_families
 from consensuscruncher_tpu_torch.parallel.prefetch import (
     DEFAULT_DEPTH,
@@ -33,7 +34,7 @@ from consensuscruncher_tpu_torch.parallel.prefetch import (
     prefetch,
     start_fetch,
 )
-from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY
+from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 
 
 def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.device,
@@ -55,7 +56,7 @@ def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.d
 
 def consensus_families(families, config: ConsensusConfig, device: torch.device,
                        max_batch: int = 1024, prefetch_depth: int = DEFAULT_DEPTH,
-                       on_batch=None, policy=DEFAULT_POLICY):
+                       on_batch=None, policy=DEFAULT_POLICY, mesh=None):
     """Stream ragged families through the dense vote, double-buffered.
 
     ``families`` yields ``(key, member_seqs, member_quals)`` (ragged lists
@@ -65,16 +66,31 @@ def consensus_families(families, config: ConsensusConfig, device: torch.device,
     ``prefetch_depth`` batches ahead (``0``: serial, no thread), and one
     batch is in flight on the device while the previous one downloads.
     ``on_batch(batch)`` is called with each ``FamilyBatch`` at dispatch.
-    ``policy``: the vote policy of every batch."""
-    qc_sink = obs_qc.plane_sink()
+    ``policy``: the vote policy of every batch.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; each batch's live families are
+    then padded to a mesh multiple (``pad_batch_to_mesh``) and voted family
+    sharded (``sharded_vote_async``: B1's dense form per shard), with no
+    QC rider, as the JAX package's dense mesh branch."""
+    name = get_policy(policy).name
+    if mesh is not None and name != DEFAULT_POLICY:
+        raise ValueError(f"vote policy {name!r} is single-device only")
+    qc_sink = obs_qc.plane_sink() if mesh is None else None
     qc_total = torch.zeros((2, 0), dtype=torch.int64, device=device)
+
+    def vote(batch):
+        if mesh is None:
+            return consensus_batch(batch, config, device, qc=qc_sink is not None, policy=policy)
+        n = batch.n_real
+        bases, quals, sizes, _lengths, _n = mesh_mod.pad_batch_to_mesh(
+            batch.bases[:n], batch.quals[:n], batch.fam_sizes[:n], mesh)
+        return torch.stack(mesh_mod.sharded_vote_async(bases, quals, sizes, mesh, config))
 
     def dispatch(batch):
         nonlocal qc_total
         if on_batch is not None:
             on_batch(batch)
-        planes = consensus_batch(batch, config, device, qc=qc_sink is not None,
-                                 policy=policy)
+        planes = vote(batch)
         if qc_sink is not None:
             planes, sums = planes
             qc_total = _add_qc(qc_total, sums)

@@ -42,6 +42,7 @@ from consensuscruncher_tpu_torch.ops.packing import (
     pack6,
     unpack_wire,
 )
+from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod
 from consensuscruncher_tpu_torch.parallel.batching import (
     QUAL_FILL_SENTINEL,
     bucket_member_blocks,
@@ -168,7 +169,7 @@ def _out_len(batch) -> int | None:
 
 
 def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.device,
-                             on_device_batch=None, policy=DEFAULT_POLICY):
+                             on_device_batch=None, policy=DEFAULT_POLICY, mesh=None):
     """MemberBatch iterable -> one ``(keys, lengths, out_bases, out_quals)``
     host tuple per batch (the ``(n_real, out_len)`` result planes; callers
     slice rows by ``lengths``).  Serial: encode, upload, vote, download.
@@ -187,29 +188,48 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
     the sink as one handle when the batches end, and the sink copies it to
     the host when it is finalized.
 
-    ``policy``: the vote policy of every batch (see :func:`stream_vote`)."""
+    ``policy``: the vote policy of every batch (see :func:`stream_vote`).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` to family-shard each batch over
+    (``parallel.mesh.stream_vote_sharded``: the batch's live families
+    planned into contiguous runs, one launch per device; rows return to
+    key order by ``plan.order()``); None = ``device`` alone.  As in the JAX
+    package, a mesh takes the majority vote only (any other policy
+    raises), arms no QC rider (its rows come back in per-device blocks)
+    and fires no ``on_device_batch``."""
     from consensuscruncher_tpu_torch.obs import qc as obs_qc
 
-    qc_sink = obs_qc.plane_sink()
+    name = get_policy(policy).name
+    if mesh is not None and name != DEFAULT_POLICY:
+        raise ValueError(f"vote policy {name!r} is single-device only — the mesh stream "
+                         "wire shards the hand-unrolled majority program")
+    qc_sink = obs_qc.plane_sink() if mesh is None else None
     qc_total = torch.zeros((2, 0), dtype=torch.int64, device=device)
     try:
         for batch in batches:
             wire, a, b = encode_member_batch(batch)
             n = batch.n_real
-            # the codebook of a packed wire rides in the kernel's arguments
-            b = torch.from_numpy(b)
-            lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
-            obs_metrics.note_transfer("h2d", a.nbytes + (b.nbytes if wire == "raw" else 0),
-                                      device)
-            planes = stream_vote(wire, torch.from_numpy(a).to(device),
-                                 b.to(device) if wire == "raw" else b,
-                                 torch.from_numpy(batch.sizes[:n]), config,
-                                 _out_len(batch), lengths, policy)
-            if qc_sink is not None:
-                planes, qc = planes
-                qc_total = _add_qc(qc_total, qc)
-            if on_device_batch is not None:
-                on_device_batch(batch, planes)
+            if mesh is not None:  # each shard's upload is counted where it is made
+                sizes = batch.sizes[:n]
+                planes = mesh_mod.stream_vote_sharded(mesh, wire, a, b, sizes, config,
+                                                      _out_len(batch))
+                order = mesh_mod.plan_member_shards(sizes, mesh.size).order()
+                planes = planes[:, torch.from_numpy(order).to(planes.device)]
+            else:
+                obs_metrics.note_transfer("h2d", a.nbytes + (b.nbytes if wire == "raw" else 0),
+                                          device)
+                # the codebook of a packed wire rides in the kernel's arguments
+                b = torch.from_numpy(b)
+                lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
+                planes = stream_vote(wire, torch.from_numpy(a).to(device),
+                                     b.to(device) if wire == "raw" else b,
+                                     torch.from_numpy(batch.sizes[:n]), config,
+                                     _out_len(batch), lengths, policy)
+                if qc_sink is not None:
+                    planes, qc = planes
+                    qc_total = _add_qc(qc_total, qc)
+                if on_device_batch is not None:
+                    on_device_batch(batch, planes)
             out = planes.cpu().numpy()
             obs_metrics.note_transfer("d2h", out.nbytes, device)
             yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
@@ -229,14 +249,15 @@ def _add_qc(total: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
 
 def consensus_blocks_stream_batched(items, config: ConsensusConfig,
                                     device: torch.device, on_device_batch=None,
-                                    policy=DEFAULT_POLICY):
+                                    policy=DEFAULT_POLICY, mesh=None):
     """FamilyBlock items ``(block, fam_idx, keys)`` (see
     ``parallel.batching.bucket_member_blocks``) -> per-batch
     ``(keys, lengths, out_bases, out_quals)`` tuples, voted on ``device``
-    under ``policy``; ``on_device_batch`` is the residency capture hook
-    (see :func:`_run_member_batch_stream`)."""
+    (or family-sharded over ``mesh``) under ``policy``;
+    ``on_device_batch`` is the residency capture hook (see
+    :func:`_run_member_batch_stream`)."""
     yield from _run_member_batch_stream(bucket_member_blocks(items), config, device,
-                                        on_device_batch, policy)
+                                        on_device_batch, policy, mesh)
 
 
 # ------------------------------------------------- fused SSCS + DCS (B9)

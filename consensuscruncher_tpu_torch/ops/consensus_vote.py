@@ -77,7 +77,7 @@ last_plan: tiles.TilePlan | None = None
 _lib = None
 # the kernel's shapes per form, SSCS (False) and duplex (True): cct_tile_constants
 _layouts: dict[bool, tiles.Layout] = {}
-_grids: dict[tuple[int, int, int], int] = {}
+_grids: dict[tuple[int, int, int, int], int] = {}
 
 
 @dataclass(frozen=True)
@@ -587,10 +587,13 @@ def _library():
     return _lib
 
 
-def _grid(wire: int, duplex: bool, qc: bool) -> int:
-    key = (wire, int(duplex), int(qc))
+def _grid(wire: int, duplex: bool, qc: bool, dev: torch.device) -> int:
+    """Blocks of the persistent grid of one instantiation on card ``dev``
+    (its SM count times the blocks resident per SM), asked of that card."""
+    key = (dev.index, wire, int(duplex), int(qc))
     if key not in _grids:
-        _grids[key] = _library().cct_tile_grid(*key)
+        with torch.cuda.device(dev):
+            _grids[key] = _library().cct_tile_grid(*key[1:])
     return _grids[key]
 
 
@@ -659,14 +662,14 @@ class TileLaunch:
         planes = [p for _strand, pl in strands for p in pl]
         if len(strands) == 1:
             planes += planes[:2]
-        dev = planes[0].device
+        dev = planes[0].device  # a tensor's device names its card's index
         self.duplex = duplex
         self.wire = WIRES.index(wire)
         n = int(strands[0][0].sizes.shape[0])
         nplanes = (3 if packed_out else 6) if duplex else 2
         self.out = torch.empty((nplanes, n, length), dtype=torch.uint8, device=dev)
         self.with_qc = qc_lengths is not None
-        grid = _grid(self.wire, duplex, self.with_qc)  # loads the library and its layout
+        grid = _grid(self.wire, duplex, self.with_qc, dev)  # loads the library and its layout
         # one pinned buffer, one copy to the card: the stats (zeros, which the
         # kernel adds into), with the QC rider its (2, length) int32 sums
         # (zeros), the family records (at an even word: their bulk copies
@@ -729,7 +732,11 @@ class TileLaunch:
         if self.n_tiles == 0:
             return self.out, self.stats
         lib = _library()
-        rc = lib.cct_vote_tiles(*self._args, torch.cuda.current_stream(self.dev).cuda_stream)
+        # the planes' card is the current device for the launch, which goes
+        # to that card's current stream (a launch on another card's stream,
+        # or with another card current, would fail or run on the wrong card)
+        with torch.cuda.device(self.dev):
+            rc = lib.cct_vote_tiles(*self._args, torch.cuda.current_stream(self.dev).cuda_stream)
         if self.duplex:
             fused_launches += 1
         else:

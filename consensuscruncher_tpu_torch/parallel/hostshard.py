@@ -241,19 +241,25 @@ def worker_argv(input_path: str, out_dir: str, name: str, args,
         argv += ["--input_range", range_spec]
     if resume:
         argv += ["--resume", "True"]
+    if getattr(args, "devices", None):
+        argv += ["--devices", str(args.devices)]
     return argv
 
 
-def worker_env(base_env: dict, i: int, device: str, n_cards: int) -> dict:
+def worker_env(base_env: dict, i: int, device: str, n_cards: int, devices: int = 1) -> dict:
     """Worker ``i``'s environment: ``base_env``, and on the card
-    ``CUDA_VISIBLE_DEVICES`` naming one card, card ``i mod n_cards`` of
-    those visible to the parent (its own ``CUDA_VISIBLE_DEVICES`` list,
-    else cards ``0 .. n_cards - 1``).  Where the JAX package partitions
-    chips (``TPU_VISIBLE_DEVICES``, one chip per worker), workers here
-    share cards: each opens its own CUDA context."""
+    ``CUDA_VISIBLE_DEVICES`` naming the distinct cards among ``(i * devices
+    + j) mod n_cards`` for ``j < devices``, in that order, of those visible
+    to the parent (its own ``CUDA_VISIBLE_DEVICES`` list, else cards ``0 ..
+    n_cards - 1``).  Where the JAX package partitions chips
+    (``TPU_VISIBLE_DEVICES``, chips ``[i * d, (i + 1) * d)`` per worker),
+    workers here share cards: each opens its own CUDA context, and a
+    worker's ``--devices d`` mesh lays its shards over the cards it sees."""
     env = dict(base_env)
     if device == "cuda":
         visible = [c for c in base_env.get("CUDA_VISIBLE_DEVICES", "").split(",") if c]
         cards = visible or [str(c) for c in range(max(1, n_cards))]
-        env["CUDA_VISIBLE_DEVICES"] = cards[i % len(cards)]
+        d = max(1, devices)
+        mine = [cards[(i * d + j) % len(cards)] for j in range(d)]
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(dict.fromkeys(mine))
     return env

@@ -44,6 +44,7 @@ from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch
 from consensuscruncher_tpu_torch.io.encode import ConsensusRecordWriter, cigar_string_to_words
 from consensuscruncher_tpu_torch.ops.duplex import duplex_batch_host
 from consensuscruncher_tpu_torch.ops.residency import record_keys
+from consensuscruncher_tpu_torch.parallel.mesh import device_mesh, duplex_batch_host_sharded
 from consensuscruncher_tpu_torch.stages.grouping import (
     ForeignTagLayout,
     consensus_windows_columnar,
@@ -84,9 +85,13 @@ def output_paths(out_prefix: str) -> dict[str, str]:
     }
 
 
-def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device):
+def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device, mesh=None):
     """One duplex vote over stacked ``(P, L)`` pairs on ``device`` — the
-    single dispatch shared by DCS and the singleton rescue."""
+    single dispatch shared by DCS and the singleton rescue.  ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards the pair axis instead (elementwise: no
+    collective)."""
+    if mesh is not None:
+        return duplex_batch_host_sharded(s1, q1, s2, q2, mesh, DEFAULT_QUAL_CAP)
     return duplex_batch_host(s1, q1, s2, q2, DEFAULT_QUAL_CAP, device)
 
 
@@ -139,13 +144,15 @@ class _PinnedMember:
 
 
 class _DuplexBatcher:
-    """Accumulate strand pairs per read length; vote them on ``device`` in
-    batches of ``flush_at`` (few, large device calls)."""
+    """Accumulate strand pairs per read length; vote them on ``device`` (or
+    pair-sharded over ``mesh``) in batches of ``flush_at`` (few, large
+    device calls)."""
 
-    def __init__(self, header, device, flush_at: int = 16384):
+    def __init__(self, header, device, flush_at: int = 16384, mesh=None):
         self.header = header
         self.device = device
         self.flush_at = flush_at
+        self.mesh = mesh
         self._by_len: dict[int, list] = {}
 
     def _pin(self, read):
@@ -169,7 +176,7 @@ class _DuplexBatcher:
         s2 = np.stack([e[2].codes for e in entries])
         q1 = np.stack([e[1].qual for e in entries])
         q2 = np.stack([e[2].qual for e in entries])
-        out_b, out_q = _duplex_vote_batch(s1, q1, s2, q2, self.device)
+        out_b, out_q = _duplex_vote_batch(s1, q1, s2, q2, self.device, self.mesh)
         for i, (tag, canon, other, entry_sink) in enumerate(entries):
             entry_sink(tag, canon, other, out_b[i], out_q[i])
 
@@ -178,10 +185,10 @@ class _DuplexBatcher:
             self._flush_len(length)
 
 
-def _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device) -> None:
+def _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device, mesh=None) -> None:
     """Object-window pairing walk (consensus BAMs whose records' tag blocks
     do not all lead with XT:Z + XF:i)."""
-    batcher = _DuplexBatcher(reader.header, device)
+    batcher = _DuplexBatcher(reader.header, device, mesh=mesh)
 
     def sink(tag, canon, other, codes, quals):
         fam_size = canon.xf + other.xf
@@ -251,15 +258,15 @@ def _store_keys(sources, src_arr, row_arr, ps) -> np.ndarray:
 
 
 def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
-                         device: torch.device, resident=None, cum=None) -> None:
+                         device: torch.device, resident=None, cum=None, mesh=None) -> None:
     """Vectorized pairing (``grouping.duplex_pair_blocks``): unpaired reads
     pass through as raw blobs, pairs vote in one device batch per length
     group, and duplex records assemble through the columnar record writer.
 
     ``resident``: the SSCS stage's ``ops.residency`` store.  Pairs whose
     two members are both resident vote by gather on the card; the rest
-    vote by upload (:func:`_duplex_vote_batch`).  Identical bytes either
-    way."""
+    vote by upload (:func:`_duplex_vote_batch`, pair-sharded over
+    ``mesh`` when given).  Identical bytes either way."""
     header = reader.header
     for blk in duplex_pair_blocks(reader, header):
         # guard zero increments: stats only carry the counters a run touched
@@ -357,7 +364,7 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
                 miss[ps[~hit]] = True
                 s1, q1 = member_rows(blk.pair_canon_src, blk.pair_canon_row, miss, L)
                 s2, q2 = member_rows(blk.pair_other_src, blk.pair_other_row, miss, L)
-                out_b[~hit], out_q[~hit] = _duplex_vote_batch(s1, q1, s2, q2, device)
+                out_b[~hit], out_q[~hit] = _duplex_vote_batch(s1, q1, s2, q2, device, mesh)
             if cum is not None:
                 cum.add("resident_pair_votes", int(hit.sum()))
                 cum.add("staged_pair_votes", int((~hit).sum()))
@@ -395,10 +402,16 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
 
 
 def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
-            level: int = 6, residency=None, stream_out=None) -> DcsResult:
+            level: int = 6, residency=None, stream_out=None,
+            devices: int | None = None) -> DcsResult:
     """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``;
     ``residency`` is the SSCS stage's plane store (or None: every pair
     votes by upload; the window walk never uses it).
+
+    ``devices``: shard the duplex votes' pair axis over a mesh of this
+    many shards (``parallel.mesh.device_mesh``: over the visible cards, or
+    CPU shards on the CPU), on the block path and the window walk alike;
+    None or 1 = ``device`` alone.
 
     ``stream_out``: a ``core.streamgraph.StreamOut``; the DCS and
     unpaired-SSCS outputs (both finals) hand off in memory for the
@@ -406,6 +419,7 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     ``sscs_bam`` may then be an in-memory batch source, which the window
     walk cannot re-read: a foreign tag layout raises ``StreamFallback``
     (the CLI re-runs the staged pipeline)."""
+    mesh = device_mesh(device, devices) if devices is not None and devices > 1 else None
     tracker = TimeTracker()
     stats = StageStats("DCS")
     cum = Counters()
@@ -419,7 +433,7 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     try:
         try:
             _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
-                                 residency, cum)
+                                 residency, cum, mesh)
         except ForeignTagLayout as exc:
             if stream_out is not None:
                 raise StreamFallback(f"DCS: {exc}") from exc
@@ -434,7 +448,7 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
             unpaired_writer = SortingBamWriter(paths["unpaired"], reader.header,
                                                level=level)
             rec_writer = ConsensusRecordWriter(dcs_writer)
-            _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device)
+            _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device, mesh)
         rec_writer.flush()
         ok = True
     finally:

@@ -59,6 +59,7 @@ from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
+from consensuscruncher_tpu_torch.parallel.mesh import device_mesh
 from consensuscruncher_tpu_torch.parallel.prefetch import start_prefetch
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.stages.grouping import (
@@ -204,6 +205,7 @@ def run_sscs(
     policy: str = DEFAULT_POLICY,
     input_range=None,
     prestaged: PrestagedBlocks | None = None,
+    devices: int | None = None,
 ) -> SscsResult:
     """Run the SSCS stage with the family votes on ``device``.
 
@@ -247,6 +249,14 @@ def run_sscs(
     consumed (with ``input_range``, or on the dense wire) is closed and the
     input decoded normally.  The stage closes it on every path.
 
+    ``devices``: family-shard every vote batch over a mesh of this many
+    shards, built once for the stage (``parallel.mesh.device_mesh``: shard
+    ``k`` on visible card ``k mod count``, or CPU shards on the CPU), on
+    either wire; None or 1 = ``device`` alone.  As in the JAX package, a
+    mesh takes the majority vote only (any other policy raises before any
+    output exists), fills no residency store and arms no QC rider, so
+    ``qc.json`` then has no vote plane.
+
     Besides the stats, the stage writes ``<p>.metrics.json``: phase walls,
     and in its ``cumulative`` block the batches and families voted, the
     bytes moved to and from the card, and the BGZF deflate wall and bytes
@@ -259,6 +269,11 @@ def run_sscs(
     if wire not in ("stream", "dense"):
         raise ValueError(f"unknown wire {wire!r} (expected 'stream' or 'dense')")
     vote_policy = get_policy(policy)
+    mesh = None
+    if devices is not None and devices > 1:
+        if vote_policy.name != DEFAULT_POLICY:
+            raise ValueError(f"vote policy {vote_policy.name!r} is single-device only")
+        mesh = device_mesh(device, devices)
     vote_policy.prepare()
     tracker = TimeTracker()
     stats = StageStats("SSCS")
@@ -398,7 +413,7 @@ def run_sscs(
             next_id += 1
 
     on_device_batch = None
-    if residency is not None and wire == "stream":
+    if residency is not None and wire == "stream" and mesh is None:
         def on_device_batch(batch, planes):
             # row i of the planes is batch.keys[i]; the store key is the
             # family's consensus qname + NUL + the record flag (LE), since
@@ -417,7 +432,7 @@ def run_sscs(
     try:
         if wire == "stream":
             for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
-                    block_items(), cfg, device, on_device_batch, vote_policy):
+                    block_items(), cfg, device, on_device_batch, vote_policy, mesh):
                 cum.add("batches_dispatched")
                 cum.add("families_in", len(keys))
                 emit_batch(keys, lengths, out_b, out_q)
@@ -430,7 +445,7 @@ def run_sscs(
             # singleton records: the generator's close joins it before the
             # writers close below
             stream = consensus_families(events(), cfg, device, on_batch=on_batch,
-                                        policy=vote_policy)
+                                        policy=vote_policy, mesh=mesh)
             try:
                 for fid, codes, quals in stream:
                     tag, members = pending.pop(fid)

@@ -527,3 +527,36 @@ def test_host_workers_on_card_match_one_process(card, tmp_path):
         with open(two / ".ranges" / f"r{i}" / "sscs" / f"r{i}.metrics.json") as fh:
             doc = json.load(fh)
         assert doc["backend"] == "cuda" and doc["cumulative"]["bytes_h2d"] > 0
+
+
+def test_devices_2_on_card_match_one_device(card, tmp_path):
+    """``--devices 2`` on the card (two shards, on one card when it is the
+    only one) writes the one-device card run's records, with one SSCS
+    launch per shard that holds families."""
+    from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    common = ["consensus", "-i", os.path.join(repo, "test", "data", "sample.bam"), "-n", "s",
+              "--scorrect", "True", "--device", "cuda"]
+    cli_main(common + ["-o", str(tmp_path / "one")])
+    before = consensus_vote.launches
+    cli_main(common + ["-o", str(tmp_path / "two"), "--devices", "2"])
+    assert consensus_vote.launches > before
+    one, two = tmp_path / "one" / "s", tmp_path / "two" / "s"
+    bams = sorted(os.path.relpath(os.path.join(r, f), one)
+                  for r, _d, files in os.walk(one) for f in files if f.endswith(".bam"))
+    assert len(bams) == 11
+    for rel in bams:
+        assert _records(str(two / rel)) == _records(str(one / rel)), rel
+
+    rng = np.random.default_rng(8)
+    b, f, length = 64, 8, 100
+    bases = rng.integers(0, 5, (b, f, length)).astype(np.uint8)
+    quals = rng.integers(2, 41, (b, f, length)).astype(np.uint8)
+    sizes = rng.integers(0, f + 1, b).astype(np.int32)
+    mesh = mesh_mod.make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    got_b, got_q, stats = mesh_mod.sharded_consensus_batch(bases, quals, sizes, mesh)
+    want_b, want_q = consensus_vote.consensus_batch(
+        torch.from_numpy(bases).to(card), torch.from_numpy(quals).to(card), sizes)
+    assert torch.equal(got_b, want_b) and torch.equal(got_q, want_q)
+    assert stats.families == int((sizes > 0).sum())

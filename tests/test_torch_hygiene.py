@@ -5,7 +5,8 @@
   a streaming run with QC, a run of the object paths (``--max_mismatch
   1 --wire dense``) and a ``--policy distilled`` run alike, and a
   ``-c config.ini`` batch run with ``--host_workers 2`` and ``--profile``
-  in the parent and in every worker (nor matplotlib there);
+  in the parent and in every worker (nor matplotlib there), a ``--devices
+  2`` run, and both processes of a ``parallel.distributed`` dryrun;
 - resolving the default device without CUDA raises instead of carrying on
   on the CPU, and so do the duplex op and the pipelined fused runner when
   no device is named;
@@ -149,6 +150,53 @@ def test_whole_command_imports_no_jax_in_parent_or_workers(tmp_path):
         with open(tmp_path / "out" / name / "qc.json") as fh:
             assert json.load(fh)["pipeline"] == "host_sharded[2]"
         assert (tmp_path / "out" / name / "plots" / f"{name}.stage_times.png").exists()
+
+
+def test_devices_run_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, os.path.join(REPO, "test", "data", "sample.bam"),
+         str(tmp_path), "--devices", "2"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    with open(tmp_path / "sample" / "qc.json") as fh:
+        assert json.load(fh)["plane"] is None  # the mesh ran: it arms no rider
+
+
+def test_distributed_workers_import_no_jax(tmp_path):
+    """Both processes of a two-process ``parallel.distributed`` dryrun
+    (gloo, CPU shards) import no JAX and nothing of the JAX package (the
+    ``sitecustomize`` spy records each one's modules at exit)."""
+    import socket
+
+    spy, dumps = tmp_path / "spy", tmp_path / "dumps"
+    spy.mkdir()
+    dumps.mkdir()
+    (spy / "sitecustomize.py").write_text(_SPY)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(spy), CCT_SPY_DIR=str(dumps))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.parallel.distributed",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i),
+         "--device", "cpu", "--dist_backend", "gloo"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-2000:]
+            assert json.loads(out.strip().splitlines()[-1])["stream_wire_ok"] is True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = [json.loads(p.read_text()) for p in dumps.iterdir()]
+    assert len(runs) == 2 and [r["bad"] for r in runs] == [[], []]
 
 
 @pytest.mark.parametrize("extra", [[], ["--wire", "dense"], ["--pipeline", "streaming"]])
