@@ -123,7 +123,25 @@ failure; no phase's failure is caught.  Phases:
     the card), (v) the ``parallel.mesh`` library steps at
     ``B8192_F16_L100`` over 1, 2 and 4 shards, each equal to the unsharded
     B1 or B2 and to its plain version, stats equal, ms per step, (vi) the
-    two-process ``parallel.distributed`` dryrun (gloo) on the card.
+    two-process ``parallel.distributed`` dryrun (gloo) on the card;
+11. the serve daemon (``serve`` in a process of its own, on the card, a
+    journal, tracing on, the gang's buckets warmed): (i) a warm first job
+    through ``submit``, then four jobs ganged behind a blocker job — phase
+    6 (a)'s untagged sample, phase 7's degraded sample, ``sample.bam`` and
+    (a)'s settings at seed 43 — each tree equal to its one-shot run of
+    this call (records, stats less backend lines, the manifest's stages,
+    ``qc.json`` less its vote plane, which a ganged job has not, as in the
+    JAX package), ``sample.bam``'s the goldens; a ``device.batch`` trace
+    event naming two or more jobs; the gang's B1 dense launches (one per
+    batch) beside the batches each job would fill alone, each job's
+    latency, the Prometheus text; (ii) a ``pipeline: streaming`` job in a
+    gang of two finishes from the gang's in-memory hand-off, its finals
+    equal to its one-shot streaming run; (iii) ``CCT_FAULTS=serve.worker=
+    kill:SIGKILL`` (once, across restarts) kills the daemon with its job
+    dispatched; restarted on the same journal it replays the job through
+    ``--resume`` to its one-shot tree and reports the replay; (iv)
+    ``CCT_SANITIZE=1 consensus`` on ``sample.bam`` keeps the goldens and
+    a planted ``.item()`` in a guarded stage raises ``StageTransferError``.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -143,6 +161,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -179,6 +198,8 @@ from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import distributed  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
+from consensuscruncher_tpu_torch.serve.client import ServeClient  # noqa: E402
+from consensuscruncher_tpu_torch.serve.journal import replay  # noqa: E402
 from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
@@ -2426,6 +2447,388 @@ def phase_devices(dev, sim_bam: str, work: str, scale: dict, walls: dict, card: 
     return row
 
 
+# ------------------------------------------------------------ phase 11: serve
+
+# the dense buckets of the served gang's families (read length 100: L 128),
+# each launched once when the daemon starts
+SERVE_WARMUP = "1024x2x128,1024x4x128,1024x8x128"
+SERVE_GANG = 4
+# four small jobs of sample.bam's size (600 fragments, ~6,600 reads each):
+# each fills its buckets far below max_batch, so a gang's jobs share them
+SERVE_SMALL_SEEDS = (101, 102, 103, 104)
+SERVE_SMALL_FRAGMENTS = 600
+SAMPLE_BAM = os.path.join(REPO, "test", "data", "sample.bam")
+
+
+class _Daemon:
+    """``python -m consensuscruncher_tpu_torch.cli serve`` in a process of
+    its own, as a user starts it: on the card (``--device cpu`` only when
+    the smoke itself runs on the CPU), with a journal and tracing on.
+    Started by :meth:`start`, which returns once healthz answers."""
+
+    def __init__(self, work: str, tag: str, dev, env_extra=None):
+        self.tag, self.dev = tag, dev
+        self.sock = os.path.join(work, f"{tag}.sock")
+        self.journal = os.path.join(work, f"{tag}.wal")
+        self.log = os.path.join(work, f"{tag}.log")
+        self.env = dict(os.environ, CCT_TRACE="1",
+                        CCT_TRACE_DIR=os.path.join(work, f"{tag}_trace"), **(env_extra or {}))
+        self.proc = None
+
+    def start(self) -> float:
+        argv = [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "serve",
+                "--socket", self.sock, "--journal", self.journal,
+                "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP]
+        if self.dev.type == "cpu":
+            argv += ["--device", "cpu"]
+        if os.path.exists(self.sock):  # a killed daemon's socket file
+            os.unlink(self.sock)
+        t = time.perf_counter()
+        with open(self.log, "a") as log:
+            self.proc = subprocess.Popen(argv, cwd=REPO, env=self.env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 600
+        while not os.path.exists(self.sock):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"serve did not start: {self.tail()}")
+            time.sleep(0.05)
+        self.client = ServeClient(self.sock)
+        if self.client.healthz()["status"] != "serving":
+            raise AssertionError(f"serve is not serving: {self.tail()}")
+        return time.perf_counter() - t
+
+    def tail(self) -> str:
+        with open(self.log) as fh:
+            return fh.read()[-3000:]
+
+    def stop(self) -> None:
+        """SIGTERM: the daemon drains and exits 0."""
+        self.proc.send_signal(signal.SIGTERM)
+        if self.proc.wait(timeout=300) != 0:
+            raise AssertionError(f"serve exited {self.proc.returncode}: {self.tail()}")
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def _serve_spec(inp: str, out: str, name: str, **extra) -> dict:
+    return {"input": inp, "output": out, "name": name, "cutoff": 0.7, "qualscore": 0,
+            "scorrect": True, "max_mismatch": 0, "bdelim": "|", "compress_level": 6,
+            **extra}
+
+
+def _submit_all(client, specs) -> tuple[list, list]:
+    """Submit ``specs`` back to back; wait for each result on a thread of
+    its own.  Returns the submit replies and ``(job, seconds from its
+    submit to its result)`` per spec."""
+    import threading
+
+    subs, t_sub = [], []
+    for spec in specs:
+        t_sub.append(time.perf_counter())
+        subs.append(client.submit_full(spec))
+    done: list = [None] * len(specs)
+
+    def wait(i):
+        job = ServeClient(client.address).result(key=subs[i]["key"], timeout=900)
+        done[i] = (job, time.perf_counter() - t_sub[i])
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(specs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for job, _s in done:
+        if job["state"] != "done":
+            raise AssertionError(f"served job {job['job_id']} {job['state']}: {job.get('error')}")
+    return subs, done
+
+
+def _served_tree(base: str, one: str, name: str, ganged: bool = True) -> dict:
+    """A served tree against its one-shot run: every BAM record by record,
+    the stats less backend lines (``_same_tree``), the manifest's stage
+    list and sscs params, and ``qc.json``: a ganged job's has no vote plane
+    (the gang arms no plane sink, as the JAX package's daemon does) and
+    equals the one-shot doc otherwise; a solo job's equals it whole."""
+    bams = _same_tree(base, name, one, name)
+    with open(os.path.join(base, "manifest.json")) as fh:
+        got = json.load(fh)["stages"]
+    with open(os.path.join(one, "manifest.json")) as fh:
+        want = json.load(fh)["stages"]
+    if sorted(got) != sorted(want) or got["sscs"]["params"] != want["sscs"]["params"]:
+        raise AssertionError(f"{base}: manifest stages {sorted(got)} against {sorted(want)}")
+    qc, qc_one = _qc_doc(base), _qc_doc(one)
+    if ganged:
+        qc_one = dict(qc_one, plane=None)
+    if qc != qc_one:
+        raise AssertionError(f"{base}: served qc.json differs from the one-shot run's")
+    return {"bams_equal": bams, "stages": len(got)}
+
+
+def _gang_event(client, done, dev) -> dict:
+    """The served gang of ``done``'s jobs, from the daemon's trace: its
+    ``serve.gang_batches`` event (batches, and the B1 launches the vote
+    wrapper counted during the gang) and the ``device.batch`` events of
+    its batches.  At least one batch must carry two or more jobs'
+    families, and on the card every batch is one launch."""
+    events = client.request({"op": "trace"})["trace"]["events"]
+    ids = {job["trace_id"] for job, _s in done}
+    batches = [e for e in events if e["name"] == "device.batch"
+               and e["args"].get("trace_ids") and set(e["args"]["trace_ids"]) <= ids]
+    shared = [e for e in batches if len(e["args"]["trace_ids"]) >= 2]
+    gang = [e["args"] for e in events if e["name"] == "serve.gang_batches"
+            and set(e["args"]["trace_ids"]) == ids]
+    if not shared or len(gang) != 1 or gang[0]["batches"] != len(batches):
+        raise AssertionError(f"no B1 dense launch carried two jobs' families "
+                             f"({len(batches)} batches traced, {len(gang)} gangs)")
+    gang = gang[0]
+    # (the plain versions on the CPU launch nothing)
+    if dev.type == "cuda" and gang["launches"] != gang["batches"]:
+        raise AssertionError(f"{gang['launches']} B1 launches for {gang['batches']} gang batches")
+    return {"launches": gang["launches"], "batches": gang["batches"],
+            "families": gang["families"], "shared_batches": len(shared)}
+
+
+def _one_shot(inp: str, out: str, name: str, dev, *extra) -> dict:
+    """A one-shot ``consensus`` run in this process, its B1 launches counted
+    from 0."""
+    consensus_vote.launches = 0
+    t = time.perf_counter()
+    cli_main(["consensus", "-i", inp, "-o", out, "-n", name, "--scorrect", "True",
+              "--device", dev.type, *extra])
+    return {"wall_s": time.perf_counter() - t, "launches": consensus_vote.launches}
+
+
+def phase_serve(dev, work: str, one_shot: dict, card: str) -> dict:
+    """(i) a ``serve`` daemon on the card gangs four jobs — (a)'s untagged
+    sample, the degraded sample, ``sample.bam`` and (a)'s settings at seed
+    43 — into one SSCS dispatch stream of B1 dense launches, and then four
+    small jobs of ``sample.bam``'s size, whose families share launches;
+    each served tree equals its one-shot run of this call; (ii) a
+    ``pipeline: streaming`` job finishes from its gang's in-memory
+    hand-off and equals its one-shot streaming run; (iii) a daemon killed
+    while its job is dispatched (``CCT_FAULTS=serve.worker=kill``)
+    restarts on its journal, replays the job through ``--resume`` to the
+    one-shot tree and reports the replay; (iv) ``CCT_SANITIZE=1
+    consensus`` on ``sample.bam`` on the card keeps the goldens, a sync
+    planted in the SSCS vote loop (``CCT_FAULTS=sscs.sync_probe=fail``)
+    fails the run with ``StageTransferError`` on both wires, and so does a
+    planted ``.item()`` inside a guarded stage.
+
+    ``one_shot``: the one-shot runs of (a)'s untagged sample (``obj``) and
+    the degraded sample (``p``) made by earlier phases of this call,
+    ``{name: {"wall_s", "launches"}}``."""
+    from consensuscruncher_tpu_torch.utils import sanitize
+
+    golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
+    t0 = time.perf_counter()
+    serve_dir = os.path.join(work, "srv")
+    os.makedirs(serve_dir)
+    # the fourth sample, the small samples and the one-shot runs this
+    # phase holds trees to (B1 launches counted from 0 in each)
+    bam43 = os.path.join(work, "obj43.bam")
+    simulate_bam_fast(bam43, SimConfig(n_fragments=OBJECT_FRAGMENTS,
+                                       ref_len=40 * OBJECT_FRAGMENTS, seed=43))
+    small = {}
+    for seed in SERVE_SMALL_SEEDS:
+        small[f"s{seed}"] = os.path.join(work, f"s{seed}.bam")
+        simulate_bam_fast(small[f"s{seed}"], SimConfig(
+            n_fragments=SERVE_SMALL_FRAGMENTS, ref_len=40 * SERVE_SMALL_FRAGMENTS, seed=seed))
+    one = os.path.join(work, "one")
+    adversarial = os.path.join(REPO, "test", "data", "sample_adversarial.bam")
+    for inp, name, extra in ((bam43, "obj43", ()), (SAMPLE_BAM, "golden", ()),
+                             (SAMPLE_BAM, "stream", ("--pipeline", "streaming")),
+                             *((p, n, ()) for n, p in small.items())):
+        one_shot[name] = _one_shot(inp, one, name, dev, *extra)
+    # what each small job fills alone on the gang's wire
+    alone_dense = {n: _one_shot(p, os.path.join(work, "one_dense"), n, dev,
+                                "--wire", "dense")["launches"] for n, p in small.items()}
+    one_shot_s = time.perf_counter() - t0
+
+    # (i) the gang
+    daemon = _Daemon(serve_dir, "a", dev)
+    row: dict = {"card": card}
+    try:
+        row["daemon_start_s"] = daemon.start()
+        client = daemon.client
+        # the warm first job, through the submit command a user runs
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "submit", "--socket",
+             daemon.sock, "-i", SAMPLE_BAM, "-o", os.path.join(serve_dir, "warm"),
+             "-n", "golden"], cwd=REPO, check=True, capture_output=True, text=True,
+            timeout=600).stdout
+        row["warm_first_job_submit_command_s"] = time.perf_counter() - t
+        warm = client.status(key=re.search(r"\(key (\w+)", out).group(1))
+        row["warm_first_job_s"] = warm["queue_wait_s"] + warm["wall_s"]
+        emit("serve_warm_first_job", card=card, latency_s=row["warm_first_job_s"],
+             submit_command_s=row["warm_first_job_submit_command_s"],
+             one_shot_wall_s=one_shot["golden"]["wall_s"])
+        if golden_mismatches(os.path.join(serve_dir, "warm", "golden"), golden["consensus"]):
+            raise AssertionError("the warm served job misses the goldens")
+        # a blocker (run solo, on the stream wire) keeps the dispatcher
+        # busy while the jobs queue, so they leave the queue as one gang
+        blocker = _serve_spec(adversarial, serve_dir, "blocker")
+        cells = {"large": [("obj", os.path.join(work, "obj.bam"),
+                            os.path.join(work, "untagged", "obj")),
+                           ("p", os.path.join(work, "degraded.bam"),
+                            os.path.join(work, "degraded_majority", "p")),
+                           ("golden", SAMPLE_BAM, os.path.join(one, "golden")),
+                           ("obj43", bam43, os.path.join(one, "obj43"))],
+                 "small": [(n, p, os.path.join(one, n)) for n, p in small.items()]}
+        for cell, members in cells.items():
+            out_dir = os.path.join(serve_dir, cell)
+            before = client.metrics()["cumulative"]["batches_dispatched"]
+            t = time.perf_counter()
+            _subs, done = _submit_all(client, [dict(blocker, output=os.path.join(out_dir, "b"))]
+                                      + [_serve_spec(p, out_dir, n) for n, p, _o in members])
+            gang_wall = time.perf_counter() - t
+            blocker_s, done = done[0][1], done[1:]
+            gang_sizes = [job["gang_size"] for job, _s in done]
+            if gang_sizes != [SERVE_GANG] * SERVE_GANG:
+                raise AssertionError(f"the {cell} jobs did not gang: gang sizes {gang_sizes}")
+            after = client.metrics()["cumulative"]["batches_dispatched"]
+            gang = _gang_event(client, done, dev)
+            names = [n for n, _p, _o in members]
+            cell_row = {
+                **gang, "first_submit_to_last_result_s": gang_wall, "blocker_s": blocker_s,
+                # the daemon's counter over the cell: the gang's batches and
+                # the blocker's (its stage sidecar, folded in when it ends)
+                "batches_dispatched_in_cell": after - before,
+                "job_latency_s": {n: s for n, (_j, s) in zip(names, done)},
+                "job_wall_s": {n: job["wall_s"] for n, (job, _s) in zip(names, done)},
+                "one_shot_wall_s": {n: one_shot[n]["wall_s"] for n in names},
+                "one_shot_b1_launches": {n: one_shot[n]["launches"] for n in names}}
+            if cell == "small":
+                cell_row["alone_dense_b1_launches"] = alone_dense
+            for n, _p, base_one in members:
+                cell_row.setdefault("trees", {})[n] = _served_tree(
+                    os.path.join(out_dir, n), base_one, n)
+            if cell == "large" and golden_mismatches(os.path.join(out_dir, "golden"),
+                                                     golden["consensus"]):
+                raise AssertionError("the served sample.bam misses the goldens")
+            row[cell] = cell_row
+            emit(f"serve_gang_{cell}", card=card,
+                 **{k: v for k, v in cell_row.items() if k != "trees"})
+        prom = client.metrics_prometheus()
+        named = {m: next((ln.split()[-1] for ln in prom.splitlines()
+                          if ln.startswith(m + " ")), None)
+                 for m in ("cct_batches_dispatched_total", "cct_families_out_total",
+                           "cct_jobs_replayed_total", "cct_recompiles_total",
+                           "cct_queue_wait_s_count", "cct_device_dispatch_s_count")}
+        row.update({"prometheus_bytes": len(prom), "prometheus_counters": named})
+        emit("serve_metrics", card=card, prometheus_bytes=len(prom), counters=named)
+
+        # (ii) the streaming hand-off: a gang of two behind a blocker
+        t = time.perf_counter()
+        _subs, sdone = _submit_all(client, [
+            dict(blocker, output=os.path.join(serve_dir, "b2")),
+            _serve_spec(SAMPLE_BAM, serve_dir, "stream", pipeline="streaming"),
+            _serve_spec(os.path.join(REPO, "test", "data", "sample_bcerr.bam"), serve_dir,
+                        "bcerr")])
+        if [j["gang_size"] for j, _s in sdone[1:]] != [2, 2]:
+            raise AssertionError("the streaming pair did not gang")
+        for rel in ("all_unique/stream.all.unique.sscs.bam",
+                    "all_unique/stream.all.unique.dcs.bam", "dcs/stream.dcs.sorted.bam",
+                    "sscs/stream.sscs.sorted.bam"):
+            if _record_digest(os.path.join(serve_dir, "stream", rel)) != \
+                    _record_digest(os.path.join(one, "stream", rel)):
+                raise AssertionError(f"served streaming {rel} differs from the one-shot run's")
+        with open(os.path.join(serve_dir, "stream", "run.metrics.json")) as fh:
+            if json.load(fh)["pipeline"] != "streaming":
+                raise AssertionError("the served streaming job did not stream")
+        row["streaming_s"] = time.perf_counter() - t
+        emit("serve_streaming", card=card, seconds=row["streaming_s"],
+             latency_s=sdone[1][1], finals_equal_to_one_shot=True)
+        daemon.stop()
+    finally:
+        daemon.kill()
+
+    # (iii) durability: the first job's worker SIGKILLs its daemon once
+    # (the fault ledger survives the restart), after the job was dispatched
+    t = time.perf_counter()
+    ledger = os.path.join(serve_dir, "faults")
+    env = {"CCT_FAULTS": "serve.worker=kill:SIGKILL", "CCT_FAULTS_DIR": ledger}
+    killed = _Daemon(serve_dir, "b", dev, env)
+    try:
+        killed.start()
+        spec = _serve_spec(os.path.join(work, "degraded.bam"), os.path.join(serve_dir, "r"), "p")
+        sub = killed.client.submit_full(spec)
+        if killed.proc.wait(timeout=300) != -signal.SIGKILL:
+            raise AssertionError(f"the daemon was not killed: {killed.tail()}")
+        _jobs, _info = replay(killed.journal)
+        state = _jobs[sub["job_id"]]["state"]
+        if state != "dispatched":
+            raise AssertionError(f"the killed job's journal state is {state}")
+        restarted = _Daemon(serve_dir, "b", dev, env)
+        try:
+            restart_s = restarted.start()
+            health = restarted.client.healthz()
+            job = restarted.client.result(key=sub["key"], timeout=900)
+            if job["state"] != "done":
+                raise AssertionError(f"the replayed job {job['state']}: {job.get('error')}")
+            replayed = restarted.client.metrics()["cumulative"]
+            if replayed["jobs_replayed"] != 1 or replayed["suspect_blames"] != 1:
+                raise AssertionError(f"replay not reported: {replayed['jobs_replayed']} "
+                                     f"replayed, {replayed['suspect_blames']} blamed")
+            restarted.stop()
+        finally:
+            restarted.kill()
+    finally:
+        killed.kill()
+    tree = _served_tree(os.path.join(serve_dir, "r", "p"),
+                        os.path.join(work, "degraded_majority", "p"), "p", ganged=False)
+    row["durability"] = {"restart_s": restart_s, "seconds": time.perf_counter() - t,
+                         "healthz": health, "jobs_replayed": replayed["jobs_replayed"],
+                         "suspect_blames": replayed["suspect_blames"], "tree": tree}
+    emit("serve_replay", card=card, **row["durability"])
+
+    # (iv) the sanitizer on the card
+    t = time.perf_counter()
+    os.environ["CCT_SANITIZE"] = "1"
+    try:
+        cli_main(["consensus", "-i", SAMPLE_BAM, "-o", os.path.join(work, "sanitized"),
+                  "-n", "golden", "--device", dev.type])
+        bad = golden_mismatches(os.path.join(work, "sanitized", "golden"), golden["consensus"])
+        if bad:
+            raise AssertionError(f"CCT_SANITIZE=1: goldens {bad}")
+        # a sync planted in the SSCS vote loop itself, once on each wire
+        probe_raised = {}
+        os.environ["CCT_FAULTS"] = "sscs.sync_probe=fail@2"
+        try:
+            for wire in ("stream", "dense"):
+                try:
+                    cli_main(["consensus", "-i", SAMPLE_BAM, "-n", "golden", "--wire", wire,
+                              "-o", os.path.join(work, f"probed_{wire}"), "--device", dev.type])
+                    probe_raised[wire] = False
+                except sanitize.StageTransferError:
+                    probe_raised[wire] = True
+        finally:
+            os.environ.pop("CCT_FAULTS", None)
+        if not all(probe_raised.values()):
+            raise AssertionError(f"a sync planted in the SSCS loop did not raise: {probe_raised}")
+        planted = False
+        try:
+            with sanitize.guarded_stage("planted", dev):
+                torch.zeros(1, device=dev).item()
+        except sanitize.StageTransferError:
+            planted = True
+        if dev.type == "cuda" and not planted:
+            raise AssertionError("a planted .item() inside a guarded stage did not raise")
+    finally:
+        os.environ.pop("CCT_SANITIZE", None)
+    row["sanitize"] = {"seconds": time.perf_counter() - t, "goldens": True,
+                       "sscs_sync_probe_raised": probe_raised,
+                       "planted_item_raised": planted}
+    emit("serve_sanitize", card=card, **row["sanitize"])
+    row["one_shot_s"] = one_shot_s
+    row["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(serve_dir)
+    return row
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -2478,6 +2881,13 @@ def main() -> None:
         t = time.perf_counter()
         phase_devices(dev, sim_bam, work, scale, walls, rates["card"])
         emit("multi_device", seconds=time.perf_counter() - t)
+        serve = phase_serve(dev, work, {
+            "obj": {"wall_s": tagged["untagged"]["wall_s"],
+                    "launches": tagged["untagged"]["sscs_launches"]},
+            "p": {"wall_s": policy_runs["degraded/majority"]["wall_s"],
+                  "launches": policy_runs["degraded/majority"]["b1_launches"]}},
+            rates["card"])
+        emit("serve", seconds=serve["seconds"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("smoke", seconds=time.perf_counter() - started)
@@ -2497,7 +2907,10 @@ def main() -> None:
         {**DENSE_VOTE, "launches": dense["launches"], "max_abs_err": dense["max_abs_err"],
          "ms": dense["ms"], "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
-         "qc_launches": dense["qc_launches"], "path": dense["path"], "shape": dense["shape"]},
+         "qc_launches": dense["qc_launches"], "path": dense["path"], "shape": dense["shape"],
+         "serve_gang_launches": serve["large"]["launches"],
+         "serve_small_gang_launches": serve["small"]["launches"],
+         "serve_small_alone_launches": sum(serve["small"]["alone_dense_b1_launches"].values())},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

@@ -12,8 +12,9 @@ packed member-stream wire with its QC rider (a hand-written CUDA kernel,
 ``csrc/consensus_vote.cu``), the vectorized singleton rescue, DCS, the
 all-unique merges, the BAI indexes, and the run's ``qc.json``,
 ``manifest.json`` (``--resume``) and ``run.metrics.json``; the vote
-policies (``--policy majority|delegation|distilled``, ``policies/``); and
-the fused SSCS+DCS API.  Entry points run on the CUDA card
+policies (``--policy majority|delegation|distilled``, ``policies/``);
+the fused SSCS+DCS API; and the serve daemon (``serve``/``submit``,
+``serve/``) with the obs core it stands on (``obs/``).  Entry points run on the CUDA card
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where each kernel's plain PyTorch version runs instead.
 """

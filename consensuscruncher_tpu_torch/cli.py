@@ -30,6 +30,17 @@ the input (sharing the visible CUDA cards) and merges their outputs.
 over N shards laid over the visible cards (``parallel.mesh``); with
 ``--device cpu``, N CPU shards.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run.
+
+    python -m consensuscruncher_tpu_torch.cli serve --socket S [--journal J] \\
+        [--gang_size 4] [--warmup_shapes BxFxL,...] [--device cuda|cpu] ...
+    python -m consensuscruncher_tpu_torch.cli submit --socket S -i X.bam -o OUT
+
+``serve`` runs the persistent daemon of ``serve/`` on the card (unless
+``--device cpu``): it gangs the SSCS of several queued jobs into one dense
+device stream and finishes each job through ``consensus --resume``;
+``submit`` hands it one job and waits for the result.  The JAX package's
+``--warm_from`` and ``--result_cache`` belong to its fleet and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -86,16 +97,45 @@ def _bool(v) -> bool:
     return str(v).lower() in ("1", "true", "yes", "on")
 
 
+# config.ini [obs] key -> the environment variable its reader consumes
+# (obs/trace, obs/flight, obs/prof, obs/history, utils/sanitize's ledger)
+_OBS_ENV = {
+    "trace": "CCT_TRACE",
+    "trace_dir": "CCT_TRACE_DIR",
+    "trace_ring": "CCT_TRACE_RING",
+    "flight_ring": "CCT_FLIGHT_RING",
+    "prof": "CCT_PROF",
+    "prof_hz": "CCT_PROF_HZ",
+    "prof_dir": "CCT_PROF_DIR",
+    "history_dir": "CCT_HISTORY_DIR",
+    "history_interval_s": "CCT_HISTORY_INTERVAL_S",
+    "history_max_bytes": "CCT_HISTORY_MAX_BYTES",
+    "lock_ledger": "CCT_LOCK_LEDGER",
+}
+# the JAX package's canary prober keys: its reader comes with the fleet
+# (router, result cache, canary), so a key set here is named as ignored
+_OBS_LATER = ("canary", "canary_interval_s", "canary_latency_s", "canary_golden",
+              "canary_dir")
+
+
 def _apply_obs_config(path: str | None) -> None:
-    """The ``[obs]`` config section: the JAX package folds it into the
-    environment of its span tracer, sampler, history and canary, which the
-    port has not ported.  A key set there is named on stderr as ignored,
-    never taken silently; ``--profile DIR`` is the port's trace."""
-    keys = [k for k, v in _config_defaults(path, "obs").items() if str(v) != ""]
-    if keys:
-        print(f"config [obs] {', '.join(sorted(keys))}: ignored (this port has no span "
-              "tracer, sampler, history or canary yet; use --profile DIR for a trace)",
-              file=sys.stderr)
+    """Fold the ``[obs]`` config section into the observability env vars,
+    as the JAX package's ``_apply_obs_config`` does.  ``setdefault`` so a
+    real environment variable always wins over config.ini.  A canary key
+    set there is named on stderr as ignored (the port has no canary yet);
+    other unknown keys are ignored silently, as in the reference."""
+    later = []
+    for key, value in _config_defaults(path, "obs").items():
+        if str(value) == "":
+            continue
+        env = _OBS_ENV.get(key)
+        if env:
+            os.environ.setdefault(env, str(value))
+        elif key in _OBS_LATER:
+            later.append(key)
+    if later:
+        print(f"config [obs] {', '.join(sorted(later))}: ignored (the serve canary is "
+              "not ported yet)", file=sys.stderr)
 
 
 def _apply_qc_config(path: str | None) -> None:
@@ -486,20 +526,13 @@ def _consensus_staged(run: _Run, residency) -> dict:
     qc_acc = obs_qc.QcAccumulator() if obs_qc.enabled() else None
 
     sscs_prefix = os.path.join(dirs["sscs"], name)
-    sscs_paths = sscs_maker.output_paths(sscs_prefix)
-    # badReads.bam is no manifest output (--cleanup deletes it and nothing
-    # downstream reads it), nor are time_tracker and metrics.json (they
-    # change every run).  --input_range (a host worker's share) reads one
-    # BAI coordinate range of the shared input.
+    # --input_range (a host worker's share) reads one BAI coordinate range
+    # of the shared input
     input_range = hostshard.parse_range_argv(args.input_range) if args.input_range else None
     sscs = checkpointed(
-        "sscs", [args.input],
-        [sscs_paths[k] for k in ("sscs", "singleton", "stats_txt", "stats_json", "families")],
-        # "policy" joins the params only when it is not the default, so a
-        # pre-policy manifest still satisfies a default --resume
-        {"cutoff": args.cutoff, "qualscore": args.qualscore, "bdelim": args.bdelim,
-         "input_range": args.input_range,
-         **({"policy": args.policy} if args.policy != DEFAULT_POLICY else {})},
+        "sscs", *sscs_maker.manifest_entry(args.input, sscs_prefix, args.cutoff,
+                                           args.qualscore, args.bdelim, args.input_range,
+                                           args.policy),
         run=lambda: run_sscs(args.input, sscs_prefix, device, cutoff=args.cutoff,
                              qual_threshold=args.qualscore, bdelim=args.bdelim, level=ilevel,
                              residency=residency, qc=qc_acc, wire=args.wire,
@@ -586,6 +619,10 @@ def _consensus_streaming(run: _Run, residency) -> dict:
     deflate with the next stage.  One whole-flow manifest entry is
     recorded: the hand-offs were never files, so a later --resume takes
     the staged path and re-runs every stage.
+
+    A serve job continuing from its gang's SSCS (``args._sscs_handoff``,
+    see :func:`main`) starts from the hand-off's in-memory SSCS and
+    singleton records instead of running the stage.
     """
     from consensuscruncher_tpu_torch.core.streamgraph import BatchStream, StreamOut
     from consensuscruncher_tpu_torch.io.bam import merge_memory_bams
@@ -599,12 +636,22 @@ def _consensus_streaming(run: _Run, residency) -> dict:
     all_sscs = os.path.join(dirs["all_unique"], f"{name}.all.unique.sscs.bam")
     all_dcs = os.path.join(dirs["all_unique"], f"{name}.all.unique.dcs.bam")
     try:
-        sscs = run_sscs(args.input, os.path.join(dirs["sscs"], name), device,
-                        cutoff=args.cutoff, qual_threshold=args.qualscore,
-                        bdelim=args.bdelim, level=ilevel, residency=residency,
-                        qc=qc_acc, stream_out=stream, wire=args.wire,
-                        policy=args.policy, prestaged=getattr(args, "_prestaged", None),
-                        devices=args.devices)
+        handoff = getattr(args, "_sscs_handoff", None)
+        if handoff is not None:
+            # serve gang continuation: the daemon already ran this job's
+            # share of the gang SSCS and holds its sorted outputs in memory
+            # (the files, stats and manifest entry are on disk already)
+            sscs = SscsResult.from_prefix(os.path.join(dirs["sscs"], name))
+            stream.memory["sscs"] = handoff["sscs"]
+            stream.memory["singleton"] = handoff["singleton"]
+        else:
+            sscs = run_sscs(args.input, os.path.join(dirs["sscs"], name), device,
+                            cutoff=args.cutoff, qual_threshold=args.qualscore,
+                            bdelim=args.bdelim, level=ilevel, residency=residency,
+                            qc=qc_acc, stream_out=stream, wire=args.wire,
+                            policy=args.policy,
+                            prestaged=getattr(args, "_prestaged", None),
+                            devices=args.devices)
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -735,6 +782,226 @@ def _write_run_metrics(base, name, dirs, pipeline, t0, io_before) -> None:
         fh.write("\n")
 
 
+# ---------------------------------------------------------------------- serve
+
+def _serve_child_argv(args) -> list[str]:
+    """Rebuild the serve subcommand argv for the supervised daemon child —
+    the resolved values (flag > config > builtin), minus --supervise."""
+    argv = ["serve"]
+    for flag in ("socket", "host", "warmup_shapes", "compile_cache",
+                 "journal", "device", "node", "policy"):
+        value = getattr(args, flag, None)
+        if value:
+            argv += [f"--{flag}", str(value)]
+    for flag in ("port", "queue_bound", "gang_size", "max_batch"):
+        argv += [f"--{flag}", str(int(getattr(args, flag)))]
+    for flag in ("drain_s", "result_ttl_s", "warmup_budget_s",
+                 "class_weights", "slo_targets",
+                 "tenant_queue_cap", "tenant_inflight_cap"):
+        value = getattr(args, flag, None)
+        if value not in (None, ""):
+            argv += [f"--{flag}", str(value)]
+    return argv
+
+
+def _parse_class_map(text, what: str) -> dict:
+    """Parse ``'interactive=8,batch=3'`` style per-qos-class maps (the
+    --class_weights / --slo_targets wire format) into ``{class: float}``;
+    empty/None parses to ``{}`` (scheduler defaults apply)."""
+    out: dict = {}
+    for part in (text or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise SystemExit(f"{what}: expected 'class=value' pairs, got {part!r}")
+        k, v = part.split("=", 1)
+        try:
+            out[k.strip()] = float(v)
+        except ValueError:
+            raise SystemExit(f"{what}: {v!r} is not a number") from None
+    return out
+
+
+def serve_cmd(args) -> None:
+    """Run the persistent consensus daemon (``serve/``): probe the card,
+    build the kernel library and warm the configured buckets once, then
+    accept jobs over a unix socket or localhost TCP.  With --journal every
+    accepted job is write-ahead journaled and a restart replays unfinished
+    work; with --supervise this process runs the restart loop and the
+    daemon runs as a child.  The device is the card unless --device cpu
+    is given; without a card the command exits before it binds its
+    socket."""
+    if _bool(args.supervise):
+        from consensuscruncher_tpu_torch.serve.supervisor import child_command, run_supervised
+
+        rc = run_supervised(child_command(_serve_child_argv(args)),
+                            max_restarts=int(args.max_restarts))
+        if rc:
+            raise SystemExit(rc)
+        return
+
+    from consensuscruncher_tpu_torch.obs import flight as obs_flight
+    from consensuscruncher_tpu_torch.obs import history as obs_history
+    from consensuscruncher_tpu_torch.obs import trace as obs_trace
+    from consensuscruncher_tpu_torch.serve import warmup
+    from consensuscruncher_tpu_torch.serve.scheduler import Scheduler
+    from consensuscruncher_tpu_torch.serve.server import ServeServer, install_signal_handlers
+    from consensuscruncher_tpu_torch.utils.backend_probe import ensure_backend
+
+    # the JAX package's [autotune] section picks a kernel per bucket and
+    # learns a bucket table to warm; the port has one kernel per bucket and
+    # compiles nothing per shape
+    autotune = _config_defaults(args.config, "autotune")
+    if str(autotune.get("backend") or "").strip():
+        raise SystemExit(
+            "config [autotune] backend: the port runs every dense bucket on B1's hand "
+            "kernel (csrc/consensus_vote.cu); a second backend to choose comes with the "
+            "autotuner's measuring half (ROADMAP A11)")
+    ignored = sorted(k for k, v in autotune.items() if str(v).strip())
+    if ignored:
+        print(f"config [autotune] {', '.join(ignored)}: ignored (the port keeps no bucket "
+              "table: nothing compiles per shape)", file=sys.stderr)
+    device = ensure_backend(args.device)
+    if args.compile_cache and warmup.setup_compilation_cache(args.compile_cache):
+        print(f"serve: kernel build directory at {args.compile_cache}")
+    budget = float(args.warmup_budget_s) if args.warmup_budget_s not in (None, "") else None
+    # every job votes under its own spec policy (passed to the gang
+    # explicitly); --policy only decides which policy is prepared (its
+    # checkpoint loaded) before the socket binds: an unknown name fails here
+    warm_policy = str(args.policy or DEFAULT_POLICY)
+    get_policy(warm_policy).prepare()
+    # at least one warm launch: the kernel library is built and loaded
+    # before the first request
+    shapes = warmup.parse_shapes(args.warmup_shapes) or [warmup.LIBRARY_WARM_SHAPE]
+    n = warmup.warm_shapes(shapes, budget_s=budget, device=device)
+    print(f"serve: warmed {n}/{len(shapes)} bucket shapes on {device_name(device)}")
+
+    journal = None
+    if args.journal:
+        from consensuscruncher_tpu_torch.serve.journal import Journal
+
+        journal = Journal(args.journal, max_bytes=int(os.environ.get(
+            "CCT_SERVE_JOURNAL_MAX_BYTES", str(1 << 20))))
+    drain_s = args.drain_s
+    if drain_s in (None, ""):
+        drain_s = os.environ.get("CCT_SERVE_DRAIN_S", "30")
+    drain_s = float(drain_s)
+    result_ttl_s = float(args.result_ttl_s) if args.result_ttl_s not in (None, "") else None
+
+    # flight recorder: dumps land next to the journal (or CCT_TRACE_DIR);
+    # installed BEFORE the Scheduler so journal-replay anomalies in its
+    # _recover can already dump.  SIGQUIT = post-mortem on demand.
+    dump_dir = os.environ.get("CCT_TRACE_DIR") or (
+        os.path.dirname(os.path.abspath(journal.path)) if journal else None)
+    if dump_dir:
+        obs_flight.set_dump_dir(dump_dir)
+    obs_flight.install_sigquit()
+    if args.node:
+        obs_trace.set_identity(args.node)
+        obs_flight.set_identity(node=args.node)
+
+    def _cap(name):
+        value = getattr(args, name, None)
+        return int(value) if value not in (None, "") else None
+
+    scheduler = Scheduler(
+        queue_bound=int(args.queue_bound), gang_size=int(args.gang_size),
+        device=device.type, max_batch=int(args.max_batch),
+        journal=journal, result_ttl_s=result_ttl_s,
+        class_weights=_parse_class_map(args.class_weights, "--class_weights"),
+        slo_targets=_parse_class_map(args.slo_targets, "--slo_targets"),
+        tenant_queue_cap=_cap("tenant_queue_cap"),
+        tenant_inflight_cap=_cap("tenant_inflight_cap"),
+        node=args.node or None,
+    )
+    server = ServeServer(scheduler, host=args.host, port=int(args.port),
+                         socket_path=args.socket or None)
+    install_signal_handlers(server, scheduler, journal)
+    # the durable telemetry-history recorder (CCT_HISTORY_DIR): touches no
+    # pipeline output
+    obs_history.maybe_start(scheduler.history_doc)
+    print(f"serve: listening on {server.describe()} "
+          f"(queue_bound={scheduler.queue_bound}, gang_size={scheduler.gang_size}, "
+          f"device={device_name(device)}"
+          + (f", journal={journal.path}" if journal else "") + ")", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass  # pre-handler window only; handlers replace SIGINT
+    # SIGTERM/SIGINT landed (or the listener died): bounded graceful drain
+    print(f"serve: draining (up to {drain_s:g}s)", flush=True)
+    try:
+        scheduler.drain(timeout=drain_s)
+    except TimeoutError:
+        pending = scheduler.healthz()
+        print(f"WARNING: drain timed out after {drain_s:g}s "
+              f"({pending['queued']} queued, {pending['running']} running); "
+              + ("unfinished jobs stay journaled and replay on restart"
+                 if journal else "unfinished jobs are LOST (no --journal)"),
+              file=sys.stderr, flush=True)
+    server.close()
+    obs_history.stop()  # final interval stamp lands before shutdown
+    scheduler.shutdown()
+    if journal is not None:
+        journal.close()
+    print("serve: shutdown complete", flush=True)
+
+
+def submit_cmd(args) -> None:
+    """Submit one consensus job to a running daemon and (by default) block
+    for its result — the thin client leg of ``serve/``.  A quarantined
+    verdict (the key exhausted its retry budget) exits non-zero with the
+    reason; it is an operator decision, not a retry candidate."""
+    from consensuscruncher_tpu_torch.serve.client import JobQuarantined, ServeClient
+
+    address = args.socket or (args.host, int(args.port))
+    client = ServeClient(address)
+    spec = {
+        "input": os.path.abspath(args.input),
+        "output": os.path.abspath(args.output),
+        "name": args.name,
+        "cutoff": args.cutoff,
+        "qualscore": args.qualscore,
+        "scorrect": args.scorrect,
+        "max_mismatch": args.max_mismatch,
+        "bdelim": args.bdelim,
+        "compress_level": args.compress_level,
+    }
+    if args.deadline_s not in (None, ""):
+        spec["deadline_s"] = float(args.deadline_s)
+    # tenant/qos enter the spec only when set: a default submit keeps the
+    # exact pre-tenancy spec (and idempotency key)
+    if args.tenant not in (None, ""):
+        spec["tenant"] = str(args.tenant)
+    if args.qos not in (None, ""):
+        spec["qos"] = str(args.qos)
+    # policy enters the spec only when set AND non-default (absent ==
+    # majority everywhere on the serve plane)
+    if args.policy not in (None, "", "majority"):
+        spec["policy"] = str(args.policy)
+    try:
+        sub = client.submit_full(spec)
+    except JobQuarantined as e:
+        raise SystemExit(f"submit: quarantined ({e.reason}); key {e.key or '<key>'}")
+    job_id = sub["job_id"]
+    print(f"submit: job {job_id} queued on {address} (key {sub['key']}"
+          + (", duplicate of an existing job" if sub.get("duplicate") else "")
+          + ")", flush=True)
+    if not _bool(args.wait):
+        return
+    # poll by idempotency key: survives a daemon restart mid-wait
+    try:
+        job = client.result(key=sub["key"])
+    except JobQuarantined as e:
+        raise SystemExit(f"submit: job {job_id} quarantined ({e.reason}); key {sub['key']}")
+    if job["state"] != "done":
+        raise SystemExit(f"submit: job {job_id} {job['state']}: {job.get('error')}")
+    base = (job.get("outputs") or {}).get("base")
+    print(f"submit: job {job_id} done in {job['wall_s']}s"
+          + (f" — outputs under {base}" if base else ""), flush=True)
+
+
 def build_parser() -> argparse.ArgumentParser:
     # Every value-bearing flag defaults to None so the precedence is the
     # JAX package's: CLI flag > config.ini value > built-in default
@@ -829,6 +1096,127 @@ def build_parser() -> argparse.ArgumentParser:
                        "host_workers": 1, "residency": "True", "pipeline": "staged",
                        "intermediate_taps": "False", "policy": DEFAULT_POLICY,
                    })
+
+    s = sub.add_parser(
+        "serve",
+        help="run the persistent consensus daemon (warm kernels, cross-request "
+             "continuous batching)")
+    s.add_argument("-c", "--config", default=None)
+    s.add_argument("--socket", help="unix socket path (overrides host/port)")
+    s.add_argument("--host", help="TCP bind host (default 127.0.0.1)")
+    s.add_argument("--port", type=int, help="TCP port (default 7733; 0 = any free)")
+    s.add_argument("--queue_bound", type=int,
+                   help="max queued jobs before submit is refused (default 16)")
+    s.add_argument("--gang_size", type=int,
+                   help="max compatible jobs batched into one device dispatch "
+                        "round (default 4)")
+    s.add_argument("--max_batch", type=int,
+                   help="families per device bucket dispatch (default 1024)")
+    s.add_argument("--device", choices=("cuda", "cpu"),
+                   help="where served jobs vote (default cuda: the card; without "
+                        "one the daemon exits before it binds its socket). cpu "
+                        "runs the kernels' plain PyTorch versions")
+    s.add_argument("--backend",
+                   help="the JAX package's flag, read as the device: tpu -> cuda, "
+                        "xla_cpu -> cpu (cpu and reference exit naming --device)")
+    s.add_argument("--warmup_shapes",
+                   help="comma-separated BxFxL vote buckets to launch once at "
+                        "startup (e.g. '64x4x128,64x8x128'; the first builds the "
+                        "kernel library); empty = one launch at a small shape")
+    s.add_argument("--compile_cache",
+                   help="kernel build directory (the port's persistent compile "
+                        "cache; survives daemon restarts and checkouts); empty = "
+                        "the package's _build/")
+    s.add_argument("--journal",
+                   help="write-ahead job journal path: accepted jobs are fsync'd "
+                        "before the submit reply and replayed on restart "
+                        "(crash-safe, exactly-once outputs); empty = in-memory only")
+    s.add_argument("--drain_s",
+                   help="bounded graceful-shutdown window on SIGTERM/SIGINT "
+                        "(default $CCT_SERVE_DRAIN_S or 30); unfinished jobs stay "
+                        "journaled for replay")
+    s.add_argument("--result_ttl_s",
+                   help="evict done/failed job records from memory after this many "
+                        "seconds (default $CCT_SERVE_RESULT_TTL_S or 600); outputs "
+                        "stay on disk")
+    s.add_argument("--warmup_budget_s",
+                   help="cap the total warmup wall so a supervised restart serves "
+                        "again quickly; empty = no cap")
+    s.add_argument("--supervise",
+                   help="run the daemon as a supervised child restarted with capped "
+                        "backoff on crash (default False)")
+    s.add_argument("--max_restarts", type=int,
+                   help="supervised-restart budget before giving up (default 10)")
+    s.add_argument("--class_weights",
+                   help="weighted-fair dispatch shares per qos class as "
+                        "'class=weight' pairs (e.g. 'interactive=8,batch=3,"
+                        "scavenger=1' — the default)")
+    s.add_argument("--slo_targets",
+                   help="per-class latency SLO targets in seconds as "
+                        "'class=seconds' pairs (e.g. 'interactive=30'); jobs "
+                        "without --deadline_s inherit their class target for "
+                        "shedding; empty = no targets")
+    s.add_argument("--tenant_queue_cap", type=int,
+                   help="max queue slots one tenant may hold; empty = unlimited")
+    s.add_argument("--tenant_inflight_cap", type=int,
+                   help="max queued+running jobs one tenant may hold; empty = "
+                        "unlimited")
+    s.add_argument("--node",
+                   help="fleet member name this daemon serves as (surfaced in "
+                        "healthz/metrics); empty = standalone")
+    s.add_argument("--policy",
+                   help="consensus vote policy prepared at startup (default "
+                        "'majority'; an unknown name fails before the socket "
+                        "binds). Jobs always vote under their own spec policy")
+    s.set_defaults(func=serve_cmd, config_section="serve", required_args=(),
+                   builtin_defaults={
+                       "socket": "", "host": "127.0.0.1", "port": 7733,
+                       "queue_bound": 16, "gang_size": 4, "max_batch": 1024,
+                       "device": "cuda", "warmup_shapes": "", "compile_cache": "",
+                       "journal": "", "drain_s": "", "result_ttl_s": "",
+                       "warmup_budget_s": "", "supervise": "False", "max_restarts": 10,
+                       "class_weights": "", "slo_targets": "",
+                       "tenant_queue_cap": "", "tenant_inflight_cap": "", "node": "",
+                       "policy": DEFAULT_POLICY,
+                   })
+
+    u = sub.add_parser("submit", help="submit a consensus job to a running serve daemon")
+    u.add_argument("-c", "--config", default=None)
+    u.add_argument("--socket", help="daemon unix socket path")
+    u.add_argument("--host", help="daemon TCP host (default 127.0.0.1)")
+    u.add_argument("--port", type=int, help="daemon TCP port (default 7733)")
+    u.add_argument("--input", "-i", help="coordinate-sorted barcoded BAM")
+    u.add_argument("--output", "-o")
+    u.add_argument("--name", "-n")
+    u.add_argument("--cutoff", type=float)
+    u.add_argument("--qualscore", "-q", type=int)
+    u.add_argument("--scorrect", help="singleton correction on/off")
+    u.add_argument("--max_mismatch", type=int)
+    u.add_argument("--bdelim")
+    u.add_argument("--compress_level", type=int, choices=range(0, 10), metavar="0-9")
+    u.add_argument("--wait", help="block until the job finishes (default True)")
+    u.add_argument("--deadline_s", type=float,
+                   help="shed the job at admission (or dispatch) if it cannot "
+                        "finish within this many seconds at the daemon's observed "
+                        "service rate; unset = no deadline")
+    u.add_argument("--tenant",
+                   help="tenant id for quota and per-tenant metrics (default "
+                        "'default')")
+    u.add_argument("--qos", choices=("interactive", "batch", "scavenger"),
+                   help="qos class for weighted-fair dispatch and SLO accounting "
+                        "(default 'interactive')")
+    u.add_argument("--policy",
+                   help="consensus vote policy of this job (default 'majority'); "
+                        "unknown names are refused at admission")
+    u.set_defaults(func=submit_cmd, config_section="serve",
+                   required_args=("input", "output"),
+                   builtin_defaults={
+                       "socket": "", "host": "127.0.0.1", "port": 7733,
+                       "cutoff": 0.7, "qualscore": 0, "scorrect": "True",
+                       "max_mismatch": 0, "bdelim": DEFAULT_BDELIM,
+                       "compress_level": 6, "wait": "True",
+                       "tenant": "", "qos": "", "policy": "",
+                   })
     return p
 
 
@@ -845,8 +1233,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     for key, value in config_values.items():
         if hasattr(args, key) and getattr(args, key) is None:
             setattr(args, key, value)
-    if args.device is None:
-        args.device = device_of_backend(config_values.get("backend"))
+    if hasattr(args, "device") and args.device is None:
+        args.device = device_of_backend(getattr(args, "backend", None)
+                                        or config_values.get("backend"))
     for key, value in args.builtin_defaults.items():
         if getattr(args, key) is None:
             setattr(args, key, value)
@@ -854,6 +1243,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     if missing:
         parser.error("missing required arguments (flag or config.ini): "
                      + ", ".join("--" + m for m in missing))
+    if args.command != "consensus":
+        if hasattr(args, "scorrect"):  # submit
+            args.scorrect = _bool(args.scorrect)
+            args.cutoff, args.qualscore = float(args.cutoff), int(args.qualscore)
+            args.max_mismatch = int(args.max_mismatch)
+            args.compress_level = int(args.compress_level)
+        return args
     for key in ("scorrect", "cleanup", "resume", "residency", "intermediate_taps"):
         setattr(args, key, _bool(getattr(args, key)))
     args.cutoff, args.qualscore = float(args.cutoff), int(args.qualscore)
@@ -876,12 +1272,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None):
+def main(argv=None, _sscs_handoff=None):
+    """Run one command; returns what the command returns (``consensus``:
+    its result dict).  ``_sscs_handoff`` is serve-internal: a gang-
+    dispatched job continuing into the streaming pipeline hands its
+    in-memory SSCS outputs through here."""
     args = parse_args(argv)
+    args._sscs_handoff = _sscs_handoff
     _apply_obs_config(args.config)
     _apply_io_config(args.config)
     _apply_qc_config(args.config)
-    return args.func(args)
+    from consensuscruncher_tpu_torch.obs import prof as obs_prof
+    from consensuscruncher_tpu_torch.obs import trace as obs_trace
+
+    # the sampling profiler (CCT_PROF) covers every subcommand; the root
+    # span mints the run's trace id (serve jobs re-entering main()
+    # in-process inherit their job span's id), and the explicit flush
+    # leaves complete trace shards without relying on atexit ordering
+    obs_prof.maybe_start()
+    try:
+        with obs_trace.span(f"cli.{args.command}"):
+            return args.func(args)
+    finally:
+        obs_trace.flush()
+        obs_prof.flush()
 
 
 if __name__ == "__main__":

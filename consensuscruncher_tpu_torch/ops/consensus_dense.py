@@ -8,7 +8,9 @@ dense form (``ops.consensus_vote.consensus_batch``: family ``i`` at rows
 ``i * F ..`` of the member stream), with one batch in flight while the
 previous one downloads.  The JAX CLI's dense wire runs the XLA program
 ``majority_family_vote`` under ``vmap`` here; B1's dense form computes the
-same function.  Under a vote policy other than majority each batch votes
+same function.  Each dispatch is a ``device.dispatch`` trace span whose
+wall feeds the ``device_dispatch_s`` histogram, as in the JAX package.
+Under a vote policy other than majority each batch votes
 by the policy (``consensus_vote.consensus_batch(..., policy=)``).
 
 While an ``obs.qc`` plane sink is armed, every batch carries the dense
@@ -23,6 +25,7 @@ import torch
 
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_segment import _add_qc
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
@@ -35,6 +38,7 @@ from consensuscruncher_tpu_torch.parallel.prefetch import (
     start_fetch,
 )
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
+from consensuscruncher_tpu_torch.utils import sanitize
 
 
 def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.device,
@@ -90,15 +94,23 @@ def consensus_families(families, config: ConsensusConfig, device: torch.device,
         nonlocal qc_total
         if on_batch is not None:
             on_batch(batch)
-        planes = vote(batch)
-        if qc_sink is not None:
-            planes, sums = planes
-            qc_total = _add_qc(qc_total, sums)
-        obs_metrics.note_transfer("d2h", planes.nbytes, device)
-        return start_fetch(planes)
+        with obs_trace.span("device.dispatch", histogram="device_dispatch_s",
+                            n_real=batch.n_real):
+            # under CCT_SANITIZE the batch's upload with its launch is a
+            # sanctioned transfer of the stage (utils.sanitize); the QC
+            # sums and the download's start (pinned, asynchronous) run
+            # guarded
+            with sanitize.allow_transfer("dense batch upload and vote"):
+                planes = vote(batch)
+            if qc_sink is not None:
+                planes, sums = planes
+                qc_total = _add_qc(qc_total, sums)
+            obs_metrics.note_transfer("d2h", planes.nbytes, device)
+            return start_fetch(planes)
 
     def fetch(batch, handle):
-        out = handle.result()[0]
+        with sanitize.allow_transfer("dense batch download"):
+            out = handle.result()[0]
         for i, key in enumerate(batch.keys):
             length = int(batch.lengths[i])
             yield key, out[0, i, :length], out[1, i, :length]

@@ -49,6 +49,7 @@ from consensuscruncher_tpu_torch.parallel.batching import (
 )
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.utils.phred import N
+from consensuscruncher_tpu_torch.utils import sanitize
 
 
 def encode_member_batch(batch):
@@ -209,28 +210,35 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
         for batch in batches:
             wire, a, b = encode_member_batch(batch)
             n = batch.n_real
+            # under CCT_SANITIZE (utils.sanitize.guarded_stage) the batch's
+            # upload with its launch, and the planes' download, are the
+            # stage's sanctioned transfers; the encode, the residency hook
+            # and the QC sums run guarded
             if mesh is not None:  # each shard's upload is counted where it is made
                 sizes = batch.sizes[:n]
-                planes = mesh_mod.stream_vote_sharded(mesh, wire, a, b, sizes, config,
-                                                      _out_len(batch))
                 order = mesh_mod.plan_member_shards(sizes, mesh.size).order()
-                planes = planes[:, torch.from_numpy(order).to(planes.device)]
+                with sanitize.allow_transfer("sharded stream batch upload and vote"):
+                    planes = mesh_mod.stream_vote_sharded(mesh, wire, a, b, sizes, config,
+                                                          _out_len(batch))
+                    planes = planes[:, torch.from_numpy(order).to(planes.device)]
             else:
                 obs_metrics.note_transfer("h2d", a.nbytes + (b.nbytes if wire == "raw" else 0),
                                           device)
                 # the codebook of a packed wire rides in the kernel's arguments
                 b = torch.from_numpy(b)
                 lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
-                planes = stream_vote(wire, torch.from_numpy(a).to(device),
-                                     b.to(device) if wire == "raw" else b,
-                                     torch.from_numpy(batch.sizes[:n]), config,
-                                     _out_len(batch), lengths, policy)
+                with sanitize.allow_transfer("stream batch upload and vote"):
+                    planes = stream_vote(wire, torch.from_numpy(a).to(device),
+                                         b.to(device) if wire == "raw" else b,
+                                         torch.from_numpy(batch.sizes[:n]), config,
+                                         _out_len(batch), lengths, policy)
                 if qc_sink is not None:
                     planes, qc = planes
                     qc_total = _add_qc(qc_total, qc)
                 if on_device_batch is not None:
                     on_device_batch(batch, planes)
-            out = planes.cpu().numpy()
+            with sanitize.allow_transfer("stream batch download"):
+                out = planes.cpu().numpy()
             obs_metrics.note_transfer("d2h", out.nbytes, device)
             yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
     finally:

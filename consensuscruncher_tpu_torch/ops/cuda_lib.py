@@ -35,6 +35,14 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+def set_build_dir(path: str) -> None:
+    """Build and look up the libraries under ``path`` from now on (the
+    serve daemon's ``--compile_cache``: a build directory that outlives a
+    checkout).  Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
+
+
 def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
@@ -97,7 +105,7 @@ def build(name: str) -> str:
         with open(so + ".log", "w") as fh:
             fh.write(proc.stderr)
         os.replace(tmp, so)
-        obs_metrics.note_build()
+        obs_metrics.note_build(so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -30,6 +30,7 @@ from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
+from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.utils.phred import N, PAD
 from consensuscruncher_tpu_torch.utils.ragged import fill_runs, scatter_runs
 
@@ -132,6 +133,9 @@ def bucket_families(
 def _emit(bucket: _Bucket, fb: int, lb: int, pad_to: int | None) -> FamilyBatch:
     n = len(bucket.keys)
     cap = pad_to if pad_to is not None else max(MIN_BATCH, next_pow2(n))
+    # padding waste at the source: every emitted device batch observes its
+    # real/capacity ratio exactly once
+    obs_metrics.observe("batch_occupancy", n / cap)
     bases = np.full((cap, fb, lb), PAD, dtype=np.uint8)
     quals = np.zeros((cap, fb, lb), dtype=np.uint8)
     bases[:n] = np.stack(bucket.bases)
@@ -208,6 +212,7 @@ def bucket_member_blocks(
         bucket = buckets.pop(key)
         n = len(bucket.keys)
         cap = max(MIN_BATCH, next_pow2(n))
+        obs_metrics.observe("batch_occupancy", n / cap)
         m = bucket.members
         m_pad = max(MEMBER_QUANTUM, -(-m // MEMBER_QUANTUM) * MEMBER_QUANTUM)
         rows = np.zeros((m_pad, lb), dtype=np.uint8)
@@ -284,3 +289,28 @@ def bucket_member_blocks(
                 yield flush((lb, sc))
     for key in sorted(buckets):
         yield flush(key)
+
+
+def interleave_sources(sources: Sequence[Iterable]) -> Iterator:
+    """Round-robin merge of several family streams, per-source order intact.
+
+    The continuous-batching wire of ``serve/``: families from concurrently
+    queued jobs are drawn one per source per round, so a single
+    :func:`bucket_families` stream packs work from every live job into the
+    same device buckets.  Per-source relative order is exactly the
+    source's own, which is the invariant the byte-identical guarantee
+    rests on: packed family content is source-local (``rectangularize``
+    sees one family at a time), and every downstream writer orders output
+    by a content-keyed sort, never by batch order.  Exhausted sources drop
+    out; the merge ends when all are exhausted.
+    """
+    iters = [iter(s) for s in sources]
+    while iters:
+        alive = []
+        for it in iters:
+            try:
+                yield next(it)
+            except StopIteration:
+                continue
+            alive.append(it)
+        iters = alive

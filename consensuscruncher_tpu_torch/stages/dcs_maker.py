@@ -57,6 +57,7 @@ from consensuscruncher_tpu_torch.utils.profiling import (
     counter_marks,
     write_metrics,
 )
+from consensuscruncher_tpu_torch.utils import sanitize
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 
@@ -90,9 +91,12 @@ def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device, mesh=None):
     single dispatch shared by DCS and the singleton rescue.  ``mesh`` (a
     ``parallel.mesh.Mesh``) shards the pair axis instead (elementwise: no
     collective)."""
-    if mesh is not None:
-        return duplex_batch_host_sharded(s1, q1, s2, q2, mesh, DEFAULT_QUAL_CAP)
-    return duplex_batch_host(s1, q1, s2, q2, DEFAULT_QUAL_CAP, device)
+    # the pairs' upload and the planes' download are the stage's sanctioned
+    # transfers under CCT_SANITIZE (utils.sanitize.guarded_stage)
+    with sanitize.allow_transfer("duplex vote upload and download"):
+        if mesh is not None:
+            return duplex_batch_host_sharded(s1, q1, s2, q2, mesh, DEFAULT_QUAL_CAP)
+        return duplex_batch_host(s1, q1, s2, q2, DEFAULT_QUAL_CAP, device)
 
 
 class _PinnedMember:
@@ -357,8 +361,9 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
             out_b = np.empty((len(ps), L), np.uint8)
             out_q = np.empty_like(out_b)
             if hit.any():
-                out_b[hit], out_q[hit] = resident.duplex_pairs(
-                    idx1[hit], idx2[hit], L, qual_cap=DEFAULT_QUAL_CAP)
+                with sanitize.allow_transfer("resident duplex vote download"):
+                    out_b[hit], out_q[hit] = resident.duplex_pairs(
+                        idx1[hit], idx2[hit], L, qual_cap=DEFAULT_QUAL_CAP)
             if not hit.all():
                 miss = np.zeros_like(sel)
                 miss[ps[~hit]] = True
@@ -432,8 +437,11 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     ok = False
     try:
         try:
-            _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
-                                 residency, cum, mesh)
+            # CCT_SANITIZE=1: a host sync in the pairing loop outside its
+            # sanctioned vote transfers raises (utils.sanitize)
+            with sanitize.guarded_stage("dcs", device):
+                _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer, device,
+                                     residency, cum, mesh)
         except ForeignTagLayout as exc:
             if stream_out is not None:
                 raise StreamFallback(f"DCS: {exc}") from exc
@@ -448,7 +456,8 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
             unpaired_writer = SortingBamWriter(paths["unpaired"], reader.header,
                                                level=level)
             rec_writer = ConsensusRecordWriter(dcs_writer)
-            _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device, mesh)
+            with sanitize.guarded_stage("dcs", device):
+                _run_dcs_windows(reader, stats, unpaired_writer, rec_writer, device, mesh)
         rec_writer.flush()
         ok = True
     finally:

@@ -55,6 +55,7 @@ from consensuscruncher_tpu_torch.io.encode import (
     cigar_string_to_words,
 )
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
@@ -72,6 +73,7 @@ from consensuscruncher_tpu_torch.utils.profiling import (
     counter_marks,
     write_metrics,
 )
+from consensuscruncher_tpu_torch.utils import sanitize
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.utils.stats import (
     FamilySizeHistogram,
@@ -190,6 +192,162 @@ def _member_arrays(members):
     return seqs, quals
 
 
+def manifest_entry(in_bam: str, out_prefix: str, cutoff: float, qualscore: int,
+                   bdelim: str, input_range: str | None = None,
+                   policy: str = DEFAULT_POLICY) -> tuple[list, list, dict]:
+    """The stage's ``manifest.json`` entry: ``(inputs, outputs, params)``.
+
+    The one authority for what ``consensus --resume`` checks before it
+    skips the stage: the CLI records and checks it, and the serve gang
+    records it for each job it ran, so a served job's resume skips SSCS.
+    ``cutoff``/``qualscore`` are compared typed (float, int), ``in_bam``
+    and ``input_range`` as the argv gives them.  badReads.bam is no
+    output (--cleanup deletes it and nothing downstream reads it), nor are
+    time_tracker and metrics.json (they change every run).  ``policy``
+    joins the params only off the default, so a pre-policy manifest still
+    satisfies a default resume."""
+    paths = output_paths(out_prefix)
+    return ([in_bam],
+            [paths[k] for k in ("sscs", "singleton", "stats_txt", "stats_json", "families")],
+            {"cutoff": float(cutoff), "qualscore": int(qualscore), "bdelim": bdelim,
+             "input_range": input_range,
+             **({"policy": policy} if policy != DEFAULT_POLICY else {})})
+
+
+def _commit_in_memory(writer, path: str, level: int):
+    """Finish ``writer``'s sort in memory and write its file now (durable
+    before the manifest names it); the in-memory records are returned for
+    a hand-off.  A spilled sort just closes to its file (None)."""
+    from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
+
+    try:
+        mem = writer.close_to_memory()
+    except StreamFallback:
+        writer.close()
+        return None
+    mem.write(path, level=level, index=True)
+    return mem
+
+
+class SscsSink:
+    """The outputs and the accounting of one SSCS stage: the bad-read, SSCS
+    and singleton writers, the stats, the family-size histogram, the time
+    marks and the cumulative counters, and the families awaiting their
+    vote.  :func:`run_sscs` fills one per run; the serve gang
+    (``serve.scheduler.gang_sscs``) fills one per job of its merged
+    stream, so a served job's files, stats and sidecars are written by the
+    same code as the one-shot stage's."""
+
+    def __init__(self, out_prefix: str, header, level: int = 6):
+        self.prefix = out_prefix
+        self.paths = output_paths(out_prefix)
+        self.level = level
+        self.bad_writer = BamWriter(self.paths["bad"], header, atomic=True)
+        self.sscs_writer = SortingBamWriter(self.paths["sscs"], header, level=level)
+        self.singleton_writer = SortingBamWriter(self.paths["singleton"], header, level=level)
+        self.rec_writer = ConsensusRecordWriter(self.sscs_writer)
+        self.stats = StageStats("SSCS")
+        self.hist = FamilySizeHistogram()
+        self.tracker = TimeTracker()
+        self.cum = Counters()
+        self._pending: dict[int, tuple] = {}
+
+    def bad(self, record, reason: str) -> None:
+        self.stats.incr("total_reads")
+        self.stats.incr(f"bad_{reason}")
+        self.stats.incr("bad_reads")
+        self.bad_writer.write(record)
+
+    def family_events(self, events):
+        """Route the dense wire's grouping events
+        (``grouping.stream_families_columnar``): bad reads and size-1
+        families are written here; yields ``(fid, seqs, quals)`` per family
+        of size >= 2, whose vote comes back through :meth:`emit`."""
+        next_id = 0
+        for kind, a, b in events:
+            if kind == "bad":
+                self.bad(a, b)
+                continue
+            tag, members = a, b
+            self.stats.incr("total_reads", len(members))
+            self.hist.add(len(members))
+            self.stats.incr("families")
+            if len(members) == 1:
+                self.stats.incr("singletons")
+                write_singleton(self.singleton_writer, tag, members)
+                continue
+            seqs, quals = _member_arrays(members)
+            self._pending[next_id] = (tag, members)
+            yield next_id, seqs, quals
+            next_id += 1
+
+    def emit(self, fid: int, codes, quals) -> None:
+        """Write family ``fid``'s consensus read from its voted planes."""
+        tag, members = self._pending.pop(fid)
+        emit_consensus(self.rec_writer, tag, members, codes, quals)
+        self.stats.incr("sscs_written")
+
+    def abort(self) -> None:
+        """Never promote a partial output on error."""
+        for w in (self.bad_writer, self.sscs_writer, self.singleton_writer):
+            w.abort()
+
+    def close(self, stream_out=None, handoff: bool = False):
+        """Commit the outputs once the votes are written (``rec_writer``
+        flushed).  With ``stream_out`` (a ``core.streamgraph.StreamOut``)
+        the sorted SSCS/singleton records are handed off in memory: the
+        SSCS BAM still materializes (a final output, on the write-behind
+        pool) and the singleton BAM only as a tap.  With ``handoff`` both
+        files are written now and their records are returned as
+        ``{"sscs", "singleton"}`` for the caller's streaming chain (None
+        when a sort spilled).  Otherwise the files are written; returns
+        None."""
+        self.tracker.mark("consensus")
+        self.bad_writer.close()
+        mem = None
+        if stream_out is not None:
+            stream_out.capture("sscs", self.sscs_writer.close_to_memory(),
+                               file_path=self.paths["sscs"], level=self.level)
+            stream_out.capture("singleton", self.singleton_writer.close_to_memory(),
+                               file_path=self.paths["singleton"] if stream_out.taps else None,
+                               level=self.level)
+        elif handoff:
+            mem = {"sscs": _commit_in_memory(self.sscs_writer, self.paths["sscs"], self.level),
+                   "singleton": _commit_in_memory(self.singleton_writer,
+                                                  self.paths["singleton"], self.level)}
+            if mem["sscs"] is None or mem["singleton"] is None:
+                mem = None
+        else:
+            self.sscs_writer.close()  # lexsort + final BGZF write
+            self.singleton_writer.close()
+        self.tracker.mark("sort")
+        return mem
+
+    def write_sidecars(self, device: torch.device, cutoff: float,
+                       policy: str = DEFAULT_POLICY, marks=None) -> None:
+        """The stats, histogram, time-tracker and ``metrics.json`` sidecars.
+        A non-default ``policy`` is recorded under the ``policy`` stats
+        key, so default sidecars keep their golden bytes.  ``marks``
+        (``utils.profiling.counter_marks``) adds the process counters'
+        deltas since then to the cumulative block."""
+        self.stats.set("backend", device.type)
+        self.stats.set("cutoff", cutoff)
+        if policy != DEFAULT_POLICY:
+            self.stats.set("policy", policy)
+        self.stats.write(self.paths["stats_txt"])
+        self.hist.write(self.paths["families"])
+        self.tracker.write(self.paths["time_tracker"])
+        self.cum.add("families_out", self.stats.get("sscs_written"))
+        if marks is not None:
+            add_counter_deltas(self.cum, marks)
+        write_metrics(
+            f"{self.prefix}.metrics.json", "SSCS", self.tracker.as_phases(),
+            {"backend": device.type, "jax_backend": None,
+             "n_families": self.stats.get("families"),
+             "n_reads": self.stats.get("total_reads")},
+            cumulative=self.cum.snapshot())
+
+
 def run_sscs(
     in_bam,
     out_prefix: str,
@@ -275,14 +433,9 @@ def run_sscs(
             raise ValueError(f"vote policy {vote_policy.name!r} is single-device only")
         mesh = device_mesh(device, devices)
     vote_policy.prepare()
-    tracker = TimeTracker()
-    stats = StageStats("SSCS")
-    hist = FamilySizeHistogram()
-    cum = Counters()
     marks = counter_marks()
     cfg = ConsensusConfig(cutoff=cutoff, qual_threshold=qual_threshold)
 
-    paths = output_paths(out_prefix)
     if prestaged is not None:
         reader = prestaged.reader
     elif input_range is not None:
@@ -290,11 +443,10 @@ def run_sscs(
     else:
         reader = open_batch_source(in_bam)
     header = reader.header
-    bad_writer = BamWriter(paths["bad"], header, atomic=True)
-    sscs_writer = SortingBamWriter(paths["sscs"], header, level=level)
-    singleton_writer = SortingBamWriter(paths["singleton"], header, level=level)
+    sink = SscsSink(out_prefix, header, level)
+    stats, hist, cum = sink.stats, sink.hist, sink.cum
+    singleton_writer, rec_writer = sink.singleton_writer, sink.rec_writer
     single_surgery = RenameRetagWriter(singleton_writer)
-    rec_writer = ConsensusRecordWriter(sscs_writer)
     xf1 = struct.pack("<i", 1)
 
     def block_items():
@@ -304,10 +456,7 @@ def run_sscs(
                         else stream_family_blocks(reader, header, bdelim))
         for kind, a, b in block_events:
             if kind == "bad":
-                stats.incr("total_reads")
-                stats.incr(f"bad_{b}")
-                stats.incr("bad_reads")
-                bad_writer.write(a)
+                sink.bad(a, b)
                 continue
             block = a
             sizes = block.sizes
@@ -386,32 +535,6 @@ def run_sscs(
             )
             stats.incr("sscs_written", k - i)
 
-    pending: dict[int, tuple] = {}
-
-    def events():
-        """Route the dense wire's grouping events; yield a consensus job
-        ``(id, seqs, quals)`` per family of size >= 2."""
-        next_id = 0
-        for kind, a, b in stream_families_columnar(reader, header, bdelim):
-            if kind == "bad":
-                stats.incr("total_reads")
-                stats.incr(f"bad_{b}")
-                stats.incr("bad_reads")
-                bad_writer.write(a)
-                continue
-            tag, members = a, b
-            stats.incr("total_reads", len(members))
-            hist.add(len(members))
-            stats.incr("families")
-            if len(members) == 1:
-                stats.incr("singletons")
-                write_singleton(singleton_writer, tag, members)
-                continue
-            seqs, quals = _member_arrays(members)
-            pending[next_id] = (tag, members)
-            yield next_id, seqs, quals
-            next_id += 1
-
     on_device_batch = None
     if residency is not None and wire == "stream" and mesh is None:
         def on_device_batch(batch, planes):
@@ -430,27 +553,37 @@ def run_sscs(
     if qc is not None:
         obs_qc.set_plane_sink(qc)
     try:
+        # CCT_SANITIZE=1: a host sync in the vote loop outside its
+        # sanctioned batch transfers raises (utils.sanitize); the
+        # sscs.sync_probe fault site plants one
         if wire == "stream":
-            for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
-                    block_items(), cfg, device, on_device_batch, vote_policy, mesh):
-                cum.add("batches_dispatched")
-                cum.add("families_in", len(keys))
-                emit_batch(keys, lengths, out_b, out_q)
+            with sanitize.guarded_stage("sscs", device), \
+                    obs_trace.span("sscs.device_loop", wire="stream"):
+                for keys, lengths, out_b, out_q in consensus_blocks_stream_batched(
+                        block_items(), cfg, device, on_device_batch, vote_policy, mesh):
+                    sanitize.sync_probe("sscs.sync_probe", device)
+                    cum.add("batches_dispatched")
+                    cum.add("families_in", len(keys))
+                    obs_trace.event("device.batch", n_real=len(keys))
+                    emit_batch(keys, lengths, out_b, out_q)
         else:
             def on_batch(batch):
+                sanitize.sync_probe("sscs.sync_probe", device)
                 cum.add("batches_dispatched")
                 cum.add("families_in", batch.n_real)
+                obs_trace.event("device.batch", n_real=batch.n_real)
 
-            # the producer thread runs events(), which writes the bad and
-            # singleton records: the generator's close joins it before the
-            # writers close below
-            stream = consensus_families(events(), cfg, device, on_batch=on_batch,
-                                        policy=vote_policy, mesh=mesh)
+            # the producer thread runs the sink's family_events, which writes
+            # the bad and singleton records: the generator's close joins it
+            # before the writers close below
+            stream = consensus_families(
+                sink.family_events(stream_families_columnar(reader, header, bdelim)),
+                cfg, device, on_batch=on_batch, policy=vote_policy, mesh=mesh)
             try:
-                for fid, codes, quals in stream:
-                    tag, members = pending.pop(fid)
-                    emit_consensus(rec_writer, tag, members, codes, quals)
-                    stats.incr("sscs_written")
+                with sanitize.guarded_stage("sscs", device), \
+                        obs_trace.span("sscs.device_loop", wire="dense"):
+                    for fid, codes, quals in stream:
+                        sink.emit(fid, codes, quals)
             finally:
                 stream.close()
         rec_writer.flush()
@@ -464,37 +597,9 @@ def run_sscs(
             prestaged.close()
         reader.close()
         if not ok:  # never promote a partial output on error
-            for w in (bad_writer, sscs_writer, singleton_writer):
-                w.abort()
-    tracker.mark("consensus")
-    bad_writer.close()
-    if stream_out is not None:
-        # Streaming hand-off: finish the sort in memory.  The SSCS BAM is a
-        # final output (write-behind materialization); the singleton BAM
-        # only exists to feed rescue, so it becomes a debug tap.
-        stream_out.capture("sscs", sscs_writer.close_to_memory(),
-                           file_path=paths["sscs"], level=level)
-        stream_out.capture("singleton", singleton_writer.close_to_memory(),
-                           file_path=paths["singleton"] if stream_out.taps else None,
-                           level=level)
-    else:
-        sscs_writer.close()  # lexsort + final BGZF write
-        singleton_writer.close()
-    tracker.mark("sort")
-
-    stats.set("backend", device.type)
-    stats.set("cutoff", cutoff)
-    if vote_policy.name != DEFAULT_POLICY:
-        stats.set("policy", vote_policy.name)
-    stats.write(paths["stats_txt"])
-    hist.write(paths["families"])
-    tracker.write(paths["time_tracker"])
-    cum.add("families_out", stats.get("sscs_written"))
-    add_counter_deltas(cum, marks)
-    write_metrics(
-        f"{out_prefix}.metrics.json", "SSCS", tracker.as_phases(),
-        {"backend": device.type, "jax_backend": None,
-         "n_families": stats.get("families"), "n_reads": stats.get("total_reads")},
-        cumulative=cum.snapshot())
+            sink.abort()
+    sink.close(stream_out)
+    sink.write_sidecars(device, cutoff, vote_policy.name, marks)
+    paths = sink.paths
     return SscsResult(paths["sscs"], paths["singleton"], paths["bad"], stats, hist)
 

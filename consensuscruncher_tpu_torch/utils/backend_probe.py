@@ -1,0 +1,83 @@
+"""Fail-fast card probe for user-facing entry points.
+
+Port of ``consensuscruncher_tpu/utils/backend_probe.py``: the serve daemon
+touches its device once, before it binds its socket, under a watchdog.  A
+card whose driver hangs on context creation makes the probe print an
+actionable message and hard-exit instead of hanging silently; a card
+that is missing or fails raises ``SystemExit`` naming ``--device cpu``.
+The probe never degrades to the CPU: the CPU runs only when the caller
+asks for it (``--device cpu``).
+
+The port has no counterpart of the reference's ``jax_platform_for`` or
+``force_cpu_platform``: torch picks its device per tensor, so there is no
+process-wide platform to pin, and the silicon a stage ran on is the
+stage's device itself (:func:`record_backend` writes it under
+``backend``, as every port stage does; ``jax_backend`` stays absent from
+the stats and null in the metrics sidecars).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+
+
+def _default_timeout_s() -> float:
+    try:
+        return float(os.environ.get("CCT_CUDA_INIT_TIMEOUT", 120.0))
+    except ValueError:
+        print(f"WARNING: ignoring non-numeric CCT_CUDA_INIT_TIMEOUT="
+              f"{os.environ['CCT_CUDA_INIT_TIMEOUT']!r}; using 120s", file=sys.stderr)
+        return 120.0
+
+
+def record_backend(stats, device) -> None:
+    """Record the silicon a stage ran on under the ``backend`` stats key
+    (``cuda`` or ``cpu``; the golden digests drop every line naming it)."""
+    stats.set("backend", getattr(device, "type", str(device)))
+
+
+def ensure_backend(device, timeout_s: float | None = None):
+    """Resolve ``device`` (``cuda``, the default, or ``cpu``) and, for the
+    card, create its context now under a watchdog.  Returns the resolved
+    ``torch.device``.
+
+    - no CUDA      -> ``SystemExit`` with ``device.resolve_device``'s message
+    - init hangs   -> message + ``os._exit(3)`` (a hung driver call cannot
+      be interrupted from Python)
+    - init raises  -> ``SystemExit`` with the cause and ``--device cpu``
+    - init works   -> the context is warm for the stages
+    """
+    from consensuscruncher_tpu_torch.device import resolve_device
+
+    try:
+        dev = resolve_device(device)
+    except RuntimeError as exc:
+        raise SystemExit(str(exc)) from None
+    if dev.type != "cuda":
+        return dev
+    if timeout_s is None:
+        timeout_s = _default_timeout_s()
+    done = threading.Event()
+
+    def watchdog() -> None:
+        if not done.wait(timeout_s):
+            print(f"ERROR: CUDA context creation did not complete within {timeout_s:.0f}s "
+                  "— the card looks unavailable.\n"
+                  "  workaround: --device cpu (the kernels' plain PyTorch versions)\n"
+                  "  or wait longer: CCT_CUDA_INIT_TIMEOUT=<seconds>",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+    try:
+        import torch
+
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    except Exception as exc:
+        raise SystemExit(f"CUDA card unavailable ({exc}) — re-run with --device cpu") from None
+    finally:
+        done.set()
+    return dev

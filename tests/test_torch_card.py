@@ -560,3 +560,41 @@ def test_devices_2_on_card_match_one_device(card, tmp_path):
         torch.from_numpy(bases).to(card), torch.from_numpy(quals).to(card), sizes)
     assert torch.equal(got_b, want_b) and torch.equal(got_q, want_q)
     assert stats.families == int((sizes > 0).sum())
+
+
+def test_served_gang_on_card_matches_cpu_served(card, tmp_path):
+    """A gang of three jobs through the daemon's scheduler on the card (B1
+    dense launched for the gang) writes the records of the same gang served
+    on the CPU; ``CCT_SANITIZE=1`` guards the card's stages meanwhile."""
+    from consensuscruncher_tpu_torch.serve.scheduler import Scheduler
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = os.path.join(repo, "test", "data")
+    inputs = [os.path.join(data, f"{n}.bam") for n in ("sample", "sample_adversarial",
+                                                        "sample_bcerr")]
+    trees = {}
+    os.environ["CCT_SANITIZE"] = "1"
+    try:
+        for device in ("cuda", "cpu"):
+            sched = Scheduler(paused=True, gang_size=4, device=device)
+            jobs = [sched.submit({"input": p, "output": str(tmp_path / device)}) for p in inputs]
+            before = consensus_vote.launches
+            sched.release()
+            for job in jobs:
+                sched.wait(job.id, timeout=600)
+                assert job.state == "done", job.error
+                assert job.gang_size == 3
+            if device == "cuda":
+                assert consensus_vote.launches > before
+            sched.close()
+            trees[device] = tmp_path / device
+    finally:
+        os.environ.pop("CCT_SANITIZE", None)
+    for p in inputs:
+        name = os.path.basename(p).split(".")[0]
+        one, two = trees["cpu"] / name, trees["cuda"] / name
+        bams = sorted(os.path.relpath(os.path.join(r, f), one)
+                      for r, _d, files in os.walk(one) for f in files if f.endswith(".bam"))
+        assert len(bams) == 11
+        for rel in bams:
+            assert _records(str(two / rel)) == _records(str(one / rel)), (name, rel)

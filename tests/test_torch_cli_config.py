@@ -12,9 +12,10 @@
   ``reference`` exit naming ``--device``; a ``device`` key and
   ``--device`` win over it.  The committed config with ``--device cpu``
   writes the golden outputs.
-- The ``[qc]`` and ``[io]`` folds leave an environment variable that is
-  already set alone, and set it when it is not; the port reads no
-  ``[obs]`` key, so it sets none and names each as ignored on stderr.
+- The ``[qc]``, ``[io]`` and ``[obs]`` folds leave an environment variable
+  that is already set alone, and set it when it is not, as the JAX
+  package's do; a canary key of ``[obs]`` (the canary is not ported yet)
+  is named as ignored on stderr.
 """
 
 import json
@@ -139,8 +140,9 @@ def test_committed_config_on_the_cpu_writes_the_goldens(tmp_path):
 def test_env_folds_keep_a_set_variable(tmp_path, monkeypatch, capsys):
     cfg = _ini(tmp_path / "run.ini",
                "[qc]\nenabled = False\n[io]\nbgzf_threads = 3\nasync_writer = False\n"
-               "[obs]\ntrace = 1\ntrace_dir = /tmp/t\nunknown_key = 7\n")
-    for var in ("CCT_QC", "CCT_TRACE", "CCT_TRACE_DIR", "CCT_BGZF_THREADS", "CCT_ASYNC_WRITER"):
+               "[obs]\ntrace = 1\ntrace_dir = /tmp/t\ncanary = 1\nunknown_key = 7\n")
+    for var in ("CCT_QC", "CCT_TRACE", "CCT_TRACE_DIR", "CCT_CANARY", "CCT_BGZF_THREADS",
+                "CCT_ASYNC_WRITER"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setitem(bgzf._cfg, "threads", None)
     monkeypatch.setitem(bgzf._cfg, "async_write", None)
@@ -155,17 +157,26 @@ def test_env_folds_keep_a_set_variable(tmp_path, monkeypatch, capsys):
     assert (os.environ["CCT_QC"], os.environ["CCT_TRACE"]) == ("1", "0")
     assert bgzf.codec_threads() == 5 and bgzf.async_write_default()
     # unset variables take the config's values
-    for var in ("CCT_QC", "CCT_TRACE", "CCT_BGZF_THREADS", "CCT_ASYNC_WRITER"):
-        monkeypatch.delenv(var)
+    for var in ("CCT_QC", "CCT_TRACE", "CCT_TRACE_DIR", "CCT_BGZF_THREADS",
+                "CCT_ASYNC_WRITER"):
+        monkeypatch.delenv(var, raising=False)
     capsys.readouterr()
     torch_cli._apply_qc_config(cfg)
     torch_cli._apply_obs_config(cfg)
     assert os.environ["CCT_QC"] == "0"
     assert bgzf.codec_threads() == 3 and not bgzf.async_write_default()
-    # the port reads no [obs] key: it sets nothing and names each key as
-    # ignored on stderr
-    assert "CCT_TRACE" not in os.environ and "CCT_TRACE_DIR" not in os.environ
-    assert "config [obs] trace, trace_dir, unknown_key: ignored" in capsys.readouterr().err
+    # [obs] folds into the tracer's variables as the JAX package's fold
+    # does; the canary key (its prober is not ported yet) sets nothing and
+    # is named as ignored on stderr
+    assert (os.environ["CCT_TRACE"], os.environ["CCT_TRACE_DIR"]) == ("1", "/tmp/t")
+    assert "CCT_CANARY" not in os.environ
+    assert "config [obs] canary: ignored" in capsys.readouterr().err
+    port_env = {k: os.environ.get(k) for k in ("CCT_TRACE", "CCT_TRACE_DIR")}
+    for var in ("CCT_TRACE", "CCT_TRACE_DIR"):
+        monkeypatch.delenv(var)
+    jax_cli._apply_obs_config(cfg)
+    assert {k: os.environ.get(k) for k in port_env} == port_env
+    monkeypatch.delenv("CCT_CANARY", raising=False)
     # the committed config sets no [obs] key: nothing is named
     torch_cli._apply_obs_config(CONFIG)
     assert capsys.readouterr().err == ""

@@ -16,7 +16,10 @@
 - a default run (no ``--policy``) never enters the policy path, and a
   policy vote stays on its planes' device: run on ``meta`` tensors (which
   hold no data, so any copy to the host raises), every output is on that
-  device and no op reads member planes on the CPU.
+  device and no op reads member planes on the CPU;
+- every module of the port imports without JAX (the serve daemon and the
+  obs core too); a ``serve --device cpu`` daemon and a ``submit`` client
+  import none of it; ``serve`` without a card exits before it binds.
 """
 
 import json
@@ -411,3 +414,94 @@ def test_pipelined_runner_defaults_to_cuda(monkeypatch):
         run_duplex_pipelined(*args)
     out = run_duplex_pipelined(*args, device="cpu")
     assert out[6].tolist() == [1, 1, 0, 8 * 60]
+
+
+_ALL_MODULES = """
+import json, pkgutil, sys, importlib
+import consensuscruncher_tpu_torch as pkg
+names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+               if not m.name.endswith("__main__"))
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names,
+                  "bad": sorted(m for m in sys.modules
+                                if m in ("jax", "jaxlib", "consensuscruncher_tpu")
+                                or m.startswith(("jax.", "jaxlib.", "consensuscruncher_tpu.")))}))
+"""
+
+
+def test_every_module_imports_no_jax():
+    """Every module of the port — the serve daemon, the obs core, the
+    sanitizers, the card probe of this slice included — imports, in a
+    fresh interpreter, without JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _ALL_MODULES], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc["bad"] == []
+    for name in ("serve.scheduler", "serve.server", "serve.journal", "serve.client",
+                 "serve.supervisor", "serve.warmup", "serve.wire", "obs.trace", "obs.flight",
+                 "obs.slo", "obs.history", "obs.prof", "utils.sanitize",
+                 "utils.backend_probe", "utils.netchaos", "utils.faults"):
+        assert f"consensuscruncher_tpu_torch.{name}" in doc["modules"]
+
+
+def test_serve_without_a_card_exits_before_binding(tmp_path):
+    """``serve`` with no ``--device cpu`` on a box with no CUDA exits with
+    ``resolve_device``'s message, and its socket never exists."""
+    sock = tmp_path / "d.sock"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "serve", "--socket",
+         str(sock), "--journal", str(tmp_path / "j.wal")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available; pass device='cpu' (CLI: --device cpu)" in proc.stderr
+    assert not sock.exists() and not (tmp_path / "j.wal").exists()
+
+
+def test_serve_and_submit_import_no_jax(tmp_path):
+    """A ``serve --device cpu`` daemon and a ``submit`` client, each a
+    process of its own: the served job holds the goldens, and neither
+    process imports JAX or the JAX package (the ``sitecustomize`` spy)."""
+    import signal
+    import time
+
+    spy, dumps = tmp_path / "spy", tmp_path / "dumps"
+    spy.mkdir()
+    dumps.mkdir()
+    (spy / "sitecustomize.py").write_text(_SPY)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(spy), CCT_SPY_DIR=str(dumps))
+    sock = tmp_path / "d.sock"
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "serve", "--socket",
+         str(sock), "--device", "cpu", "--journal", str(tmp_path / "j.wal"), "--gang_size", "2",
+         "--warmup_shapes", "8x4x128"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not sock.exists():
+            assert daemon.poll() is None, daemon.communicate()[1][-2000:]
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        sub = subprocess.run(
+            [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "submit", "--socket",
+             str(sock), "-i", os.path.join(REPO, "test", "data", "sample.bam"), "-o",
+             str(tmp_path / "out"), "-n", "golden"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        assert sub.returncode == 0, sub.stderr
+        assert "done in" in sub.stdout
+    finally:
+        daemon.send_signal(signal.SIGTERM)
+        out, err = daemon.communicate(timeout=120)
+    assert daemon.returncode == 0, err[-2000:]
+    assert "serve: warmed 1/1 bucket shapes on cpu" in out and "shutdown complete" in out
+    runs = [json.loads(p.read_text()) for p in dumps.iterdir()]
+    assert len(runs) == 2 and [r["bad"] for r in runs] == [[], []]
+    from consensuscruncher_tpu_torch.utils.digest import golden_mismatches
+
+    with open(os.path.join(REPO, "test", "golden.json")) as fh:
+        golden = json.load(fh)["consensus"]
+    assert golden_mismatches(str(tmp_path / "out" / "golden"), golden) == []
