@@ -141,7 +141,30 @@ failure; no phase's failure is caught.  Phases:
     dispatched; restarted on the same journal it replays the job through
     ``--resume`` to its one-shot tree and reports the replay; (iv)
     ``CCT_SANITIZE=1 consensus`` on ``sample.bam`` keeps the goldens and
-    a planted ``.item()`` in a guarded stage raises ``StageTransferError``.
+    a planted ``.item()`` in a guarded stage raises ``StageTransferError``;
+12. the fleet, held to phase 11's one-shot trees: (i) ``route --spawn 2
+    --ring_view V --result_cache P`` in a process of its own (it opens no
+    CUDA context; its workers share the library phase 2 built, through
+    ``--compile_cache``) serves the four 600-fragment jobs, ``sample.bam``
+    (the goldens) and phase 6 (a)'s untagged sample, each tree equal to
+    its one-shot run (records, stats less backend lines, manifest stages,
+    ``qc.json`` less its plane when ganged); each job's node and the
+    router's overhead on it, each worker's B1 launches, the gangs' B1
+    dense launches (one per batch) and the ``cct_fleet_*`` lines; (ii) two
+    ``serve`` daemons started by hand behind ``route --members ...
+    --journals ...``: the ring owner of phase 7's degraded job kills itself
+    with the job dispatched (``serve.worker=kill:SIGKILL``), the router
+    resubmits it by key to the other daemon, whose tree equals the
+    one-shot run (the seconds from the kill to the result); (iii) (i)'s
+    50,000-fragment spec again under another tenant and output: answered
+    ``cached`` by the router, no worker launching, every file the first
+    tree's bytes (hit latency beside the miss's); (iv) a third daemon
+    ``serve --warm_from V`` joins with ``member_add``: no kernel build
+    (``cct_recompiles_total`` 0) and the job routed to it equals its
+    one-shot run; (v) ``CCT_CANARY=1``: on that daemon the self-minted
+    golden equals ``output_digest`` of a ``--device cpu`` run of the probe
+    made here and ``cct_canary_ok`` reads 1; on (ii)'s surviving daemon a
+    wrong ``CCT_CANARY_GOLDEN`` flips it to 0.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -198,8 +221,14 @@ from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import distributed  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
+from consensuscruncher_tpu_torch.serve.canary import (  # noqa: E402
+    CANARY_FRAGMENTS,
+    CANARY_SEED,
+    output_digest,
+)
 from consensuscruncher_tpu_torch.serve.client import ServeClient  # noqa: E402
-from consensuscruncher_tpu_torch.serve.journal import replay  # noqa: E402
+from consensuscruncher_tpu_torch.serve.journal import idempotency_key, replay  # noqa: E402
+from consensuscruncher_tpu_torch.serve.router import HashRing  # noqa: E402
 from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
@@ -2460,14 +2489,36 @@ SERVE_SMALL_FRAGMENTS = 600
 SAMPLE_BAM = os.path.join(REPO, "test", "data", "sample.bam")
 
 
-class _Daemon:
+class _Proc:
+    """A CLI process of the smoke's (``what``: its command), its output in
+    ``self.log``."""
+
+    what = "serve"
+
+    def tail(self) -> str:
+        with open(self.log) as fh:
+            return fh.read()[-3000:]
+
+    def stop(self) -> None:
+        """SIGTERM: the process drains and exits 0."""
+        self.proc.send_signal(signal.SIGTERM)
+        if self.proc.wait(timeout=300) != 0:
+            raise AssertionError(f"{self.what} exited {self.proc.returncode}: {self.tail()}")
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+class _Daemon(_Proc):
     """``python -m consensuscruncher_tpu_torch.cli serve`` in a process of
     its own, as a user starts it: on the card (``--device cpu`` only when
     the smoke itself runs on the CPU), with a journal and tracing on.
     Started by :meth:`start`, which returns once healthz answers."""
 
-    def __init__(self, work: str, tag: str, dev, env_extra=None):
-        self.tag, self.dev = tag, dev
+    def __init__(self, work: str, tag: str, dev, env_extra=None, argv_extra=()):
+        self.tag, self.dev, self.argv_extra = tag, dev, list(argv_extra)
         self.sock = os.path.join(work, f"{tag}.sock")
         self.journal = os.path.join(work, f"{tag}.wal")
         self.log = os.path.join(work, f"{tag}.log")
@@ -2476,17 +2527,26 @@ class _Daemon:
         self.proc = None
 
     def start(self) -> float:
+        """Launch the daemon and wait until it serves; returns the seconds
+        from launch to serving."""
+        return self.launch().ready()
+
+    def launch(self) -> "_Daemon":
         argv = [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "serve",
                 "--socket", self.sock, "--journal", self.journal,
-                "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP]
+                "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP,
+                *self.argv_extra]
         if self.dev.type == "cpu":
             argv += ["--device", "cpu"]
         if os.path.exists(self.sock):  # a killed daemon's socket file
             os.unlink(self.sock)
-        t = time.perf_counter()
+        self.t_launch = time.perf_counter()
         with open(self.log, "a") as log:
             self.proc = subprocess.Popen(argv, cwd=REPO, env=self.env, stdout=log,
                                          stderr=subprocess.STDOUT)
+        return self
+
+    def ready(self) -> float:
         deadline = time.monotonic() + 600
         while not os.path.exists(self.sock):
             if self.proc.poll() is not None or time.monotonic() > deadline:
@@ -2495,22 +2555,7 @@ class _Daemon:
         self.client = ServeClient(self.sock)
         if self.client.healthz()["status"] != "serving":
             raise AssertionError(f"serve is not serving: {self.tail()}")
-        return time.perf_counter() - t
-
-    def tail(self) -> str:
-        with open(self.log) as fh:
-            return fh.read()[-3000:]
-
-    def stop(self) -> None:
-        """SIGTERM: the daemon drains and exits 0."""
-        self.proc.send_signal(signal.SIGTERM)
-        if self.proc.wait(timeout=300) != 0:
-            raise AssertionError(f"serve exited {self.proc.returncode}: {self.tail()}")
-
-    def kill(self) -> None:
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait(timeout=60)
+        return time.perf_counter() - self.t_launch
 
 
 def _serve_spec(inp: str, out: str, name: str, **extra) -> dict:
@@ -2824,8 +2869,325 @@ def phase_serve(dev, work: str, one_shot: dict, card: str) -> dict:
                        "planted_item_raised": planted}
     emit("serve_sanitize", card=card, **row["sanitize"])
     row["one_shot_s"] = one_shot_s
+    row["one_shot"] = one_shot
     row["seconds"] = time.perf_counter() - t0
     shutil.rmtree(serve_dir)
+    return row
+
+
+# ------------------------------------------------------------ phase 12: the fleet
+
+FLEET_MEMBERS = ("w0", "w1")
+# the canary's probe cadence on the daemons that run one (s)
+FLEET_CANARY_INTERVAL_S = "1"
+WRONG_GOLDEN = "0" * 64
+FLEET_WAIT_S = 300
+
+
+class _Router(_Proc):
+    """``python -m consensuscruncher_tpu_torch.cli route`` in a process of
+    its own, as a user starts it; the workers it spawns inherit its
+    environment (tracing on).  :meth:`start` returns once its socket
+    answers with ``n_members`` members up; :meth:`stop` drains the workers
+    it spawned."""
+
+    what = "route"
+
+    def __init__(self, work: str, tag: str, dev, argv, n_members: int):
+        self.sock = os.path.join(work, f"{tag}.sock")
+        self.log = os.path.join(work, f"{tag}.log")
+        self.argv = list(argv) + (["--device", "cpu"] if dev.type == "cpu" else [])
+        self.n_members = n_members
+        self.env = dict(os.environ, CCT_TRACE="1",
+                        CCT_TRACE_DIR=os.path.join(work, f"{tag}_trace"))
+        self.proc = None
+
+    def start(self) -> float:
+        t = time.perf_counter()
+        with open(self.log, "a") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "route",
+                 "--socket", self.sock, *self.argv],
+                cwd=REPO, env=self.env, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 600
+        while not os.path.exists(self.sock):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"route did not start: {self.tail()}")
+            time.sleep(0.05)
+        self.client = ServeClient(self.sock)
+        fleet = self.client.request({"op": "healthz"})["health"]["fleet"]
+        if fleet["up"] != self.n_members:
+            raise AssertionError(f"route: {fleet['up']} of {self.n_members} members up")
+        return time.perf_counter() - t
+
+
+def _owned_spec(members, owner: str, inp: str, out_root: str, name: str) -> dict:
+    """A spec of ``inp`` run ``name`` whose ring owner among ``members``
+    is ``owner``: the first output directory ``<out_root>/o<k>`` that
+    hashes there (placement keys on the whole spec)."""
+    ring = HashRing(list(members))
+    for k in range(1000):
+        spec = _serve_spec(inp, os.path.join(out_root, f"o{k}"), name)
+        if ring.owner(idempotency_key(spec)) == owner:
+            return spec
+    raise AssertionError(f"no output directory hashes to {owner}")
+
+
+def _worker_launches(socks: dict) -> dict:
+    """Each daemon's B1 launches so far (the vote wrapper's count, read
+    over its socket)."""
+    return {n: ServeClient(sock).metrics()["kernel_launches"]["vote"]
+            for n, sock in socks.items()}
+
+
+def _prom_value(text: str, name: str):
+    return next((ln.split()[-1] for ln in text.splitlines() if ln.startswith(name + " ")), None)
+
+
+def _canary_status(client, want: str) -> dict:
+    """The daemon's canary status once a probe has passed (``want`` =
+    ``"pass"``) or failed (``"fail"``)."""
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while True:
+        canary = client.metrics().get("canary") or {}
+        if canary.get(want, 0) >= 1:
+            return canary
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no canary {want} within {FLEET_WAIT_S} s: {canary}")
+        time.sleep(0.2)
+
+
+def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
+    """(i) ``route --spawn 2 --ring_view V --result_cache P`` (the kernel
+    library shared through ``--compile_cache``) serves the four 600-fragment
+    jobs, ``sample.bam`` (the goldens) and (a)'s untagged sample, each
+    tree equal to its one-shot run of this call; each job's node, each
+    worker's B1 launches over the cell and the fleet Prometheus printed;
+    (iii) (a)'s spec again under another tenant and output: answered from
+    the cache (no worker launches), its bytes the first tree's; (iv) a
+    third daemon ``serve --warm_from V`` added with ``member_add``: no
+    kernel build, and a job routed to it equals its one-shot run; (v) the
+    golden canary on that daemon mints the golden a ``--device cpu`` run
+    of the probe digests to (``cct_canary_ok`` 1); (ii) two ``serve``
+    daemons started by hand behind ``route --members ... --journals ...``:
+    the ring owner of the degraded sample's job kills itself with the job
+    dispatched, the router resubmits it by key to the other daemon, whose
+    tree equals the one-shot run, and whose canary, pinned to a wrong
+    ``CCT_CANARY_GOLDEN``, flips ``cct_canary_ok`` to 0.
+
+    ``one_shot``: phase 11's one-shot runs (their trees under
+    ``<work>/one``), ``{name: {"wall_s", "launches"}}``."""
+    t0 = time.perf_counter()
+    golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
+    fdir = os.path.join(work, "fleet")
+    os.makedirs(fdir)
+    one = os.path.join(work, "one")
+    row: dict = {"card": card}
+    s105 = os.path.join(work, "s105.bam")
+    simulate_bam_fast(s105, SimConfig(n_fragments=SERVE_SMALL_FRAGMENTS,
+                                      ref_len=40 * SERVE_SMALL_FRAGMENTS, seed=105))
+    one_shot["s105"] = _one_shot(s105, one, "s105", dev)
+    probe = os.path.join(work, "canary.bam")
+    simulate_bam(probe, SimConfig(n_fragments=CANARY_FRAGMENTS, seed=CANARY_SEED))
+    cli_main(["consensus", "-i", probe, "-o", os.path.join(work, "canary_cpu"), "-n", "canary",
+              "--device", "cpu"])
+    cpu_golden = output_digest(os.path.join(work, "canary_cpu", "canary"))
+
+    view, plane = os.path.join(fdir, "ring.view"), os.path.join(fdir, "plane")
+    fleet_work = os.path.join(fdir, "fw")
+    router = _Router(fdir, "route", dev, [
+        "--spawn", str(len(FLEET_MEMBERS)), "--workdir", fleet_work, "--ring_view", view,
+        "--result_cache", plane, "--compile_cache", cuda_lib.BUILD_DIR,
+        "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP], len(FLEET_MEMBERS))
+    socks = {n: os.path.join(fleet_work, f"{n}.sock") for n in FLEET_MEMBERS}
+    warm = None
+    try:
+        row["route_start_s"] = router.start()
+        # (i) every job through the router; a blocker per worker first, so
+        # each worker's jobs queue together and gang
+        out_i = os.path.join(fdir, "i")
+        jobs = {"obj": (os.path.join(work, "obj.bam"), os.path.join(work, "untagged", "obj")),
+                "golden": (SAMPLE_BAM, os.path.join(one, "golden")),
+                **{f"s{sd}": (os.path.join(work, f"s{sd}.bam"), os.path.join(one, f"s{sd}"))
+                   for sd in SERVE_SMALL_SEEDS}}
+        adversarial = os.path.join(REPO, "test", "data", "sample_adversarial.bam")
+        blockers = [_owned_spec(FLEET_MEMBERS, w, adversarial, os.path.join(fdir, f"b{w}"),
+                                f"blocker_{w}") for w in FLEET_MEMBERS]
+        before = _worker_launches(socks)
+        t = time.perf_counter()
+        subs, done = _submit_all(router.client, blockers + [
+            _serve_spec(inp, out_i, n) for n, (inp, _one) in jobs.items()])
+        wall = time.perf_counter() - t
+        after = _worker_launches(socks)
+        subs, done = subs[len(blockers):], done[len(blockers):]
+        cell = {"first_submit_to_last_result_s": wall, "jobs": {}}
+        for (n, (_inp, base_one)), sub, (job, latency) in zip(jobs.items(), subs, done):
+            if sub["node"] not in FLEET_MEMBERS or sub.get("cached"):
+                raise AssertionError(f"{n}: routed to {sub['node']}")
+            cell["jobs"][n] = {
+                "node": sub["node"], "gang_size": job["gang_size"], "latency_s": latency,
+                "worker_latency_s": job["queue_wait_s"] + job["wall_s"],
+                "router_overhead_s": latency - job["queue_wait_s"] - job["wall_s"],
+                "tree": _served_tree(os.path.join(out_i, n), base_one, n,
+                                     ganged=job["gang_size"] > 1)}
+        if golden_mismatches(os.path.join(out_i, "golden"), golden["consensus"]):
+            raise AssertionError("the routed sample.bam misses the goldens")
+        gangs = []
+        for sock in socks.values():
+            events = ServeClient(sock).request({"op": "trace"})["trace"]["events"]
+            gangs += [e["args"] for e in events if e["name"] == "serve.gang_batches"]
+        cell["worker_b1_launches"] = {w: after[w] - before[w] for w in FLEET_MEMBERS}
+        cell["gang_b1_launches"] = sum(g["launches"] for g in gangs)
+        cell["gangs"] = len(gangs)
+        if not gangs or (dev.type == "cuda" and (
+                cell["gang_b1_launches"] == 0
+                or any(g["launches"] != g["batches"] for g in gangs))):
+            raise AssertionError(f"the fleet's gangs did not launch B1 dense per batch: {gangs}")
+        prom = router.client.metrics_prometheus()
+        cell["fleet_prometheus"] = [ln for ln in prom.splitlines()
+                                    if ln.startswith("cct_fleet_")]
+        if f"cct_fleet_members {len(FLEET_MEMBERS)}" not in cell["fleet_prometheus"]:
+            raise AssertionError(f"fleet Prometheus: {cell['fleet_prometheus']}")
+        cell["worker_recompiles"] = {w: _prom_value(ServeClient(sock).metrics_prometheus(),
+                                                    "cct_recompiles_total")
+                                     for w, sock in socks.items()}
+        if dev.type == "cuda" and set(cell["worker_recompiles"].values()) != {"0"}:
+            raise AssertionError(f"a spawned worker built the library: {cell}")
+        row["route"] = cell
+        emit("fleet_route", card=card, **cell)
+
+        # (iii) the same question from another tenant: the router answers
+        # it from the cache plane, and no worker launches
+        before = _worker_launches(socks)
+        spec = _serve_spec(os.path.join(work, "obj.bam"), os.path.join(fdir, "iii"), "obj",
+                           tenant="other")
+        t = time.perf_counter()
+        sub = router.client.submit_full(spec)
+        job = router.client.result(key=sub["key"], timeout=FLEET_WAIT_S)
+        hit_s = time.perf_counter() - t
+        if not (sub.get("cached") and job["state"] == "done" and job.get("cached")):
+            raise AssertionError(f"the resubmitted spec was not a cache hit: {sub} {job}")
+        if _worker_launches(socks) != before:
+            raise AssertionError("a cache hit launched a kernel on a worker")
+        first, hit = os.path.join(out_i, "obj"), os.path.join(fdir, "iii", "obj")
+        rels = sorted(os.path.relpath(os.path.join(r, f), first)
+                      for r, _d, files in os.walk(first) for f in files)
+        for rel in rels:
+            with open(os.path.join(first, rel), "rb") as a, \
+                    open(os.path.join(hit, rel), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"cached {rel} differs from the first tree's")
+        row["cache"] = {"hit_latency_s": hit_s,
+                        "miss_latency_s": cell["jobs"]["obj"]["latency_s"],
+                        "files_equal": len(rels), "node": sub["node"]}
+        emit("fleet_cache", card=card, **row["cache"])
+
+        # (iv) warm join: a third daemon reads the ring view, is added to
+        # the ring, and runs the job routed to it
+        warm = _Daemon(fdir, "w2", dev, {"CCT_CANARY": "1",
+                                         "CCT_CANARY_INTERVAL_S": FLEET_CANARY_INTERVAL_S},
+                       ["--node", "w2", "--warm_from", view])
+        start_s = warm.start()
+        recompiles = _prom_value(warm.client.metrics_prometheus(), "cct_recompiles_total")
+        if dev.type == "cuda" and recompiles != "0":
+            raise AssertionError(f"the warm-joined daemon built the library ({recompiles})")
+        added = router.client.request({"op": "member_add", "name": "w2",
+                                       "address": warm.sock, "journal": warm.journal})
+        spec = _owned_spec((*FLEET_MEMBERS, "w2"), "w2", s105, os.path.join(fdir, "iv"),
+                           "s105")
+        launches0 = _worker_launches({"w2": warm.sock})["w2"]
+        wsubs, wdone = _submit_all(router.client, [spec])
+        if wsubs[0]["node"] != "w2":
+            raise AssertionError(f"the job meant for w2 went to {wsubs[0]['node']}")
+        job = wdone[0][0]
+        tree = _served_tree(os.path.join(spec["output"], "s105"), os.path.join(one, "s105"),
+                            "s105", ganged=job["gang_size"] > 1)
+        row["warm_join"] = {"start_s": start_s, "spawned_fleet_start_s": row["route_start_s"],
+                            "recompiles": recompiles, "fleet_size": added["fleet_size"],
+                            "latency_s": wdone[0][1], "tree": tree,
+                            "b1_launches": _worker_launches({"w2": warm.sock})["w2"] - launches0}
+        emit("fleet_warm_join", card=card, **row["warm_join"])
+
+        # (v) the canary on the warm-joined daemon: the golden it mints is
+        # the --device cpu run's digest
+        canary = _canary_status(warm.client, "pass")
+        ok = _prom_value(warm.client.metrics_prometheus(), "cct_canary_ok")
+        if canary["golden"] != cpu_golden or ok != "1":
+            raise AssertionError(f"canary golden {canary['golden']} against the CPU run's "
+                                 f"{cpu_golden}; cct_canary_ok {ok}")
+        events = warm.client.request({"op": "trace"})["trace"]["events"]
+        row["canary"] = {"golden_equals_cpu_run": True, "canary_ok": ok,
+                         "passes": canary["pass"],
+                         "probe_latency_ms": [e["args"]["latency_ms"] for e in events
+                                              if e["name"] == "serve.canary"
+                                              and e["args"].get("ok")]}
+        warm.stop()
+        router.stop()
+    finally:
+        if warm is not None:
+            warm.kill()
+        router.kill()
+
+    # (ii) failover: two daemons started by hand behind a router
+    t = time.perf_counter()
+    hdir = os.path.join(fdir, "ha")
+    os.makedirs(hdir)
+    spec = _serve_spec(os.path.join(work, "degraded.bam"), os.path.join(hdir, "out"), "p")
+    names = ("v0", "v1")
+    owner = HashRing(list(names)).owner(idempotency_key(spec))
+    daemons = {n: _Daemon(hdir, n, dev, {"CCT_FAULTS": "serve.worker=kill:SIGKILL"}
+                          if n == owner else {"CCT_CANARY": "1", "CCT_CANARY_GOLDEN": WRONG_GOLDEN,
+                                              "CCT_CANARY_INTERVAL_S": FLEET_CANARY_INTERVAL_S},
+                          ["--node", n]) for n in names}
+    ha = _Router(hdir, "route", dev, [
+        "--members", ",".join(f"{n}={d.sock}" for n, d in daemons.items()),
+        "--journals", ",".join(f"{n}={d.journal}" for n, d in daemons.items()),
+        "--down_after", "1"], len(names))
+    try:
+        for d in daemons.values():
+            d.launch()
+        for d in daemons.values():
+            d.ready()
+        ha.start()
+        sub = ha.client.submit_full(spec)
+        if sub["node"] != owner:
+            raise AssertionError(f"the job went to {sub['node']}, not its ring owner {owner}")
+        if daemons[owner].proc.wait(timeout=FLEET_WAIT_S) != -signal.SIGKILL:
+            raise AssertionError(f"the owner was not killed: {daemons[owner].tail()}")
+        t_kill = time.perf_counter()
+        job = ha.client.result(key=sub["key"], timeout=900)
+        kill_to_result_s = time.perf_counter() - t_kill
+        if job["state"] != "done":
+            raise AssertionError(f"the failed-over job {job['state']}: {job.get('error')}")
+        jobs, _info = replay(daemons[owner].journal)
+        if [j["state"] for j in jobs.values()] != ["dispatched"]:
+            raise AssertionError(f"the owner's journal: {jobs}")
+        counters = ha.client.metrics()["cumulative"]
+        if counters.get("member_down_events", 0) < 1 or counters.get("route_resubmits", 0) < 1:
+            raise AssertionError(f"no failover counted: {counters}")
+        tree = _served_tree(os.path.join(hdir, "out", "p"),
+                            os.path.join(work, "degraded_majority", "p"), "p",
+                            ganged=job["gang_size"] > 1)
+        survivor = daemons[next(n for n in names if n != owner)]
+        failed = _canary_status(survivor.client, "fail")
+        flipped = _prom_value(survivor.client.metrics_prometheus(), "cct_canary_ok")
+        if flipped != "0" or "mismatch" not in (failed.get("last_error") or ""):
+            raise AssertionError(f"a wrong golden did not flip the canary: {flipped} {failed}")
+        row["canary"]["wrong_golden_canary_ok"] = flipped
+        row["failover"] = {"owner": owner, "kill_to_result_s": kill_to_result_s,
+                           "seconds": time.perf_counter() - t, "tree": tree,
+                           "member_down_events": counters["member_down_events"],
+                           "route_resubmits": counters["route_resubmits"]}
+        emit("fleet_failover", card=card, **row["failover"])
+        emit("fleet_canary", card=card, **row["canary"])
+        ha.stop()
+        survivor.stop()
+    finally:
+        ha.kill()
+        for d in daemons.values():
+            d.kill()
+    row["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(fdir)
     return row
 
 
@@ -2888,6 +3250,8 @@ def main() -> None:
                   "launches": policy_runs["degraded/majority"]["b1_launches"]}},
             rates["card"])
         emit("serve", seconds=serve["seconds"])
+        fleet = phase_fleet(dev, work, serve["one_shot"], rates["card"])
+        emit("fleet", seconds=fleet["seconds"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("smoke", seconds=time.perf_counter() - started)
@@ -2910,7 +3274,8 @@ def main() -> None:
          "qc_launches": dense["qc_launches"], "path": dense["path"], "shape": dense["shape"],
          "serve_gang_launches": serve["large"]["launches"],
          "serve_small_gang_launches": serve["small"]["launches"],
-         "serve_small_alone_launches": sum(serve["small"]["alone_dense_b1_launches"].values())},
+         "serve_small_alone_launches": sum(serve["small"]["alone_dense_b1_launches"].values()),
+         "fleet_gang_launches": fleet["route"]["gang_b1_launches"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

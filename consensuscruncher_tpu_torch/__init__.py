@@ -13,8 +13,11 @@ packed member-stream wire with its QC rider (a hand-written CUDA kernel,
 all-unique merges, the BAI indexes, and the run's ``qc.json``,
 ``manifest.json`` (``--resume``) and ``run.metrics.json``; the vote
 policies (``--policy majority|delegation|distilled``, ``policies/``);
-the fused SSCS+DCS API; and the serve daemon (``serve``/``submit``,
-``serve/``) with the obs core it stands on (``obs/``).  Entry points run on the CUDA card
+the fused SSCS+DCS API; the serve daemon (``serve``/``submit``,
+``serve/``) with the obs core it stands on (``obs/``); and its fleet: the
+router (``route``), the content-addressed result cache (``--result_cache``,
+``cache scrub``, ``serve --warm_from``) and the golden canary.  Entry
+points run on the CUDA card
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where each kernel's plain PyTorch version runs instead.
 """

@@ -30,17 +30,31 @@ the input (sharing the visible CUDA cards) and merges their outputs.
 over N shards laid over the visible cards (``parallel.mesh``); with
 ``--device cpu``, N CPU shards.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run.
+``--result_cache P`` lets the ``--host_workers`` planner materialize a
+range the cache plane knows to be empty instead of running its worker.
 
     python -m consensuscruncher_tpu_torch.cli serve --socket S [--journal J] \\
-        [--gang_size 4] [--warmup_shapes BxFxL,...] [--device cuda|cpu] ...
+        [--gang_size 4] [--warmup_shapes BxFxL,...] [--device cuda|cpu] \\
+        [--result_cache P] [--warm_from VIEW] ...
     python -m consensuscruncher_tpu_torch.cli submit --socket S -i X.bam -o OUT
+    python -m consensuscruncher_tpu_torch.cli route --spawn N | --members M \\
+        [--ring_view VIEW] [--result_cache P] [--device cuda|cpu] ...
+    python -m consensuscruncher_tpu_torch.cli cache scrub --result_cache P
 
 ``serve`` runs the persistent daemon of ``serve/`` on the card (unless
 ``--device cpu``): it gangs the SSCS of several queued jobs into one dense
 device stream and finishes each job through ``consensus --resume``;
-``submit`` hands it one job and waits for the result.  The JAX package's
-``--warm_from`` and ``--result_cache`` belong to its fleet and are not
-ported yet.
+``submit`` hands it one job and waits for the result.  With
+``--result_cache`` the daemon answers a job whose content digest is in the
+cache plane by copying the committed bytes; ``--warm_from`` joins a fleet
+hot from its ring view (the shared kernel build directory and cache
+plane).  ``CCT_CANARY=1`` (or ``canary = 1`` in ``[obs]``) starts the
+golden canary prober.  ``route`` is the fleet's front door
+(``serve/router.py``): it consistent-hashes submits onto N daemons, fails
+over, steals, fences and adopts; it opens no CUDA context, and a spawned
+fleet (``--spawn N``) builds the kernel library once, in the parent, into
+the build directory every worker shares.  ``cache scrub`` re-hashes every
+committed cache entry and quarantines the corrupt ones (exit 1).
 """
 
 from __future__ import annotations
@@ -51,7 +65,9 @@ import copy
 import json
 import os
 import shutil
+import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
 
@@ -111,31 +127,23 @@ _OBS_ENV = {
     "history_interval_s": "CCT_HISTORY_INTERVAL_S",
     "history_max_bytes": "CCT_HISTORY_MAX_BYTES",
     "lock_ledger": "CCT_LOCK_LEDGER",
+    "canary": "CCT_CANARY",
+    "canary_interval_s": "CCT_CANARY_INTERVAL_S",
+    "canary_latency_s": "CCT_CANARY_LATENCY_S",
+    "canary_golden": "CCT_CANARY_GOLDEN",
+    "canary_dir": "CCT_CANARY_DIR",
 }
-# the JAX package's canary prober keys: its reader comes with the fleet
-# (router, result cache, canary), so a key set here is named as ignored
-_OBS_LATER = ("canary", "canary_interval_s", "canary_latency_s", "canary_golden",
-              "canary_dir")
 
 
 def _apply_obs_config(path: str | None) -> None:
     """Fold the ``[obs]`` config section into the observability env vars,
     as the JAX package's ``_apply_obs_config`` does.  ``setdefault`` so a
-    real environment variable always wins over config.ini.  A canary key
-    set there is named on stderr as ignored (the port has no canary yet);
-    other unknown keys are ignored silently, as in the reference."""
-    later = []
+    real environment variable always wins over config.ini; unknown keys
+    are ignored, as in the reference."""
     for key, value in _config_defaults(path, "obs").items():
-        if str(value) == "":
-            continue
         env = _OBS_ENV.get(key)
-        if env:
+        if env and str(value) != "":
             os.environ.setdefault(env, str(value))
-        elif key in _OBS_LATER:
-            later.append(key)
-    if later:
-        print(f"config [obs] {', '.join(sorted(later))}: ignored (the serve canary is "
-              "not ported yet)", file=sys.stderr)
 
 
 def _apply_qc_config(path: str | None) -> None:
@@ -311,7 +319,12 @@ def _consensus_host_sharded(args) -> dict:
     On the card the parent opens no CUDA context: it builds the kernel
     library once (``nvcc`` needs no card) so N workers do not compile it N
     times, and worker *i* opens its own context on visible card *i mod
-    count*."""
+    count*.
+
+    With ``--result_cache`` a range whose exact worker sub-spec is cached
+    ``negative: true`` (it provably produces zero consensus families) is
+    materialized from the cache plane instead of run.  Positive entries
+    are not taken here (workers have their own ``--resume``)."""
     n = int(args.host_workers)
     resume = args.resume
     device = resolve_device(args.device)  # checks for a card; opens no context
@@ -357,8 +370,11 @@ def _consensus_host_sharded(args) -> dict:
     # -m resolves via the child's sys.path; splice the repo root in so the
     # workers import this checkout regardless of their cwd
     base_env["PYTHONPATH"] = repo_root + os.pathsep + base_env.get("PYTHONPATH", "")
+    skipped_neg = _materialize_negative_ranges(args, ranges, ranges_dir)
     workers = []
     for i, rng in enumerate(ranges):
+        if i in skipped_neg:
+            continue
         spec = hostshard.range_argv(rng)
         argv = hostshard.worker_argv(args.input, ranges_dir, f"r{i}", args,
                                      range_spec=spec, resume=resume)
@@ -444,6 +460,8 @@ def _consensus_host_sharded(args) -> dict:
             doc = obs_qc.merge_docs(docs)
             doc["run"] = name
             doc["pipeline"] = f"host_sharded[{n}]"
+            if skipped_neg:
+                doc["ranges_skipped_negative"] = len(skipped_neg)
             obs_qc.write_qc(os.path.join(base, "qc.json"), doc)
     _draw_plots(dirs, name, args.scorrect, rpaths("sscs/{n}.metrics.json"))
 
@@ -456,6 +474,42 @@ def _consensus_host_sharded(args) -> dict:
     return {"all_sscs": os.path.join(dirs["all_unique"], f"{name}.all.unique.sscs.bam"),
             "all_dcs": os.path.join(dirs["all_unique"], f"{name}.all.unique.dcs.bam"),
             "dirs": dirs, "walls": tracker.as_phases(), "pipeline": f"host_sharded[{n}]"}
+
+
+def _materialize_negative_ranges(args, ranges, ranges_dir: str) -> set[int]:
+    """The indexes of the ranges answered from the result cache: each
+    range whose worker sub-spec (input, ``r<i>``, the vote parameters, its
+    ``--input_range``) has a committed ``negative`` entry in the plane at
+    ``--result_cache`` is copied into ``<ranges_dir>/r<i>``, where its
+    worker would have written.  A range whose copy fails runs its worker."""
+    root = str(args.result_cache or "")
+    if not root or not os.path.isdir(root):
+        return set()
+    from consensuscruncher_tpu_torch.serve import result_cache as rc_mod
+
+    cache = rc_mod.ResultCache(root)
+    skipped = set()
+    for i, rng in enumerate(ranges):
+        spec = {"input": args.input, "name": f"r{i}", "cutoff": args.cutoff,
+                "qualscore": args.qualscore, "scorrect": args.scorrect,
+                "max_mismatch": args.max_mismatch, "bdelim": args.bdelim,
+                "compress_level": args.compress_level,
+                "input_range": hostshard.range_argv(rng)}
+        digest = rc_mod.content_digest(spec)
+        entry = cache.lookup(digest) if digest else None
+        if entry is None or not entry.get("negative"):
+            continue
+        try:
+            cache.materialize(entry, os.path.join(ranges_dir, f"r{i}"))
+        except OSError as e:
+            print(f"WARNING: cached-negative range r{i} failed to materialize ({e}); "
+                  "running the worker instead", file=sys.stderr, flush=True)
+            continue
+        skipped.add(i)
+    if skipped:
+        print(f"consensus: {len(skipped)}/{len(ranges)} ranges known-empty in the result "
+              f"cache; workers skipped ({sorted(skipped)})", file=sys.stderr, flush=True)
+    return skipped
 
 
 def _consensus_one(args) -> dict:
@@ -789,7 +843,7 @@ def _serve_child_argv(args) -> list[str]:
     the resolved values (flag > config > builtin), minus --supervise."""
     argv = ["serve"]
     for flag in ("socket", "host", "warmup_shapes", "compile_cache",
-                 "journal", "device", "node", "policy"):
+                 "journal", "device", "node", "result_cache", "warm_from", "policy"):
         value = getattr(args, flag, None)
         if value:
             argv += [f"--{flag}", str(value)]
@@ -831,7 +885,9 @@ def serve_cmd(args) -> None:
     work; with --supervise this process runs the restart loop and the
     daemon runs as a child.  The device is the card unless --device cpu
     is given; without a card the command exits before it binds its
-    socket."""
+    socket.  --result_cache answers jobs already in the cache plane;
+    --warm_from joins a fleet hot from its ring view; CCT_CANARY=1 starts
+    the golden canary prober."""
     if _bool(args.supervise):
         from consensuscruncher_tpu_torch.serve.supervisor import child_command, run_supervised
 
@@ -844,6 +900,7 @@ def serve_cmd(args) -> None:
     from consensuscruncher_tpu_torch.obs import flight as obs_flight
     from consensuscruncher_tpu_torch.obs import history as obs_history
     from consensuscruncher_tpu_torch.obs import trace as obs_trace
+    from consensuscruncher_tpu_torch.serve import canary as serve_canary
     from consensuscruncher_tpu_torch.serve import warmup
     from consensuscruncher_tpu_torch.serve.scheduler import Scheduler
     from consensuscruncher_tpu_torch.serve.server import ServeServer, install_signal_handlers
@@ -863,6 +920,11 @@ def serve_cmd(args) -> None:
         print(f"config [autotune] {', '.join(ignored)}: ignored (the port keeps no bucket "
               "table: nothing compiles per shape)", file=sys.stderr)
     device = ensure_backend(args.device)
+    # warm join: a late member reads the fleet's warm state off the ring
+    # view and builds into (so finds the library in) the fleet's build dir
+    warm = warmup.warm_join(args.warm_from) if args.warm_from else {}
+    if not args.compile_cache and warm.get("compile_cache"):
+        args.compile_cache = str(warm["compile_cache"])
     if args.compile_cache and warmup.setup_compilation_cache(args.compile_cache):
         print(f"serve: kernel build directory at {args.compile_cache}")
     budget = float(args.warmup_budget_s) if args.warmup_budget_s not in (None, "") else None
@@ -914,13 +976,18 @@ def serve_cmd(args) -> None:
         tenant_queue_cap=_cap("tenant_queue_cap"),
         tenant_inflight_cap=_cap("tenant_inflight_cap"),
         node=args.node or None,
+        result_cache=args.result_cache or warm.get("result_cache") or None,
     )
     server = ServeServer(scheduler, host=args.host, port=int(args.port),
                          socket_path=args.socket or None)
     install_signal_handlers(server, scheduler, journal)
-    # the durable telemetry-history recorder (CCT_HISTORY_DIR): touches no
-    # pipeline output
+    # env-armed sidecars: the durable telemetry-history recorder
+    # (CCT_HISTORY_DIR) and the golden canary prober (CCT_CANARY=1); neither
+    # touches a tenant's outputs
     obs_history.maybe_start(scheduler.history_doc)
+    canary_dir = os.environ.get("CCT_CANARY_DIR") or os.path.join(
+        dump_dir or tempfile.gettempdir(), f"cct-canary-{os.getpid()}")
+    prober = serve_canary.maybe_start(scheduler, canary_dir)
     print(f"serve: listening on {server.describe()} "
           f"(queue_bound={scheduler.queue_bound}, gang_size={scheduler.gang_size}, "
           f"device={device_name(device)}"
@@ -941,6 +1008,8 @@ def serve_cmd(args) -> None:
                  if journal else "unfinished jobs are LOST (no --journal)"),
               file=sys.stderr, flush=True)
     server.close()
+    if prober is not None:
+        prober.stop()
     obs_history.stop()  # final interval stamp lands before shutdown
     scheduler.shutdown()
     if journal is not None:
@@ -1000,6 +1069,286 @@ def submit_cmd(args) -> None:
     base = (job.get("outputs") or {}).get("base")
     print(f"submit: job {job_id} done in {job['wall_s']}s"
           + (f" — outputs under {base}" if base else ""), flush=True)
+
+
+def _spawn_fleet(args, children: dict, build_dir: str) -> list:
+    """``route --spawn N``: launch N worker daemons under ``--workdir``
+    (per-worker socket and journal), each kept alive by the
+    :mod:`serve.supervisor` restart policy in its own thread.  Every
+    worker builds into (so finds the library in) ``build_dir``, which the
+    caller has built once; on the card worker *i* sees card *i mod count*.
+    ``children`` collects the live Popen per member name so the router's
+    shutdown can SIGTERM them into a clean drain (rc 0 stops the
+    supervisor loop too).  Returns ``[(name, socket_path), ...]``."""
+    import threading
+
+    from consensuscruncher_tpu_torch.serve.supervisor import child_command, run_supervised
+
+    n = int(args.spawn)
+    workdir = os.path.abspath(args.workdir or "fleet")
+    os.makedirs(workdir, exist_ok=True)
+    n_cards = 0
+    if args.device == "cuda":
+        import torch
+
+        n_cards = torch.cuda.device_count()  # opens no context
+    members = []
+    for i in range(n):
+        name = f"w{i}"
+        sock = os.path.join(workdir, f"{name}.sock")
+        if os.path.exists(sock):
+            os.unlink(sock)  # stale socket from a previous fleet
+        serve_argv = [
+            "serve", "--socket", sock, "--node", name,
+            "--journal", os.path.join(workdir, f"{name}.journal"),
+            "--compile_cache", build_dir,
+            "--gang_size", str(int(args.gang_size)),
+            "--queue_bound", str(int(args.queue_bound)),
+            "--max_batch", str(int(args.max_batch)),
+            "--device", args.device,
+        ]
+        for flag in ("warmup_shapes", "class_weights", "slo_targets",
+                     "drain_s", "result_cache"):
+            value = getattr(args, flag, None)
+            if value not in (None, ""):
+                serve_argv += [f"--{flag}", str(value)]
+        cmd = child_command(serve_argv)
+        env = hostshard.worker_env(dict(os.environ), i, args.device, n_cards)
+
+        def _spawn(argv, _name=name, _env=env):
+            child = subprocess.Popen(argv, env=_env)
+            children[_name] = child
+            return child
+
+        threading.Thread(
+            target=run_supervised, args=(cmd,),
+            kwargs={"spawn": _spawn, "max_restarts": int(args.max_restarts)},
+            name=f"fleet-{name}", daemon=True).start()
+        members.append((name, sock))
+    # ready gate: a worker's socket appears only once it is accepting
+    deadline = time.monotonic() + float(os.environ.get("CCT_ROUTE_SPAWN_WAIT_S", "180"))
+    for name, sock in members:
+        while not os.path.exists(sock):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"route: worker {name} never came up ({sock} missing)")
+            time.sleep(0.2)
+        print(f"route: member {name} up at {sock}", flush=True)
+    return members
+
+
+def _parse_journals(text: str) -> dict:
+    """``'w0=/path/w0.journal,w1=/path/w1.journal'`` -> ``{name: path}``
+    for the router's journal-adoption map."""
+    out: dict = {}
+    for part in str(text or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise SystemExit(f"route: --journals entry {part!r} is not 'name=path'")
+        name, path = part.split("=", 1)
+        out[name.strip()] = os.path.abspath(path.strip())
+    return out
+
+
+def _route_adopt(args) -> None:
+    """``route --adopt NODE``: client mode — ask the running router (at
+    --socket / --host:--port) to adopt a dead member's journal now,
+    instead of waiting out ``adopt_after_s``."""
+    from consensuscruncher_tpu_torch.serve.client import ServeClient
+
+    address = args.socket or (args.host, int(args.port))
+    reply = ServeClient(address).request(
+        {"op": "adopt", "node": str(args.adopt), "force": _bool(args.adopt_force)},
+        timeout=600.0)
+    print(f"route: adopted {reply.get('node')} — "
+          f"{reply.get('jobs_adopted', 0)} jobs resubmitted "
+          f"({', '.join(reply.get('keys') or []) or 'none pending'})")
+
+
+def _route_release(args) -> None:
+    """``route --release KEY``: client mode — lift a poison-job quarantine.
+    The router resets the key's fleet attempt lineage and fans the release
+    out to every up member (the quarantine marker may live on any node the
+    job was failed over to); the journaled ``released`` marker makes the
+    lift durable across worker restarts."""
+    from consensuscruncher_tpu_torch.serve.client import ServeClient
+
+    address = args.socket or (args.host, int(args.port))
+    reply = ServeClient(address).request(
+        {"op": "release", "key": str(args.release)}, timeout=60.0)
+    if reply.get("released"):
+        print(f"route: released {reply.get('key')} on {reply.get('node')} — "
+              "next submit retries with a fresh fleet attempt budget")
+    else:
+        raise SystemExit(f"route: key {args.release} is not quarantined on any up member")
+
+
+def route_cmd(args) -> None:
+    """Run the fleet router (``serve/router.py``): a stateless front door
+    consistent-hashing submits by idempotency key onto N worker daemons,
+    with replay-aware failover and bounded cross-node work stealing.
+    ``--members`` points at externally managed daemons; ``--spawn N``
+    brings up a local fleet under the supervisor restart policy, the
+    workers on the card unless --device cpu (without a card the command
+    exits before it spawns).
+
+    The router itself opens no CUDA context.  A spawned fleet shares one
+    kernel build directory (``--compile_cache``, else ``<workdir>/build``):
+    on the card this process builds the library there once, with ``nvcc``
+    and no context, before any worker starts, and publishes the directory
+    as the warm-join ``compile_cache``.
+
+    HA: ``--ring_view PATH`` (shared, fsync'd epoch document) plus a
+    second ``route --standby True`` process against the same path gives
+    an active/standby pair — the standby health-probes the active and
+    takes over by bumping the epoch; workers fence the stale router.
+    ``--adopt_after_s`` arms journal adoption of permanently lost
+    members; ``--adopt NODE`` triggers it by hand."""
+    from consensuscruncher_tpu_torch.obs import flight as obs_flight
+    from consensuscruncher_tpu_torch.obs import history as obs_history
+    from consensuscruncher_tpu_torch.obs import trace as obs_trace
+    from consensuscruncher_tpu_torch.serve.router import Router, RouterServer, parse_members
+    from consensuscruncher_tpu_torch.serve.server import install_signal_handlers
+
+    if args.adopt:
+        _route_adopt(args)
+        return
+    if args.release:
+        _route_release(args)
+        return
+
+    children: dict = {}
+    journals = _parse_journals(args.journals)
+    build_dir = os.path.abspath(args.compile_cache) if args.compile_cache else None
+    if int(args.spawn or 0) > 0:
+        workdir = os.path.abspath(args.workdir or "fleet")
+        build_dir = build_dir or os.path.join(workdir, "build")
+        if resolve_device(args.device).type == "cuda":  # checks; opens no context
+            from consensuscruncher_tpu_torch.ops import cuda_lib
+
+            cuda_lib.set_build_dir(build_dir)
+            print(f"route: kernel library at {cuda_lib.build('consensus_vote')}", flush=True)
+        members = _spawn_fleet(args, children, build_dir)
+        # spawned workers journal under --workdir by construction: the
+        # adoption map needs no extra flags for the common case
+        for name, _ in members:
+            journals.setdefault(name, os.path.join(workdir, f"{name}.journal"))
+    elif args.members:
+        members = parse_members(args.members)
+    else:
+        raise SystemExit("route: pass --members 'n0=sock,...' for an existing fleet, "
+                         "or --spawn N to launch one")
+    adopt_after_s = None if args.adopt_after_s in (None, "") else float(args.adopt_after_s)
+    # content-addressed cache plane + the warm-join state published in
+    # every ring-view epoch record (what `serve --warm_from` reads)
+    result_cache = os.path.abspath(args.result_cache) if args.result_cache else None
+    cache_journal = args.cache_journal or None
+    if not cache_journal and result_cache:
+        cache_journal = os.path.join(result_cache, "cache_answers.journal")
+    router = Router(
+        members,
+        vnodes=int(args.vnodes),
+        steal_threshold=int(args.steal_threshold),
+        steal_margin=int(args.steal_margin),
+        health_interval_s=float(args.health_interval_s),
+        down_after=int(args.down_after),
+        router_id=str(args.router_id or "r0"),
+        ring_view=args.ring_view or None,
+        standby=_bool(args.standby),
+        takeover_after=int(args.takeover_after or 3),
+        adopt_after_s=adopt_after_s,
+        journals=journals or None,
+        result_cache=result_cache,
+        cache_journal=cache_journal,
+        warm_state={"compile_cache": build_dir, "result_cache": result_cache},
+        start_monitor=False,  # started below, once the advertise
+    )                         # address is known
+    obs_trace.set_identity(router.router_id)
+    obs_flight.set_identity(node=router.router_id, epoch=router.epoch)
+    if os.environ.get("CCT_TRACE_DIR"):
+        obs_flight.set_dump_dir(os.environ["CCT_TRACE_DIR"])
+    server = RouterServer(router, host=args.host, port=int(args.port),
+                          socket_path=args.socket or None)
+    advertise = args.advertise or None
+    if advertise and ":" in advertise and os.sep not in advertise:
+        host, port = advertise.rsplit(":", 1)
+        advertise = (host, int(port))
+    router.start(advertise=advertise or server.address)
+    install_signal_handlers(server, router, None)
+
+    # router-side telemetry history: the recorder the worker daemons run,
+    # stamping the router's own cumulative counters plus a fleet-up gauge
+    def _router_history_doc():
+        health = router.healthz()
+        return {"cum": router.counters.snapshot(),
+                "gauges": {"fleet_up": (health.get("fleet") or {}).get("up", 0)}}
+
+    obs_history.maybe_start(_router_history_doc)
+    print(f"route: fleet front door on {server.describe()} over {len(members)} members "
+          f"({', '.join(name for name, _ in members)}); "
+          f"steal_threshold={router.steal_threshold}, steal_margin={router.steal_margin}"
+          + (f"; ha={'standby' if router.standby else 'active'} "
+             f"epoch={router.epoch} ring_view={args.ring_view}"
+             if router.ring_view is not None else ""), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    drain_s = args.drain_s
+    if drain_s in (None, ""):
+        drain_s = os.environ.get("CCT_SERVE_DRAIN_S", "30")
+    drain_s = float(drain_s)
+    if children:
+        # our own fleet: SIGTERM each worker into its bounded drain (the
+        # supervisor sees rc 0 and stops restarting); external members
+        # (--members) are left serving — drain them via the drain op.
+        print(f"route: draining {len(children)} spawned workers (up to {drain_s:g}s)",
+              flush=True)
+        for child in children.values():
+            if child.poll() is None:
+                try:
+                    child.terminate()
+                except OSError:
+                    pass
+        deadline = time.monotonic() + drain_s + 10.0
+        for name, child in children.items():
+            while child.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+            if child.poll() is None:
+                print(f"WARNING: route: worker {name} ignored SIGTERM; killing (its "
+                      "journal replays on next start)", file=sys.stderr, flush=True)
+                child.kill()
+    server.close()
+    obs_history.stop()  # final interval stamp lands before shutdown
+    router.close()
+    print("route: shutdown complete", flush=True)
+
+
+def cache_cmd(args) -> None:
+    """``cache scrub``: offline integrity sweep of the result-cache plane.
+    Every committed entry's payload is re-hashed against the sha256
+    pinned in its ``entry.json`` at insert; a mismatch means the bytes on
+    disk are no longer the bytes the job produced — the entry is
+    quarantined (moved out of the shard tree, never served again) and
+    reported.  Exits 1 when any corruption was found so cron/CI wiring
+    notices."""
+    from consensuscruncher_tpu_torch.serve.result_cache import ResultCache
+
+    root = str(args.result_cache or "")
+    if not root or not os.path.isdir(root):
+        raise SystemExit(f"cache: result-cache root {root!r} is not a directory "
+                         "(pass --result_cache)")
+    report = ResultCache(root).scrub()
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(report, fh, indent=2, sort_keys=True)
+    print(f"cache scrub: {report['entries']} entries — {report['intact']} intact, "
+          f"{report['legacy']} legacy (no pinned digest), {report['corrupt']} corrupt")
+    for q in report["quarantined"]:
+        where = f" -> {q['moved_to']}" if q.get("moved_to") else ""
+        print(f"  quarantined {q['shard']}/{q['digest']}: {q['error']}{where}")
+    raise SystemExit(1 if report["corrupt"] else 0)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1087,6 +1436,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "DCS vote by gather instead of uploading them again "
                         "(default True). Byte-identical outputs; 'False' "
                         "uploads every duplex vote")
+    c.add_argument("--result_cache",
+                   help="content-addressed result cache root (the serve plane's "
+                        "--result_cache dir). With --host_workers, the range planner "
+                        "consults it before launching workers: a range whose exact "
+                        "sub-spec is cached negative (known-empty) is materialized "
+                        "from the cache instead of decoded")
     c.set_defaults(func=consensus, config_section="consensus",
                    required_args=("input", "output"),
                    builtin_defaults={
@@ -1095,6 +1450,7 @@ def build_parser() -> argparse.ArgumentParser:
                        "cleanup": "False", "resume": "False", "compress_level": 6,
                        "host_workers": 1, "residency": "True", "pipeline": "staged",
                        "intermediate_taps": "False", "policy": DEFAULT_POLICY,
+                       "result_cache": "",
                    })
 
     s = sub.add_parser(
@@ -1164,6 +1520,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--node",
                    help="fleet member name this daemon serves as (surfaced in "
                         "healthz/metrics); empty = standalone")
+    s.add_argument("--result_cache",
+                   help="root of the fleet content-addressed result-cache plane: "
+                        "finished jobs are committed by content digest and identical "
+                        "jobs (any tenant) are answered byte-identically without "
+                        "recomputing; empty = caching off")
+    s.add_argument("--warm_from",
+                   help="ring-view document path to warm-join from: adopt the "
+                        "fleet's kernel build directory and result-cache plane "
+                        "published in the epoch record, so this member joins hot "
+                        "(no kernel build); empty = cold")
     s.add_argument("--policy",
                    help="consensus vote policy prepared at startup (default "
                         "'majority'; an unknown name fails before the socket "
@@ -1177,8 +1543,143 @@ def build_parser() -> argparse.ArgumentParser:
                        "warmup_budget_s": "", "supervise": "False", "max_restarts": 10,
                        "class_weights": "", "slo_targets": "",
                        "tenant_queue_cap": "", "tenant_inflight_cap": "", "node": "",
-                       "policy": DEFAULT_POLICY,
+                       "result_cache": "", "warm_from": "", "policy": DEFAULT_POLICY,
                    })
+
+    r = sub.add_parser(
+        "route",
+        help="run the fleet router: consistent-hash submits onto N worker daemons "
+             "with replay-aware failover + work stealing")
+    r.add_argument("-c", "--config", default=None)
+    r.add_argument("--members",
+                   help="comma-separated fleet members as 'name=address' (unix socket "
+                        "path or host:port), e.g. 'w0=/run/cct/w0.sock,w1=10.0.0.2:7733'; "
+                        "bare addresses are auto-named n0..; mutually exclusive with "
+                        "--spawn")
+    r.add_argument("--spawn", type=int,
+                   help="launch this many local worker daemons under --workdir "
+                        "(per-worker journal; one shared kernel build directory), "
+                        "each supervised with crash-restart backoff (default 0 = "
+                        "route to --members)")
+    r.add_argument("--workdir",
+                   help="directory for spawned workers' sockets, journals and the "
+                        "fleet's kernel build directory (default ./fleet)")
+    r.add_argument("--socket", help="router unix socket path (overrides host/port)")
+    r.add_argument("--host", help="router TCP bind host (default 127.0.0.1)")
+    r.add_argument("--port", type=int, help="router TCP port (default 7780; 0 = any free)")
+    r.add_argument("--vnodes", type=int,
+                   help="virtual ring points per member (default 64); more = smoother "
+                        "key spread, same stability")
+    r.add_argument("--steal_threshold", type=int,
+                   help="a batch/scavenger submit may leave its ring-home node once "
+                        "that node's queue is this deep (default 4); interactive jobs "
+                        "never move")
+    r.add_argument("--steal_margin", type=int,
+                   help="the thief must be at least this many queued jobs shallower "
+                        "than the home node (default 2)")
+    r.add_argument("--health_interval_s", type=float,
+                   help="seconds between fleet health sweeps (default 2)")
+    r.add_argument("--down_after", type=int,
+                   help="consecutive failed probes before a member is marked down "
+                        "(default 3); a failed forward marks it down immediately")
+    r.add_argument("--gang_size", type=int, help="spawned workers' --gang_size (default 4)")
+    r.add_argument("--queue_bound", type=int,
+                   help="spawned workers' --queue_bound (default 16)")
+    r.add_argument("--max_batch", type=int,
+                   help="spawned workers' --max_batch (default 1024)")
+    r.add_argument("--device", choices=("cuda", "cpu"),
+                   help="where spawned workers vote (default cuda: the card; without "
+                        "one the command exits before it spawns). The router itself "
+                        "opens no CUDA context")
+    r.add_argument("--backend",
+                   help="the JAX package's flag, read as the device: tpu -> cuda, "
+                        "xla_cpu -> cpu (cpu and reference exit naming --device)")
+    r.add_argument("--compile_cache",
+                   help="kernel build directory the spawned workers share (default "
+                        "<workdir>/build); published as the warm-join compile_cache")
+    r.add_argument("--warmup_shapes", help="spawned workers' --warmup_shapes")
+    r.add_argument("--class_weights", help="spawned workers' --class_weights")
+    r.add_argument("--slo_targets", help="spawned workers' --slo_targets")
+    r.add_argument("--max_restarts", type=int,
+                   help="per-worker supervised-restart budget (default 10)")
+    r.add_argument("--drain_s",
+                   help="bounded drain window for spawned workers on router shutdown "
+                        "(default $CCT_SERVE_DRAIN_S or 30)")
+    r.add_argument("--router_id",
+                   help="this router's identity in the ring-view document (default "
+                        "r0); give the standby a distinct id")
+    r.add_argument("--ring_view",
+                   help="path to the shared epoch-numbered ring-view document; set on "
+                        "BOTH routers of an HA pair (default: unset = single-router "
+                        "mode)")
+    r.add_argument("--standby",
+                   help="start as the standby of an HA pair: health-probe the active "
+                        "router and take over by bumping the ring-view epoch when it "
+                        "stops answering (default False)")
+    r.add_argument("--takeover_after", type=int,
+                   help="consecutive failed probes of the active router before the "
+                        "standby takes over (default 3)")
+    r.add_argument("--adopt_after_s",
+                   help="adopt a dead member's journal (resubmit its non-terminal "
+                        "jobs to the ring successor, then tombstone) once it has been "
+                        "down this many seconds (default: unset = manual --adopt only)")
+    r.add_argument("--journals",
+                   help="journal paths for adoption as 'name=path,...'; auto-derived "
+                        "for --spawn fleets")
+    r.add_argument("--advertise",
+                   help="address other routers should probe this one at ('host:port' "
+                        "or a unix socket path; default: the bound server address)")
+    r.add_argument("--adopt", metavar="NODE",
+                   help="client mode: ask the running router (--socket / "
+                        "--host:--port) to adopt NODE's journal now, then exit")
+    r.add_argument("--adopt_force",
+                   help="with --adopt: adopt even if the member still answers health "
+                        "probes (default False)")
+    r.add_argument("--release", metavar="KEY",
+                   help="client mode: lift the quarantine on KEY via the running "
+                        "router (resets the fleet retry budget and requeues the parked "
+                        "job), then exit")
+    r.add_argument("--result_cache",
+                   help="root of the fleet content-addressed result-cache plane: the "
+                        "router consults it BEFORE dispatch (a committed entry answers "
+                        "the submit without touching a worker), spawned workers insert "
+                        "into it, and its path is published as warm-join state in the "
+                        "ring view; empty = caching off")
+    r.add_argument("--cache_journal",
+                   help="path of the router's cache-answer journal (fsync'd before "
+                        "each cached reply so keyed polls survive a router kill -9; "
+                        "default: cache_answers.journal under --result_cache)")
+    r.set_defaults(func=route_cmd, config_section="route", required_args=(),
+                   builtin_defaults={
+                       "members": "", "spawn": 0, "workdir": "",
+                       "socket": "", "host": "127.0.0.1", "port": 7780,
+                       "vnodes": 64, "steal_threshold": 4,
+                       "steal_margin": 2, "health_interval_s": 2.0,
+                       "down_after": 3, "gang_size": 4, "queue_bound": 16,
+                       "max_batch": 1024, "device": "cuda",
+                       "compile_cache": "", "warmup_shapes": "",
+                       "class_weights": "", "slo_targets": "",
+                       "max_restarts": 10, "drain_s": "",
+                       "router_id": "r0", "ring_view": "",
+                       "standby": "False", "takeover_after": 3,
+                       "adopt_after_s": "", "journals": "",
+                       "advertise": "", "adopt": "",
+                       "adopt_force": "False", "release": "",
+                       "result_cache": "", "cache_journal": "",
+                   })
+
+    ca = sub.add_parser("cache", help="operate on the fleet result-cache plane")
+    ca.add_argument("action", choices=("scrub",),
+                    help="scrub: offline integrity sweep — re-hash every committed "
+                         "entry's payload against the sha256 pinned at insert; corrupt "
+                         "entries are quarantined and the command exits 1")
+    ca.add_argument("-c", "--config", default=None)
+    ca.add_argument("--result_cache",
+                    help="cache-plane root directory (the [serve]/[route] result_cache "
+                         "knob)")
+    ca.add_argument("--json", help="also write the scrub report as JSON to this path")
+    ca.set_defaults(func=cache_cmd, config_section="serve",
+                    required_args=("result_cache",), builtin_defaults={"json": ""})
 
     u = sub.add_parser("submit", help="submit a consensus job to a running serve daemon")
     u.add_argument("-c", "--config", default=None)

@@ -1,6 +1,6 @@
 """serve/ — the persistent consensus daemon with cross-request batching.
 
-Port of ``consensuscruncher_tpu/serve/`` (the single-daemon half).  A
+Port of ``consensuscruncher_tpu/serve/`` (the daemon and its fleet).  A
 one-shot CLI run pays the card's context creation, the kernel library's
 load (and, on a cold build directory, its ``nvcc`` build) on every
 invocation and leaves the card idle between samples.  The daemon pays
@@ -26,8 +26,10 @@ them once and packs families from several requests into one launch:
   exponential backoff for crashed daemons.
 - :mod:`.wire`      — the optional seq/crc envelope of a wire frame.
 
-The router, the result cache and the canary of the JAX package's fleet
-are not ported yet.
+- :mod:`.router`    — the fleet's front door: consistent-hash routing over
+  N daemons, failover, stealing, HA (ring view, fencing, adoption).
+- :mod:`.result_cache` — the content-addressed result cache plane.
+- :mod:`.canary`    — the golden canary prober.
 """
 
 from consensuscruncher_tpu_torch.serve.scheduler import (

@@ -81,13 +81,15 @@ exhaustion):
   ``quarantined`` marker, releasable with ``cct route --release KEY``)
   instead of crash-looping the fleet;
 - **circuit breaker** — ``CCT_SERVE_BREAKER_QUARANTINES`` quarantines
-  within ``CCT_SERVE_BREAKER_WINDOW_S`` from one fault domain (tenant +
-  input path) open the breaker for it: admission refuses that domain
+  within ``CCT_SERVE_BREAKER_WINDOW_S`` from one input fingerprint open
+  the breaker for that fault domain: admission refuses the fingerprint
   early (``breaker_open`` counter + flight dump);
 - **brownout** — an OSError (ENOSPC) on the admission journal append
-  flips the daemon into read-only brownout: polls are still served, new
-  admissions are refused with ``{"brownout": true}`` until an append
-  succeeds again;
+  first triggers the result cache's emergency ``evict_to_budget`` sweep
+  and one retry; if the disk is still full the daemon flips into
+  read-only brownout: polls and committed cache hits are still served,
+  new admissions are refused with ``{"brownout": true}`` until an
+  append succeeds again;
 - **watermark shedding** — when queued spec bytes or process RSS
   approach ``CCT_SERVE_QUEUE_BYTES_WATERMARK`` /
   ``CCT_SERVE_RSS_WATERMARK_MB``, admissions shed lowest class first
@@ -102,10 +104,11 @@ journal append — brownout path), ``serve.oom`` (forces the resource
 watermark to 100% — class-ordered shedding), plus
 ``serve.journal_write`` / ``serve.journal_replay`` in :mod:`.journal`.
 
-The content-addressed result cache of the JAX package's daemon (its
-``result_cache=`` argument, cache hits, the shed bypass and the emergency
-eviction on ENOSPC) is not ported yet: it comes with the fleet slice
-(router, result cache, canary), and a non-None ``result_cache`` raises.
+With ``result_cache=`` (a :class:`~.result_cache.ResultCache` or a plane
+root) a gang first looks each job's content digest up: a hit is copied
+into the job's tree with no device batch, a finished miss is inserted.
+The cache catches only its own IO and its ``serve.cache`` fault (and
+then recomputes); a device or kernel error in the gang still raises.
 """
 
 from __future__ import annotations
@@ -148,7 +151,7 @@ class QuotaRefused(AdmissionRefused):
 
 class BrownoutRefused(AdmissionRefused):
     """Journal appends are failing (disk full) — the daemon is in
-    read-only brownout: polls still served, admissions
+    read-only brownout: polls and cache hits still served, admissions
     refused with ``{"brownout": true}`` until an append succeeds."""
 
 
@@ -236,7 +239,7 @@ class Job:
         # True when the content-addressed result cache answered this job
         # (materialized bytes, no pipeline run) — surfaced in describe()
         # so clients can split hit/miss latency
-        self.cached = False  # always False until the result cache is ported
+        self.cached = False
         # compact consensus-quality summary from the run's qc.json (yields
         # + rates + disagree_rate, never the full plane vectors) — rides
         # describe() and the journal's done record (replay tolerates
@@ -495,11 +498,17 @@ class Scheduler:
                 journal, max_bytes=int(os.environ.get(
                     "CCT_SERVE_JOURNAL_MAX_BYTES", str(1 << 20))))
         self._journal = journal
-        if result_cache is not None:
-            raise NotImplementedError(
-                "the serve result cache (--result_cache) is not ported yet; it comes "
-                "with the fleet slice (router, result cache, canary)")
         self.counters = Counters()
+        # fleet content-addressed result cache: a ResultCache instance or
+        # a cache-plane root dir (str); None disables caching entirely
+        if isinstance(result_cache, str):
+            from consensuscruncher_tpu_torch.serve.result_cache import ResultCache
+            result_cache = ResultCache(
+                result_cache, node=self.node or None,
+                max_bytes=int(os.environ.get(
+                    "CCT_SERVE_CACHE_MAX_BYTES", "0")) or None,
+                counters=self.counters)
+        self.result_cache = result_cache
         weights = dict(self.DEFAULT_CLASS_WEIGHTS)
         for qos, w in (class_weights or {}).items():
             if qos not in weights:
@@ -672,14 +681,22 @@ class Scheduler:
                             deadline_s=job.deadline_s, trace_id=job.trace_id,
                             trace=job.trace_ctx))
                 except OSError as e:
-                    # disk full (or any filesystem failure): flip into
-                    # read-only brownout
+                    # disk full (or any filesystem failure) even after the
+                    # cache's emergency eviction: flip into read-only
+                    # brownout.  A committed cache entry IS durable —
+                    # admitting a hit costs a file copy, not journal disk
+                    # — so cache hits are the one admission class a
+                    # brownout keeps serving (journal-less; their bytes
+                    # already survive a crash in the store).
                     self._trip_brownout_locked(e)
-                    self.counters.add("brownout_refusals")
-                    raise BrownoutRefused(
-                        f"journal write failed ({e}); daemon is in "
-                        "read-only brownout (polls still served; admissions refused until "
-                        "appends succeed)")
+                    if not self._cache_shed_bypass_locked(spec, tenant, qos):
+                        self.counters.add("brownout_refusals")
+                        raise BrownoutRefused(
+                            f"journal write failed ({e}); daemon is in "
+                            "read-only brownout (polls and cache hits "
+                            "still served; admissions refused until "
+                            "appends succeed)")
+                    n = 0
                 except Exception as e:
                     raise AdmissionRefused(
                         f"journal write failed ({e}); job not accepted")
@@ -772,10 +789,19 @@ class Scheduler:
         at the observed service rate (EWMA of per-job wall).  A job with no
         explicit deadline inherits its qos class SLO target (when one is
         configured).  The ``serve.shed`` fault site forces a shed for
-        chaos tests."""
+        chaos tests.
+
+        Digest-keyed bypass: a submit whose ``content_digest`` is already
+        committed in the result cache costs a file copy, not a pipeline
+        run — the EWMA that justified the shed does not apply, so it is
+        admitted instead of refused (counted ``cache_shed_bypass``).  The
+        cache probe happens only when a shed WOULD fire, so the unloaded
+        admission path never pays a lookup."""
         try:
             faults.fault_point("serve.shed")
         except faults.FaultError as e:
+            if self._cache_shed_bypass_locked(spec, tenant, qos):
+                return
             self._count_shed_locked(tenant, qos)
             self._flight_shed(f"injected: {e}", tenant, qos)
             raise DeadlineShed(f"shed: {e}")
@@ -786,6 +812,8 @@ class Scheduler:
         backlog = self._queued_locked() + len(self._running)
         eta = (backlog + 1) * self._ewma_job_s / max(1, self.gang_size)
         if eta > effective:
+            if self._cache_shed_bypass_locked(spec, tenant, qos):
+                return
             self._count_shed_locked(tenant, qos)
             self._flight_shed(f"eta {eta:.1f}s > deadline_s={effective:g} "
                               f"(backlog={backlog})", tenant, qos)
@@ -793,6 +821,26 @@ class Scheduler:
                 f"shed: estimated completion {eta:.1f}s exceeds "
                 f"deadline_s={effective:g} (backlog={backlog}, "
                 f"ewma_job_s={self._ewma_job_s:.2f})")
+
+    def _cache_shed_bypass_locked(self, spec: dict | None,
+                                  tenant: str, qos: str) -> bool:
+        """True when ``spec``'s content digest has a committed result-cache
+        entry — the admission bypass for would-be sheds.  Returns False
+        fast with no cache configured (existing shed behavior is
+        untouched); any probe failure also answers False (the cache is an
+        optimization, never an admission authority)."""
+        if self.result_cache is None or not spec:
+            return False
+        from consensuscruncher_tpu_torch.serve import result_cache as rc_mod
+        try:
+            digest = rc_mod.content_digest(spec)
+            if digest is None or self.result_cache.lookup(digest) is None:
+                return False
+        except Exception:
+            return False
+        self.counters.add("cache_shed_bypass")
+        obs_trace.event("serve.cache_shed_bypass", tenant=tenant, qos=qos)
+        return True
 
     def _count_shed_locked(self, tenant: str, qos: str) -> None:
         self.counters.add("jobs_shed")
@@ -815,10 +863,14 @@ class Scheduler:
     @staticmethod
     def _fault_domain(spec: dict, tenant: str) -> str:
         """Breaker fingerprint: one crashing input must trip the breaker
-        for every submit of that input regardless of output path — tenant
-        + input path (the JAX package prefers the result cache's content
-        digest, which comes with that cache)."""
-        return f"{tenant}:{(spec or {}).get('input')}"
+        for every submit of that input regardless of output path — the
+        content digest when computable, else tenant + input path."""
+        from consensuscruncher_tpu_torch.serve import result_cache as rc_mod
+        try:
+            digest = rc_mod.content_digest(spec or {})
+        except Exception:
+            digest = None
+        return digest or f"{tenant}:{(spec or {}).get('input')}"
 
     def _breaker_check_locked(self, spec: dict, tenant: str,
                               key: str) -> None:
@@ -891,14 +943,30 @@ class Scheduler:
                 f"{self._WATERMARK_SHED_AT[qos]:.0%})")
 
     def _journal_append_guarded(self, rec: dict) -> int:
-        """Append, with ``serve.enospc`` injecting the disk-full OSError
-        chaos tests arm (the JAX package first sweeps its result cache
-        for disk and retries once; the port has no cache yet)."""
+        """Append with the ENOSPC first responder: a failed append
+        triggers one emergency result-cache eviction sweep (reclaiming
+        cache bytes is the cheapest disk on the box) and one retry
+        before the failure propagates.  ``serve.enospc`` injects the
+        disk-full OSError chaos tests arm."""
         try:
             faults.fault_point("serve.enospc")
         except faults.FaultError as e:
             raise OSError(28, f"No space left on device (injected: {e})")
-        return self._journal.append(rec)
+        try:
+            return self._journal.append(rec)
+        except OSError:
+            if self.result_cache is None:
+                raise
+            try:
+                evicted = self.result_cache.evict_to_budget(emergency=True)
+            except Exception:
+                evicted = []
+            for ev in evicted:
+                self.counters.add("cache_evictions")
+                self.counters.add("cache_bytes", -int(ev.get("bytes", 0)))
+            if not evicted:
+                raise
+            return self._journal.append(rec)
 
     def _trip_brownout_locked(self, err: Exception) -> None:
         if not self._brownout:
@@ -906,7 +974,7 @@ class Scheduler:
             obs_flight.record("brownout", error=str(err))
             obs_flight.dump(reason="brownout")
             print(f"WARNING: serve: journal append failing ({err}); "
-                  "entering read-only brownout (polls only)",
+                  "entering read-only brownout (polls + cache hits only)",
                   file=sys.stderr, flush=True)
 
     def _predispatch_locked(self, job: Job) -> bool:
@@ -1735,10 +1803,20 @@ class Scheduler:
 
     def _run_gang(self, gang: list[Job]) -> None:
         t0 = time.monotonic()
+        # consult the content-addressed result cache BEFORE gang dispatch:
+        # a hit job must not cost a single device batch.  The lookup is
+        # purely an optimization — a cache IO failure degrades to
+        # recomputing.
+        hits: dict[int, dict] = {}
+        for job in gang:
+            entry = self._cache_lookup(job)
+            if entry is not None:
+                hits[job.id] = entry
         # range-sharded sub-jobs run solo through the CLI (the gang reader
         # consumes whole inputs; ``--input_range`` only exists down the
-        # one-shot path)
-        live = [j for j in gang if not j.spec.get("input_range")]
+        # one-shot path), and cache hits must not cost a device batch
+        live = [j for j in gang
+                if j.id not in hits and not j.spec.get("input_range")]
         if len(live) > 1:
             try:
                 faults.fault_point("serve.dispatch")
@@ -1762,10 +1840,13 @@ class Scheduler:
             try:
                 with obs_trace.span("serve.job", trace_id=job.trace_id,
                                     job_id=job.id, tenant=job.tenant,
-                                    qos=job.qos, cached=False,
+                                    qos=job.qos, cached=job.id in hits,
                                     queue_wait_ms=round(
                                         (job.queue_wait_s or 0.0) * 1e3, 3)):
-                    self._run_job(job)
+                    if job.id in hits:
+                        self._cache_materialize(job, hits[job.id])
+                    else:
+                        self._run_job(job)
                 outcome = "done"
             except Exception as e:
                 job.error = f"{type(e).__name__}: {e}"
@@ -1777,8 +1858,13 @@ class Scheduler:
                                   trace_id=job.trace_id, error=job.error,
                                   tenant=job.tenant, qos=job.qos)
                 obs_flight.dump(reason="worker-death")
-            if outcome == "done":
+            if outcome == "done" and job.id not in hits:
                 self.aggregate_job_metrics(job)
+                self._cache_insert(job)
+            if outcome == "done":
+                # cache hits carry a qc.json too (it is part of the
+                # materialized payload) — quality attribution must not
+                # have a hit-shaped hole
                 self.aggregate_job_qc(job)
             with self._cond:
                 # gang jobs count from dispatch start: the shared SSCS wall
@@ -1812,6 +1898,89 @@ class Scheduler:
                     wall_s=job.wall_s, qc=job.qc)
                 self._evict_locked(time.monotonic())
                 self._cond.notify_all()
+
+    # ------------------------------------------- content-addressed cache
+
+    def _cache_lookup(self, job: Job):
+        """Find a committed cache entry for this job's content digest.
+        Counts hits/misses (misses only for cacheable jobs — an
+        unfingerprintable input is not a miss, it is about to be a real
+        error).  A cache IO error degrades to a miss: the cache is an
+        optimization."""
+        if self.result_cache is None:
+            return None
+        from consensuscruncher_tpu_torch.serve import result_cache as rc_mod
+        try:
+            digest = rc_mod.content_digest(job.spec)
+            if digest is None:
+                return None
+            entry = self.result_cache.lookup(digest)
+        except (OSError, ValueError) as e:
+            print(f"WARNING: serve: cache lookup failed ({e}); recomputing",
+                  file=sys.stderr, flush=True)
+            return None
+        if entry is None:
+            self.counters.add("cache_misses")
+            return None
+        return entry
+
+    def _cache_materialize(self, job: Job, entry: dict) -> None:
+        """Serve a job straight from a committed cache entry: copy the
+        payload into the job's own output tree (every file through
+        ``commit_file``) and mark it done.  Raises on failure — the
+        caller's normal failed-job path applies (the entry's payload is
+        immutable, so a partial materialize never corrupts the store)."""
+        base = job_paths(job.spec)["base"]
+        n = self.result_cache.materialize(entry, base)
+        job.outputs = {"base": base}
+        job.cached = True
+        self.counters.add("cache_hits")
+        if entry.get("negative"):
+            self.counters.add("cache_negative_hits")
+        obs_trace.event("serve.cache_hit", trace_id=job.trace_id,
+                        job_id=job.id, digest=entry.get("digest"),
+                        bytes=n, negative=bool(entry.get("negative")))
+
+    def _cache_insert(self, job: Job) -> None:
+        """Commit a finished job's outputs as a cache entry (idempotent;
+        best-effort — a failed insert costs a future hit, nothing else).
+        A run that produced zero consensus families is flagged negative
+        so known-empty work (an empty ``--input_range`` slice) is counted
+        as such on later hits."""
+        if self.result_cache is None:
+            return
+        from consensuscruncher_tpu_torch.serve import result_cache as rc_mod
+        try:
+            digest = rc_mod.content_digest(job.spec)
+            if digest is None or not job.outputs:
+                return
+            entry = self.result_cache.insert(
+                digest, job.outputs["base"],
+                negative=self._job_is_negative(job),
+                meta={"key": job.key, "node": self.node or None})
+        except (OSError, ValueError) as e:
+            print(f"WARNING: serve: cache insert failed ({e}); "
+                  "result still served from the job's own outputs",
+                  file=sys.stderr, flush=True)
+            return
+        if entry is None:
+            return
+        self.counters.add("cache_inserts")
+        self.counters.add("cache_bytes", int(entry.get("bytes", 0)))
+        for ev in self.result_cache.evict_to_budget():
+            self.counters.add("cache_evictions")
+            self.counters.add("cache_bytes", -int(ev.get("bytes", 0)))
+
+    def _job_is_negative(self, job: Job) -> bool:
+        """True when the job's own metrics sidecar proves zero consensus
+        families came out — the cacheable-negative condition."""
+        sidecar = f"{job_paths(job.spec)['sscs_prefix']}.metrics.json"
+        try:
+            with open(sidecar) as fh:
+                cum = json.load(fh).get("cumulative", {})
+        except (OSError, ValueError):
+            return False
+        return int(cum.get("families_out", -1)) == 0
 
     def _argv(self, spec: dict, resume: bool) -> list[str]:
         argv = [

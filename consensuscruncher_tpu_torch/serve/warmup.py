@@ -15,6 +15,9 @@ context and module load.  The daemon pays those before it serves:
   dense form once per configured ``BxFxL`` bucket (the gang wire), or
   once at :data:`LIBRARY_WARM_SHAPE` when none is configured, so the
   first request never eats a cold build.
+- :func:`warm_join` reads a fleet's warm state off its ring view
+  (``serve --warm_from``): the shared build directory, where the router
+  already built the library, and the result-cache plane.
 
 A failed warm launch raises: on the port's serving path nothing degrades
 to the CPU or to a plain version.  The JAX package's bucket autotuner
@@ -53,6 +56,29 @@ def setup_compilation_cache(cache_dir: str) -> bool:
         return False
     cuda_lib.set_build_dir(cache_dir)
     return True
+
+
+def warm_join(view_path: str) -> dict:
+    """The ``warm`` record of the newest epoch in the ring view at
+    ``view_path``: ``compile_cache`` (the fleet's kernel build directory)
+    and ``result_cache`` (its cache plane) are what the caller adopts.  An
+    ``autotune_table`` (a JAX router's view carries one) is named on
+    stderr as ignored: the port keeps no bucket table.  A
+    view with no warm state joins cold, with a warning."""
+    from consensuscruncher_tpu_torch.serve.router import RingView
+
+    doc = RingView(view_path).load() or {}
+    warm = dict(doc.get("warm") or {})
+    if not warm:
+        print(f"WARNING: serve: --warm_from {view_path} carries no warm state; "
+              "joining cold", file=sys.stderr, flush=True)
+        return {}
+    print(f"serve: warm-join state from {view_path} (epoch {doc.get('epoch')}): "
+          f"{', '.join(sorted(warm))}", flush=True)
+    if warm.pop("autotune_table", None):
+        print("serve: warm-join autotune_table ignored (the port keeps no bucket table)",
+              file=sys.stderr, flush=True)
+    return warm
 
 
 def parse_shapes(text: str) -> list[tuple[int, int, int]]:

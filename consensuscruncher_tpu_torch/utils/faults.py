@@ -33,10 +33,17 @@ Sites wired in the port (grep for ``fault_point``/``faults.hook``):
   serve.shed           deadline admission check -> forced shed
   serve.poison         deterministic poison job -> budget-capped re-runs,
                        then durable quarantine; honest jobs unharmed
-  serve.enospc         journal append ENOSPC -> read-only brownout (polls
-                       still served)
+  serve.enospc         journal append ENOSPC -> cache evicts, retry once,
+                       then read-only brownout (polls still served)
   serve.oom            memory watermark breach -> shed scavenger -> batch
                        -> interactive; running jobs never killed
+  serve.cache          result-cache lookup/insert -> miss, recompute
+  route.member_down    router forward hits a dead member -> ring failover
+  route.steal          steal decision fails -> job stays on its home node
+  route.resubmit       failover resubmission fails -> retried, idempotent
+  route.router_down    standby's probe of the active router -> takeover
+  route.adopt          journal adoption fails -> no tombstone, sweep retries
+  route.view_publish   ring-view publish fails -> membership stays live
   route.fence          worker epoch admission -> stale router demoted
 
 The reference's aligner, BGZF, mesh, stage and streaming sites come with

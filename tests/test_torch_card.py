@@ -598,3 +598,50 @@ def test_served_gang_on_card_matches_cpu_served(card, tmp_path):
         assert len(bams) == 11
         for rel in bams:
             assert _records(str(two / rel)) == _records(str(one / rel)), (name, rel)
+
+
+def test_routed_jobs_and_a_cache_hit_on_card(card, tmp_path):
+    """The router over two in-process daemons on the card with one cache
+    plane: ``sample.bam`` holds the goldens; the same question from
+    another tenant is answered from the plane with no launch, its BAMs the
+    first tree's bytes."""
+    from consensuscruncher_tpu_torch.serve.router import Router
+    from consensuscruncher_tpu_torch.serve.scheduler import Scheduler
+    from consensuscruncher_tpu_torch.serve.server import ServeServer
+    from consensuscruncher_tpu_torch.utils.digest import golden_mismatches
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "test", "golden.json")) as fh:
+        golden = json.load(fh)["consensus"]
+    spec = {"input": os.path.join(repo, "test", "data", "sample.bam"),
+            "output": str(tmp_path / "a"), "name": "golden"}
+    plane = str(tmp_path / "plane")
+    scheds, servers, members = [], [], []
+    for w in ("w0", "w1"):
+        scheds.append(Scheduler(gang_size=4, device="cuda", node=w, result_cache=plane))
+        servers.append(ServeServer(scheds[-1], socket_path=str(tmp_path / f"{w}.sock")))
+        servers[-1].start()
+        members.append((w, str(tmp_path / f"{w}.sock")))
+    router = Router(members, start_monitor=False, result_cache=plane)
+    try:
+        router.probe_members()
+        before = consensus_vote.launches
+        sub = router.submit(spec)
+        assert router.result({"key": sub["key"], "timeout": 600})["job"]["state"] == "done"
+        assert consensus_vote.launches > before
+        assert golden_mismatches(str(tmp_path / "a" / "golden"), golden) == []
+        before = consensus_vote.launches
+        hit = router.submit(dict(spec, output=str(tmp_path / "b"), tenant="other"))
+        assert hit["cached"] is True and consensus_vote.launches == before
+    finally:
+        router.close()
+        for server, sched in zip(servers, scheds):
+            server.close()
+            sched.close(timeout=120)
+    one, two = tmp_path / "a" / "golden", tmp_path / "b" / "golden"
+    bams = sorted(os.path.relpath(os.path.join(r, f), one)
+                  for r, _d, files in os.walk(one) for f in files if f.endswith(".bam"))
+    assert len(bams) == 11
+    for rel in bams:
+        with open(one / rel, "rb") as a, open(two / rel, "rb") as b:
+            assert a.read() == b.read(), rel

@@ -14,8 +14,7 @@
   writes the golden outputs.
 - The ``[qc]``, ``[io]`` and ``[obs]`` folds leave an environment variable
   that is already set alone, and set it when it is not, as the JAX
-  package's do; a canary key of ``[obs]`` (the canary is not ported yet)
-  is named as ignored on stderr.
+  package's do, the ``[obs]`` canary keys included.
 """
 
 import json
@@ -165,14 +164,13 @@ def test_env_folds_keep_a_set_variable(tmp_path, monkeypatch, capsys):
     torch_cli._apply_obs_config(cfg)
     assert os.environ["CCT_QC"] == "0"
     assert bgzf.codec_threads() == 3 and not bgzf.async_write_default()
-    # [obs] folds into the tracer's variables as the JAX package's fold
-    # does; the canary key (its prober is not ported yet) sets nothing and
-    # is named as ignored on stderr
+    # [obs] folds into the tracer's and the canary prober's variables as
+    # the JAX package's fold does, naming nothing on stderr
     assert (os.environ["CCT_TRACE"], os.environ["CCT_TRACE_DIR"]) == ("1", "/tmp/t")
-    assert "CCT_CANARY" not in os.environ
-    assert "config [obs] canary: ignored" in capsys.readouterr().err
-    port_env = {k: os.environ.get(k) for k in ("CCT_TRACE", "CCT_TRACE_DIR")}
-    for var in ("CCT_TRACE", "CCT_TRACE_DIR"):
+    assert os.environ["CCT_CANARY"] == "1"
+    assert capsys.readouterr().err == ""
+    port_env = {k: os.environ.get(k) for k in ("CCT_TRACE", "CCT_TRACE_DIR", "CCT_CANARY")}
+    for var in port_env:
         monkeypatch.delenv(var)
     jax_cli._apply_obs_config(cfg)
     assert {k: os.environ.get(k) for k in port_env} == port_env

@@ -17,9 +17,15 @@
   policy vote stays on its planes' device: run on ``meta`` tensors (which
   hold no data, so any copy to the host raises), every output is on that
   device and no op reads member planes on the CPU;
-- every module of the port imports without JAX (the serve daemon and the
-  obs core too); a ``serve --device cpu`` daemon and a ``submit`` client
-  import none of it; ``serve`` without a card exits before it binds.
+- every module of the port imports without JAX (the serve daemon, the
+  fleet router, result cache and canary, and the obs core too); a ``serve
+  --device cpu`` daemon and a ``submit`` client import none of it;
+  ``serve`` without a card exits before it binds;
+- a ``route --spawn 2 --backend xla_cpu`` fleet (the router, its two
+  workers and a ``submit`` through it) imports none of it either, and a
+  router parent spawning on the card (faked here) builds the kernel
+  library once into the fleet's build directory, hands that directory to
+  every worker and opens no CUDA context.
 """
 
 import json
@@ -441,7 +447,8 @@ def test_every_module_imports_no_jax():
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     assert doc["bad"] == []
     for name in ("serve.scheduler", "serve.server", "serve.journal", "serve.client",
-                 "serve.supervisor", "serve.warmup", "serve.wire", "obs.trace", "obs.flight",
+                 "serve.supervisor", "serve.warmup", "serve.wire", "serve.router",
+                 "serve.result_cache", "serve.canary", "obs.trace", "obs.flight",
                  "obs.slo", "obs.history", "obs.prof", "utils.sanitize",
                  "utils.backend_probe", "utils.netchaos", "utils.faults"):
         assert f"consensuscruncher_tpu_torch.{name}" in doc["modules"]
@@ -505,3 +512,101 @@ def test_serve_and_submit_import_no_jax(tmp_path):
     with open(os.path.join(REPO, "test", "golden.json")) as fh:
         golden = json.load(fh)["consensus"]
     assert golden_mismatches(str(tmp_path / "out" / "golden"), golden) == []
+
+
+def test_route_fleet_imports_no_jax(tmp_path):
+    """``route --spawn 2 --backend xla_cpu`` and a ``submit`` through it,
+    each process spied on: the router, both workers and the client import
+    no JAX and no JAX package; the job holds the goldens."""
+    import signal
+    import time
+
+    spy, dumps = tmp_path / "spy", tmp_path / "dumps"
+    spy.mkdir()
+    dumps.mkdir()
+    (spy / "sitecustomize.py").write_text(_SPY)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(spy), CCT_SPY_DIR=str(dumps))
+    sock = tmp_path / "r.sock"
+    router = subprocess.Popen(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "route", "--spawn", "2",
+         "--backend", "xla_cpu", "--workdir", str(tmp_path / "fleet"), "--socket", str(sock),
+         "--warmup_shapes", "8x4x128"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 180
+        while not sock.exists():
+            assert router.poll() is None, router.communicate()[1][-2000:]
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        sub = subprocess.run(
+            [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "submit", "--socket",
+             str(sock), "-i", os.path.join(REPO, "test", "data", "sample.bam"), "-o",
+             str(tmp_path / "out"), "-n", "golden"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        assert sub.returncode == 0, sub.stderr
+    finally:
+        router.send_signal(signal.SIGTERM)
+        out, err = router.communicate(timeout=180)
+    assert router.returncode == 0, err[-2000:]
+    assert "route: shutdown complete" in out and out.count("serve: shutdown complete") == 2
+    runs = [json.loads(p.read_text()) for p in dumps.iterdir()]
+    commands = ("route", "serve", "submit")
+    assert sorted(next(a for a in r["argv"] if a in commands) for r in runs) == \
+        ["route", "serve", "serve", "submit"]
+    assert [r["bad"] for r in runs] == [[]] * 4
+    from consensuscruncher_tpu_torch.utils.digest import golden_mismatches
+
+    with open(os.path.join(REPO, "test", "golden.json")) as fh:
+        golden = json.load(fh)["consensus"]
+    assert golden_mismatches(str(tmp_path / "out" / "golden"), golden) == []
+
+
+def test_card_router_builds_once_and_opens_no_context(tmp_path, monkeypatch):
+    """A ``route --spawn 2`` parent on a host with (as this test pretends)
+    two cards: one ``cuda_lib.build`` into ``<workdir>/build`` before any
+    worker starts, every worker told ``--compile_cache <workdir>/build
+    --device cuda``, worker *i* on card *i mod 2*, and no call that would
+    open a CUDA context (on this CPU-only torch any such call raises).
+    The workers' launch is recorded, not run."""
+    from consensuscruncher_tpu_torch import cli as torch_cli
+    from consensuscruncher_tpu_torch.ops import cuda_lib
+    from consensuscruncher_tpu_torch.serve import router as router_mod
+    from consensuscruncher_tpu_torch.serve import supervisor
+
+    builds, launched = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)  # restored after
+    monkeypatch.setattr(cuda_lib, "build", lambda name: builds.append((name, cuda_lib.BUILD_DIR)))
+
+    class _Popen:
+        def __init__(self, argv, env=None):
+            launched.append((argv, env.get("CUDA_VISIBLE_DEVICES")))
+
+    def run_supervised(cmd, spawn, max_restarts):
+        spawn(cmd)
+        with open(cmd[cmd.index("--socket") + 1], "w"):
+            pass  # the worker's socket: up
+
+    class _Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise _Stop
+
+    monkeypatch.setattr(torch_cli.subprocess, "Popen", _Popen)
+    monkeypatch.setattr(supervisor, "run_supervised", run_supervised)
+    monkeypatch.setattr(router_mod, "RouterServer", stop)
+    workdir = tmp_path / "fleet"
+    with pytest.raises(_Stop):
+        torch_cli.main(["route", "--spawn", "2", "--workdir", str(workdir),
+                        "--socket", str(tmp_path / "r.sock")])
+    assert builds == [("consensus_vote", str(workdir / "build"))]
+    assert len(launched) == 2
+    for i, (argv, cards) in enumerate(sorted(launched, key=lambda x: x[0][-1])):
+        assert cards == str(i)
+    for argv, _cards in launched:
+        assert argv[argv.index("--compile_cache") + 1] == str(workdir / "build")
+        assert argv[argv.index("--device") + 1] == "cuda"
+    assert not torch.cuda.is_initialized()

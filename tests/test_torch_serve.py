@@ -22,7 +22,8 @@
   over a unix socket: ``sample.bam`` holds the goldens; healthz and the
   Prometheus text answer.
 - **Policy and result cache.** A gang mixing policies refuses; a gang's
-  policy reaches the vote explicitly; ``result_cache=`` refuses.
+  policy reaches the vote explicitly; ``result_cache=`` given a root opens
+  that cache plane (``test_torch_result_cache.py`` holds the cache).
 """
 
 import json
@@ -36,6 +37,7 @@ from consensuscruncher_tpu_torch.io.columnar import ColumnarReader
 from consensuscruncher_tpu_torch.ops import consensus_dense
 from consensuscruncher_tpu_torch.serve import scheduler as torch_sched
 from consensuscruncher_tpu_torch.serve.client import ServeClient
+from consensuscruncher_tpu_torch.serve.result_cache import ResultCache
 from consensuscruncher_tpu_torch.serve.server import ServeServer
 from consensuscruncher_tpu_torch.stages import sscs_maker
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches
@@ -294,8 +296,12 @@ def test_gang_policy_is_explicit_and_shared(tmp_path, inputs, monkeypatch):
     assert got == ["delegation"]
     params = _stages(torch_sched.job_paths(_spec(inputs[1], tmp_path))["base"])["sscs"]["params"]
     assert params["policy"] == "delegation"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        torch_sched.Scheduler(start=False, device="cpu", result_cache=str(tmp_path))
+    cached = torch_sched.Scheduler(start=False, device="cpu", node="w3",
+                                   result_cache=str(tmp_path / "plane"))
+    assert isinstance(cached.result_cache, ResultCache)
+    assert (cached.result_cache.root, cached.result_cache.node) == (str(tmp_path / "plane"), "w3")
+    assert os.path.isdir(tmp_path / "plane" / "w3")
+    cached.close(timeout=10)
     with pytest.raises(ValueError, match="device"):
         torch_sched.Scheduler(start=False, device="tpu")
 
