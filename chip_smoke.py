@@ -164,7 +164,29 @@ failure; no phase's failure is caught.  Phases:
     one-shot run; (v) ``CCT_CANARY=1``: on that daemon the self-minted
     golden equals ``output_digest`` of a ``--device cpu`` run of the probe
     made here and ``cct_canary_ok`` reads 1; on (ii)'s surviving daemon a
-    wrong ``CCT_CANARY_GOLDEN`` flips it to 0.
+    wrong ``CCT_CANARY_GOLDEN`` flips it to 0;
+13. the reference's flow from FASTQ: (i) ``run_extract`` on the committed
+    FASTQ pair (``--bpattern NNNNNNT``): the 6 ``extract`` digests of
+    ``test/golden.json``; (ii) ``simulate_fastq_pairs`` at phase 5's
+    widths (``FASTQ_FRAGMENTS``, read length 100, UMI 6, mean family 3,
+    duplex fraction 0.8, seed 42, ``ref_len`` 40 x fragments), then
+    ``fastq2bam --bwa builtin --host_workers 4`` in a process of its own
+    (host only: no CUDA context, the align pool forked, no indel
+    warning): the extract and align walls, reads/s beside the host's
+    cores, the unmapped share; (iii) the same settings at
+    ``FASTQ_PARITY_FRAGMENTS`` with seed 43 through ``--host_workers`` 1
+    and 4 (every output file byte-equal), then ``consensus --scorrect
+    True`` on that BAM on the card and with ``--device cpu``: the aligner
+    writes ``NM`` on every read, so rescue and DCS take the window walks;
+    the trees equal (records with tags, stats less backend lines, the
+    manifest's stages, ``qc.json``), the card run's step walls and B1
+    launches beside phase 6's tagged wall per fragment; (iv) the
+    standalone stage entries on ``sample.bam`` (``sscs_maker``, then
+    ``singleton_correction``, then ``dcs_maker`` on the SSCS BAM, then
+    ``generate_plots``), each on the card in a process of its own, against
+    the same entry with ``--device cpu``: every BAM record by record, the
+    stats less backend lines, the SSCS and rescue outputs the
+    ``consensus`` goldens.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -179,6 +201,7 @@ import argparse
 import contextlib
 import functools
 import hashlib
+import importlib
 import io
 import json
 import os
@@ -232,16 +255,18 @@ from consensuscruncher_tpu_torch.serve.router import HashRing  # noqa: E402
 from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
+from consensuscruncher_tpu_torch.stages.extract_barcodes import run_extract  # noqa: E402
 from consensuscruncher_tpu_torch.utils.ragged import scatter_runs  # noqa: E402
 from consensuscruncher_tpu_torch.stages.generate_plots import decode_png  # noqa: E402
 from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
-from consensuscruncher_tpu_torch.utils.digest import golden_mismatches  # noqa: E402
+from consensuscruncher_tpu_torch.utils.digest import golden_mismatches, text_digest  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
 from consensuscruncher_tpu_torch.utils.profiling import trace_summary  # noqa: E402
 from consensuscruncher_tpu_torch.utils.simulate import (  # noqa: E402
     SimConfig,
     simulate_bam,
     simulate_bam_fast,
+    simulate_fastq_pairs,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
@@ -3191,6 +3216,243 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
     return row
 
 
+# ------------------------------------------- phase 13: the reference's flow from FASTQ
+
+FASTQ_FRAGMENTS = 80_000  # (ii): phase 5's widths; its 200,000 fragments cut for time
+FASTQ_PARITY_FRAGMENTS = 20_000  # (iii)
+FASTQ_WORKERS = 4
+BPATTERN = "NNNNNNT"  # test/make_test_data.py's pattern: 6-base UMI + 'T' spacer
+_BUILTIN = ["--bwa", "builtin", "--bpattern", BPATTERN]
+# fastq2bam in a process of its own: each argv of the JSON list in turn,
+# with the extract and align legs timed, the aligner's read counts, whether
+# each align pool really forked, and whether torch opened a CUDA context
+_FASTQ2BAM = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from consensuscruncher_tpu_torch import cli
+from consensuscruncher_tpu_torch.stages import align, extract_barcodes
+row = {}
+
+def timed(name, fn):
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            row[name] = time.perf_counter() - t
+    return run
+
+def counted(*a, **k):
+    row["reads"], row["unmapped"] = counts = columnar(*a, **k)
+    return counts
+
+def pool(*a):
+    p = start_pool(*a)
+    row.setdefault("pools_forked", []).append(p is not None)
+    return p
+
+columnar, start_pool = cli.align_fastqs_columnar, align._start_pool
+extract_barcodes.run_extract = timed("extract_s", extract_barcodes.run_extract)
+cli.align_and_sort = timed("align_s", cli.align_and_sort)
+cli.align_fastqs_columnar, align._start_pool = counted, pool
+for argv in json.loads(sys.argv[2]):
+    row.clear()
+    t = time.perf_counter()
+    cli.main(argv)
+    row["wall_s"] = time.perf_counter() - t
+    print(json.dumps({**row, "cuda_initialized": torch.cuda.is_initialized()}), flush=True)
+"""
+# a standalone stage entry run as ``python -m``, in a process of its own,
+# with the vote kernels' launch counts read after it
+_ENTRY = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from consensuscruncher_tpu_torch.ops import consensus_vote
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print(json.dumps({"b1_launches": consensus_vote.launches,
+                  "b2_launches": consensus_vote.fused_launches}))
+"""
+
+
+def _fastq2bam(runs: list, card: str) -> list:
+    """``fastq2bam`` argvs run in turn by one process of its own: a row per
+    run.  Every align pool forked (no serial fallback), no CUDA context,
+    and no indel warning (simulated reads all place)."""
+    proc = subprocess.run([sys.executable, "-c", _FASTQ2BAM, REPO, json.dumps(runs)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fastq2bam failed:\n{proc.stderr[-4000:]}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if len(rows) != len(runs) or "falling back to serial" in proc.stderr \
+            or "WARNING: --bwa builtin" in proc.stderr:
+        raise AssertionError(f"fastq2bam: {rows}\n{proc.stderr[-4000:]}")
+    for argv, row in zip(runs, rows):
+        workers = int(argv[argv.index("--host_workers") + 1])
+        if row["cuda_initialized"] or row.get("pools_forked", []) != [True] * (workers > 1):
+            raise AssertionError(f"fastq2bam --host_workers {workers}: {row}")
+        row.update(card=card, host_workers=workers, cores=len(os.sched_getaffinity(0)),
+                   unmapped_share=row["unmapped"] / row["reads"],
+                   reads_per_s=row["reads"] / row["align_s"])
+    return rows
+
+
+def _files(base: str) -> dict:
+    """sha256 of every file under ``base`` but its manifest (which names
+    the paths), by relative path."""
+    return {rel: digest for rel, digest in _bam_sha256(base, ("",)).items()
+            if not rel.endswith("manifest.json")}
+
+
+def _simulated_pair(work: str, n: int, seed: int) -> tuple:
+    t = time.perf_counter()
+    paths = simulate_fastq_pairs(os.path.join(work, f"fq{seed}"), SimConfig(
+        n_fragments=n, read_len=100, umi_len=6, mean_family_size=3.0, duplex_fraction=0.8,
+        seed=seed, ref_len=40 * n))
+    return paths, time.perf_counter() - t
+
+
+def phase_fastq(dev, work: str, tagged: dict, card: str) -> dict:
+    """(i) the extract goldens; (ii) ``fastq2bam`` at real size, in a
+    process of its own; (iii) its byte parity over ``--host_workers`` and
+    ``consensus`` on its BAM on the card against ``--device cpu``; (iv) the
+    standalone stage entries on ``sample.bam``, each on the card in a
+    process of its own, against the same entry with ``--device cpu``."""
+    t0 = time.perf_counter()
+    golden = json.load(open(os.path.join(REPO, "test", "golden.json")))
+    # (i) the 6 extract digests of test/golden.json
+    ex = os.path.join(work, "extract")
+    os.makedirs(ex)
+    t = time.perf_counter()
+    run_extract(os.path.join(REPO, "test", "data", "sample_R1.fastq.gz"),
+                os.path.join(REPO, "test", "data", "sample_R2.fastq.gz"),
+                os.path.join(ex, "ex"), bpattern=BPATTERN)
+    bad = [rel for rel, want in golden["extract"].items()
+           if text_digest(os.path.join(ex, rel.removeprefix("extract/"))) != want]
+    if len(golden["extract"]) != 6 or bad:
+        raise AssertionError(f"extract goldens diverge: {bad}")
+    emit("fastq_extract_goldens", digests=6, seconds=time.perf_counter() - t)
+
+    # (ii) phase 5's widths at FASTQ_FRAGMENTS
+    (r1, r2, fa), sim_s = _simulated_pair(work, FASTQ_FRAGMENTS, 42)
+    big = _fastq2bam([["fastq2bam", "-f1", r1, "-f2", r2, "-o", os.path.join(work, "f2b"),
+                       "-n", "sim", "-r", fa, *_BUILTIN,
+                       "--host_workers", str(FASTQ_WORKERS)]], card)[0]
+    emit("fastq2bam", fragments=FASTQ_FRAGMENTS, simulate_s=sim_s, **big)
+    shutil.rmtree(os.path.join(work, "f2b"))
+
+    # (iii) byte parity over --host_workers, then consensus on the card
+    (r1, r2, fa), sim_s = _simulated_pair(work, FASTQ_PARITY_FRAGMENTS, 43)
+    outs = {n: os.path.join(work, f"f2b{n}") for n in (1, FASTQ_WORKERS)}
+    rows = _fastq2bam([["fastq2bam", "-f1", r1, "-f2", r2, "-o", out, "-n", "s", "-r", fa,
+                        *_BUILTIN, "--host_workers", str(n)] for n, out in outs.items()], card)
+    files = _files(outs[1])
+    if len(files) != 9 or _files(outs[FASTQ_WORKERS]) != files:
+        raise AssertionError(f"fastq2bam --host_workers 1 and {FASTQ_WORKERS} wrote other bytes")
+    bam = os.path.join(outs[1], "bamfiles", "s.sorted.bam")
+    trees = {}
+    for label, device in (("card", dev.type), ("cpu", "cpu")):
+        # the aligner writes NM on every read: rescue and DCS take the walks
+        acc: dict[str, float] = {}
+        calls: dict[str, int] = {}
+        restores = [
+            _synced_timer(singleton_correction, "_run_rescue_walk", acc, "rescue_walk_s", calls),
+            _synced_timer(dcs_maker, "_run_dcs_windows", acc, "dcs_walk_s", calls)]
+        consensus_vote.launches = 0
+        try:
+            t = time.perf_counter()
+            res = cli_main(["consensus", "-i", bam, "-o", os.path.join(work, f"fq_{label}"),
+                            "-n", "s", "--scorrect", "True", "--device", device])
+            wall = time.perf_counter() - t
+        finally:
+            for restore in restores:
+                restore()
+        if calls != {"rescue_walk_s": 1, "dcs_walk_s": 1}:
+            raise AssertionError(f"consensus on the fastq2bam BAM: walks taken {calls}")
+        trees[label] = {"wall_s": wall, "steps_s": res["walls"], **acc,
+                        "b1_launches": consensus_vote.launches}
+    if trees["card"]["b1_launches"] == 0 and dev.type == "cuda":
+        raise AssertionError("consensus on the fastq2bam BAM never launched B1")
+    held = _served_tree(os.path.join(work, "fq_card", "s"), os.path.join(work, "fq_cpu", "s"),
+                        "s", ganged=False)
+    row = {"card": card, "fragments": FASTQ_PARITY_FRAGMENTS, "simulate_s": sim_s,
+           "fastq2bam": {f"host_workers_{r['host_workers']}": r for r in rows},
+           "files_equal": len(files), **held, "card_run": trees["card"],
+           "cpu_run": trees["cpu"],
+           "card_wall_per_fragment_s": trees["card"]["wall_s"] / FASTQ_PARITY_FRAGMENTS,
+           "phase6_tagged_wall_per_fragment_s": tagged["tagged"]["wall_s"] / OBJECT_FRAGMENTS}
+    emit("fastq_consensus", **row)
+
+    # (iv) the standalone stage entries on sample.bam
+    sample = os.path.join(REPO, "test", "data", "sample.bam")
+    entries = {}
+    for label, device in (("card", dev.type), ("cpu", "cpu")):
+        base = os.path.join(work, f"entries_{label}")
+        for sub in ("sscs", "singleton", "dcs"):
+            os.makedirs(os.path.join(base, sub))
+        sscs, sing = os.path.join(base, "sscs", "golden"), os.path.join(base, "singleton", "golden")
+        argvs = {
+            "sscs_maker": ["--infile", sample, "--outfile", sscs],
+            "singleton_correction": ["--singleton", sscs + ".singleton.sorted.bam",
+                                     "--bamfile", sscs + ".sscs.sorted.bam", "--outfile", sing],
+            "dcs_maker": ["--infile", sscs + ".sscs.sorted.bam",
+                          "--outfile", os.path.join(base, "dcs", "golden")],
+        }
+        for entry, argv in argvs.items():
+            argv = [*argv, "--device", device]
+            t = time.perf_counter()
+            if label == "cpu":  # the reference: this process, the plain versions
+                importlib.import_module(f"consensuscruncher_tpu_torch.stages.{entry}").main(argv)
+                entries[f"{entry}/cpu_s"] = time.perf_counter() - t
+                continue
+            proc = subprocess.run(
+                [sys.executable, "-c", _ENTRY, REPO,
+                 f"consensuscruncher_tpu_torch.stages.{entry}", *argv],
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"{entry} --device {device} failed:\n{proc.stderr[-3000:]}")
+            counts = json.loads(proc.stdout.strip().splitlines()[-1])
+            if entry == "sscs_maker" and device == "cuda" and counts["b1_launches"] == 0:
+                raise AssertionError(f"{entry} on the card never launched B1")
+            entries[entry] = {"command_s": time.perf_counter() - t, **counts}
+        plots = os.path.join(base, "plots")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "consensuscruncher_tpu_torch.stages.generate_plots",
+             "--families", sscs + ".read_families.txt", "--stats", sscs + ".sscs_stats.json",
+             sing + ".singleton_stats.json", "--metrics", sscs + ".metrics.json",
+             "--outdir", plots], cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"generate_plots failed:\n{proc.stderr[-3000:]}")
+        entries[f"generate_plots/{label}_s"] = time.perf_counter() - t
+        if sorted(os.listdir(plots)) != ["family_size.png", "read_recovery.png",
+                                         "stage_times.png"]:
+            raise AssertionError(f"generate_plots wrote {sorted(os.listdir(plots))}")
+        for name in os.listdir(plots):
+            with open(os.path.join(plots, name), "rb") as fh:
+                decode_png(fh.read())
+    card_base, cpu_base = (os.path.join(work, f"entries_{label}") for label in ("card", "cpu"))
+    held = 0
+    for rel in sorted(_bam_sha256(cpu_base)):
+        if _records(os.path.join(card_base, rel)) != _records(os.path.join(cpu_base, rel)):
+            raise AssertionError(f"stage entries: {rel} differs between the card and the CPU")
+        held += 1
+    for rel in ("sscs/golden.sscs_stats.txt", "sscs/golden.read_families.txt",
+                "singleton/golden.singleton_stats.txt", "dcs/golden.dcs_stats.txt"):
+        if _no_backend(os.path.join(card_base, rel)) != _no_backend(os.path.join(cpu_base, rel)):
+            raise AssertionError(f"stage entries: {rel} differs between the card and the CPU")
+    goldens = {k: v for k, v in golden["consensus"].items()
+               if k.startswith(("sscs/", "singleton/"))}
+    bad = golden_mismatches(card_base, goldens)
+    if held != 8 or len(goldens) != 11 or bad:
+        raise AssertionError(f"stage entries: {held} BAMs held; goldens diverge: {bad}")
+    emit("fastq_stage_entries", card=card, bams_equal=held, goldens=len(goldens), **entries)
+    seconds = time.perf_counter() - t0
+    emit("fastq_flow", card=card, seconds=seconds)
+    return {"seconds": seconds, "fastq2bam": big, "consensus": row, "entries": entries}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -3252,6 +3514,7 @@ def main() -> None:
         emit("serve", seconds=serve["seconds"])
         fleet = phase_fleet(dev, work, serve["one_shot"], rates["card"])
         emit("fleet", seconds=fleet["seconds"])
+        phase_fastq(dev, work, tagged, rates["card"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("smoke", seconds=time.perf_counter() - started)

@@ -1,5 +1,17 @@
 """Command line of the PyTorch/CUDA port.
 
+    python -m consensuscruncher_tpu_torch.cli fastq2bam -f1 R1.fastq.gz \\
+        -f2 R2.fastq.gz -o OUT -r ref.fa [--bwa bwa|builtin] [--bpattern P] \\
+        [--blist L] [--cleanup True] [--resume True] [--compress_level 0-9] \\
+        [--host_workers N] [-c config.ini]
+
+``fastq2bam`` is the reference's first command: extract the inline UMIs
+into the read names (``<OUT>/fastq_tag/``), align the tag FASTQs with an
+external ``bwa`` or the in-process ``builtin`` aligner (its chunks forked
+over ``--host_workers`` processes) into ``<OUT>/bamfiles/<name>.sorted.bam``
+and its BAI, byte for byte the JAX package's outputs.  It is host code and
+opens no CUDA context.
+
     python -m consensuscruncher_tpu_torch.cli consensus -i X.bam[,Y.bam...] \\
         -o OUT [-c config.ini] [--scorrect True] [--device cuda|cpu] \\
         [--residency True|False] [--resume True] [--intermediate_level 0-9] \\
@@ -64,6 +76,7 @@ import configparser
 import copy
 import json
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -76,12 +89,19 @@ from consensuscruncher_tpu_torch.core.tags import DEFAULT_BDELIM
 from consensuscruncher_tpu_torch.device import device_name, resolve_device
 from consensuscruncher_tpu_torch.io import bgzf
 from consensuscruncher_tpu_torch.io.bai import index_bam
+from consensuscruncher_tpu_torch.io import sam as sam_mod
 from consensuscruncher_tpu_torch.io.bam import BamReader, merge_bams
+from consensuscruncher_tpu_torch.io.columnar import (
+    SortingBamWriter,
+    single_writer_sort_buffer_bytes,
+)
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.ops.packing import resident_planes
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.parallel import hostshard
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction, sscs_maker
+from consensuscruncher_tpu_torch.stages import extract_barcodes as extract_mod
+from consensuscruncher_tpu_torch.stages.align import BuiltinAligner, align_fastqs_columnar
 from consensuscruncher_tpu_torch.stages.dcs_maker import DcsResult, run_dcs
 from consensuscruncher_tpu_torch.stages.generate_plots import (
     plot_family_size,
@@ -93,6 +113,8 @@ from consensuscruncher_tpu_torch.stages.singleton_correction import (
     run_singleton_correction,
 )
 from consensuscruncher_tpu_torch.stages.sscs_maker import SscsResult, run_sscs
+from consensuscruncher_tpu_torch.utils.backend_probe import device_of_backend
+from consensuscruncher_tpu_torch.utils.faults import FaultError, retrying
 from consensuscruncher_tpu_torch.utils.manifest import RunManifest
 from consensuscruncher_tpu_torch.utils.profiling import maybe_profile
 from consensuscruncher_tpu_torch.utils.stats import TimeTracker
@@ -174,29 +196,6 @@ def _apply_io_config(path: str | None) -> None:
     )
 
 
-# The JAX package's [consensus] ``backend`` key, read as the port's device.
-_BACKEND_DEVICE = {"tpu": "cuda", "xla_cpu": "cpu"}
-
-
-def device_of_backend(backend: str | None) -> str | None:
-    """The port's device for a config.ini ``backend`` value (None when
-    unset): ``tpu`` (the device kernels) is the card, ``xla_cpu`` (the same
-    kernels on the CPU) the CPU.  ``cpu`` and ``reference`` name the JAX
-    package's numpy twin and object path, which the port has not: they
-    exit, naming ``--device``."""
-    if backend in (None, ""):
-        return None
-    if backend in _BACKEND_DEVICE:
-        return _BACKEND_DEVICE[backend]
-    if backend in ("cpu", "reference"):
-        raise SystemExit(
-            f"config backend = {backend}: this port has no numpy or object-path "
-            "backend; set device = cpu in [consensus] (or pass --device cpu) to run "
-            "its CPU path, or device = cuda for the card")
-    raise SystemExit(f"config backend = {backend!r}: expected tpu, xla_cpu, cpu or "
-                     "reference (or set device = cuda|cpu)")
-
-
 @dataclass
 class _Run:
     """One consensus run: its arguments and where its outputs go."""
@@ -239,6 +238,163 @@ def make_checkpointed(manifest: RunManifest, resume: bool, label: str):
         return result
 
     return checkpointed
+
+
+# ------------------------------------------------------------------ fastq2bam
+
+def fastq2bam(args) -> dict:
+    """Extract the inline UMIs of a FASTQ pair into the read names, align
+    the tag FASTQs (``--bwa`` names an external aligner, or ``builtin``)
+    into a coordinate-sorted BAM and index it, as the JAX package's
+    ``fastq2bam`` does, byte for byte.  Host code only: the command opens
+    no CUDA context, so the ``--host_workers`` align pool forks clean."""
+    os.makedirs(args.output, exist_ok=True)
+    tag_dir = os.path.join(args.output, "fastq_tag")
+    bam_dir = os.path.join(args.output, "bamfiles")
+    os.makedirs(tag_dir, exist_ok=True)
+    os.makedirs(bam_dir, exist_ok=True)
+    name = args.name or os.path.basename(args.fastq1).split(".")[0]
+
+    # Tag FASTQs are intermediates; under --cleanup they are deleted right
+    # after alignment, so they are written stored (level 0) then.  The
+    # bad-read FASTQs are kept outputs and always get the requested level.
+    level = int(args.compress_level)
+    cleanup = _bool(getattr(args, "cleanup", False))
+    tag_level = 0 if cleanup else level
+
+    # The consensus command's checkpoint/resume model: content-bearing
+    # input files (the FASTQs, --blist, --ref) are fingerprinted inputs,
+    # never params, so editing one in place invalidates the skip; ``name``
+    # is a param so a rerun under another -n cannot match stale records.
+    manifest = RunManifest(os.path.join(args.output, "manifest.json"))
+    resume = _bool(getattr(args, "resume", False))
+    checkpointed = make_checkpointed(manifest, resume, "fastq2bam")
+    prefix = os.path.join(tag_dir, name)
+    tag_paths = extract_mod.output_paths(prefix)
+    extract_inputs = [args.fastq1, args.fastq2]
+    if args.blist:
+        extract_inputs.append(args.blist)
+    extract = checkpointed(
+        "extract", extract_inputs, list(tag_paths.values()),
+        {"name": name, "bpattern": args.bpattern, "bdelim": args.bdelim,
+         "level": tag_level},
+        run=lambda: extract_mod.run_extract(
+            args.fastq1, args.fastq2, prefix, bpattern=args.bpattern,
+            blist=args.blist, bdelim=args.bdelim, level=tag_level,
+            bad_level=level),
+        rebuild=lambda: extract_mod.ExtractResult(tag_paths["r1"], tag_paths["r2"], None),
+    )
+
+    out_bam = os.path.join(bam_dir, f"{name}.sorted.bam")
+    # host_workers is left out of the align params on purpose: the worker
+    # fan-out is byte-invariant, so a resume under another N still matches
+    checkpointed(
+        "align", [extract.r1_out, extract.r2_out, args.ref],
+        [out_bam, out_bam + ".bai"],
+        {"name": name, "bwa": args.bwa, "level": level},
+        run=lambda: align_and_sort(
+            args.bwa, args.ref, extract.r1_out, extract.r2_out, out_bam,
+            host_workers=int(getattr(args, "host_workers", 1) or 1), level=level),
+        rebuild=lambda: None,
+    )
+    # the reference indexes after every sort; usually a no-op here, since
+    # the columnar sort writes its .bai inline
+    index_bam(out_bam, skip_if_fresh=True)
+    if cleanup:
+        # the tag FASTQs are intermediates once the BAM exists; the barcode
+        # stats and distribution stay (they feed QC)
+        for path in (extract.r1_out, extract.r2_out):
+            if os.path.exists(path):
+                os.unlink(path)
+    print(f"fastq2bam: wrote {out_bam}")
+    return {"bam": out_bam, "extract": extract}
+
+
+def align_and_sort(bwa: str, ref: str, r1: str, r2: str, out_bam: str,
+                   host_workers: int = 1, level: int = 6) -> None:
+    """Run the aligner and sort its output into ``out_bam`` (with its BAI).
+
+    ``bwa == "builtin"`` runs ``stages/align.py`` in process, its per-chunk
+    compute forked over ``host_workers`` processes (byte-identical output).
+    Otherwise ``<bwa> mem <ref> <r1> <r2>`` runs as a subprocess and its
+    SAM stdout is parsed (``io/sam``) into the sorting writer; it ignores
+    ``host_workers`` (pass ``--bwa 'bwa -t N'``).  An aligner failure
+    (nonzero exit, garbled SAM) is retried with exponential backoff,
+    ``CCT_SUBPROC_RETRIES`` attempts (default 3) under the
+    ``subprocess.bwa`` fault site; each attempt is all-or-nothing (the
+    writer is aborted between attempts), so ``out_bam`` is only ever one
+    attempt's whole product.
+    """
+    if bwa == "builtin":
+        _align_builtin(ref, r1, r2, out_bam, host_workers=host_workers, level=level)
+        return
+    cmd = shlex.split(bwa) + ["mem", ref, r1, r2]
+    sort_budget = single_writer_sort_buffer_bytes()
+
+    def _attempt():
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+        except FileNotFoundError:
+            # not transient: no retry will install bwa
+            raise SystemExit(
+                f"aligner not found: {cmd[0]!r} — install bwa or point --bwa "
+                "at an executable that speaks `<bwa> mem <ref> <r1> <r2>` "
+                "and emits SAM"
+            )
+        writer = None
+        try:
+            header, records = sam_mod.read_sam(proc.stdout)
+            writer = SortingBamWriter(out_bam, header, level=level,
+                                      max_raw_bytes=sort_budget)
+            for read in records:
+                writer.write(read)
+        except Exception as exc:
+            # a truncated or garbled SAM stream usually means the aligner
+            # died mid-run: report its status, not the parse error
+            proc.kill()
+            status = proc.wait()
+            if writer is not None:
+                writer.abort()
+            raise _AlignerFailure(
+                f"aligner output unreadable ({exc}); aligner exit status {status}"
+            ) from exc
+        if proc.wait() != 0:
+            writer.abort()
+            raise _AlignerFailure(f"aligner exited with status {proc.returncode}")
+        writer.close()
+
+    attempts = int(os.environ.get("CCT_SUBPROC_RETRIES", "3"))
+    try:
+        retrying(_attempt, site="subprocess.bwa", attempts=attempts,
+                 retriable=(_AlignerFailure,), describe=f"aligner {cmd[0]!r}")
+    except (_AlignerFailure, FaultError) as exc:
+        raise SystemExit(str(exc)) from exc
+
+
+class _AlignerFailure(RuntimeError):
+    """External aligner attempt failed (retriable, unlike a missing binary)."""
+
+
+def _align_builtin(ref: str, r1: str, r2: str, out_bam: str,
+                   host_workers: int = 1, level: int = 6) -> None:
+    """``--bwa builtin``: the in-process k-mer aligner (``stages/align.py``,
+    substitutions only, no indels), columnar: batched seed and extend and a
+    vectorized record encode."""
+    aligner = BuiltinAligner(ref)
+    n_total, n_unmapped = align_fastqs_columnar(aligner, r1, r2, out_bam,
+                                                level=level, workers=host_workers)
+    # A high unaligned share is the fingerprint of reads the builtin
+    # aligner cannot place (indels, clipped ends): never let it pass quietly.
+    if n_total and n_unmapped / n_total > 0.10:
+        print(
+            f"WARNING: --bwa builtin left {n_unmapped}/{n_total} reads "
+            f"unaligned ({100 * n_unmapped / n_total:.0f}%). The builtin "
+            "aligner handles substitutions only — reads with indels or "
+            "clipped ends cannot align. For real sequencing data use a "
+            "gapped aligner: --bwa /path/to/bwa",
+            file=sys.stderr,
+            flush=True,
+        )
 
 
 def consensus(args) -> dict:
@@ -1358,6 +1514,37 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="consensuscruncher_tpu_torch",
                                 description="PyTorch/CUDA port of ConsensusCruncher")
     sub = p.add_subparsers(dest="command", required=True)
+    f = sub.add_parser("fastq2bam", help="extract UMIs and align FASTQ pairs")
+    f.add_argument("-c", "--config", default=None,
+                   help="config.ini whose [fastq2bam] section gives defaults (flags win)")
+    f.add_argument("--fastq1", "-f1")
+    f.add_argument("--fastq2", "-f2")
+    f.add_argument("--output", "-o")
+    f.add_argument("--name", "-n")
+    f.add_argument("--bwa", "-b", help="aligner executable (invoked as '<bwa> mem ref r1 r2'), "
+                                       "or 'builtin' for the in-process aligner")
+    f.add_argument("--ref", "-r", help="reference genome fasta (passed to the aligner)")
+    f.add_argument("--bpattern", "-p")
+    f.add_argument("--blist", "-l")
+    f.add_argument("--bdelim")
+    f.add_argument("--cleanup", help="remove intermediate tag FASTQs after alignment")
+    f.add_argument("--resume", help="skip stages whose manifest-recorded "
+                                    "outputs are intact")
+    f.add_argument("--compress_level", type=int, choices=range(0, 10),
+                   metavar="0-9",
+                   help="BGZF deflate level for outputs (default 6); tag "
+                        "FASTQs are written stored (level 0) under "
+                        "--cleanup since they are deleted after alignment")
+    f.add_argument("--host_workers", type=int, metavar="N",
+                   help="fan the builtin aligner's per-chunk compute over N "
+                        "forked worker processes (byte-identical output; 0 = "
+                        "all cores; ignored for an external --bwa — use its "
+                        "own -t)")
+    f.set_defaults(func=fastq2bam, config_section="fastq2bam",
+                   required_args=("fastq1", "fastq2", "output", "ref"),
+                   builtin_defaults={"bwa": "bwa", "bdelim": DEFAULT_BDELIM,
+                                     "cleanup": "False", "host_workers": 1,
+                                     "compress_level": 6, "resume": "False"})
     c = sub.add_parser("consensus", help="collapse UMI families into SSCS/DCS")
     c.add_argument("-c", "--config", default=None,
                    help="config.ini whose [consensus] section gives defaults "
@@ -1744,6 +1931,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if missing:
         parser.error("missing required arguments (flag or config.ini): "
                      + ", ".join("--" + m for m in missing))
+    if args.command == "fastq2bam":
+        args.cleanup, args.resume = _bool(args.cleanup), _bool(args.resume)
+        args.compress_level = int(args.compress_level)
+        args.host_workers = _host_workers(parser, args.host_workers)
+        return args
     if args.command != "consensus":
         if hasattr(args, "scorrect"):  # submit
             args.scorrect = _bool(args.scorrect)
@@ -1759,18 +1951,24 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.intermediate_level = int(args.intermediate_level)
     if args.devices is not None:
         args.devices = int(args.devices)
-    args.host_workers = int(args.host_workers)
-    if args.host_workers < 0:
-        parser.error(f"--host_workers must be >= 0, got {args.host_workers}")
-    if args.host_workers == 0:
-        # 0 = all cores: affinity-aware, since a cgroup- or taskset-limited
-        # host's cpu_count() reports the machine, not the schedulable set
+    args.host_workers = _host_workers(parser, args.host_workers)
+    return args
+
+
+def _host_workers(parser, value) -> int:
+    """``--host_workers`` typed; 0 means every core this process may run
+    on (affinity-aware, since a cgroup- or taskset-limited host's
+    cpu_count() reports the machine, not the schedulable set)."""
+    n = int(value)
+    if n < 0:
+        parser.error(f"--host_workers must be >= 0, got {n}")
+    if n == 0:
         try:
             cores = len(os.sched_getaffinity(0))
         except (AttributeError, OSError):
             cores = os.cpu_count() or 1
-        args.host_workers = max(1, cores)
-    return args
+        n = max(1, cores)
+    return n
 
 
 def main(argv=None, _sscs_handoff=None):

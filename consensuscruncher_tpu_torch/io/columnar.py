@@ -826,6 +826,15 @@ def _sort_buffer_bytes(divisor: int) -> int:
     return max(4 << 30, _mem_available_bytes() // divisor)
 
 
+def single_writer_sort_buffer_bytes() -> int:
+    """Sort budget for a stage that holds exactly ONE sorting writer (the
+    fastq2bam align leg): the multi-writer /8 headroom of
+    :func:`_default_sort_buffer_bytes` is over-conservative there.  /3
+    keeps the ~2x close() transient inside available RAM with margin.
+    """
+    return _sort_buffer_bytes(3)
+
+
 def _default_sort_buffer_bytes() -> int:
     """Per-writer in-memory sort budget: env override, else RAM-aware.
 

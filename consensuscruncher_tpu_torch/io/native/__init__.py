@@ -461,6 +461,35 @@ def fill_runs_native(dst: np.ndarray, starts: np.ndarray, lens: np.ndarray, valu
     )
 
 
+def equal_range_windowed(arr: np.ndarray, keys: np.ndarray,
+                         lo0: np.ndarray, hi0: np.ndarray,
+                         n_threads: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Per-key equal-range over sorted int64 ``arr``, each key searched only
+    within its ``[lo0, hi0)`` window (the aligner's prefix-table bounds).
+    Returns ``(lo, hi)`` int64 arrays.  Raises RuntimeError when the native
+    library is unavailable — callers keep their vectorized numpy fallback.
+    """
+    lib = _get()
+    if lib is None:
+        raise RuntimeError("native codec unavailable")
+    a = np.ascontiguousarray(arr, dtype=np.int64)
+    k = np.ascontiguousarray(keys, dtype=np.int64)
+    lo = np.ascontiguousarray(lo0, dtype=np.int64)
+    hi = np.ascontiguousarray(hi0, dtype=np.int64)
+    m = len(k)
+    out_lo = np.empty(m, np.int64)
+    out_hi = np.empty(m, np.int64)
+    if m:
+        if len(lo) != m or len(hi) != m:
+            raise ValueError("equal_range_windowed: window arrays mismatch keys")
+        if int(hi.max(initial=0)) > len(a) or int(lo.min(initial=0)) < 0:
+            raise ValueError("equal_range_windowed: window out of bounds")
+        lib.cct_equal_range_i64(
+            _i64_ptr(a), _i64_ptr(k), _i64_ptr(lo), _i64_ptr(hi), m,
+            _i64_ptr(out_lo), _i64_ptr(out_hi), int(n_threads))
+    return out_lo, out_hi
+
+
 def deflate_payload_sizes(data: bytes, level: int = 6,
                           n_threads: int = 0) -> tuple[bytes, list[int]]:
     """Compress ``data`` into complete framed BGZF blocks (no EOF marker);

@@ -486,3 +486,27 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
          "sscs_total": stats.get("sscs_total"), "recompiles": cumulative["recompiles"]},
         cumulative=cumulative)
     return DcsResult(paths["dcs"], paths["unpaired"], stats)
+
+
+def main(argv=None):
+    """Standalone entry (reference: each stage script runs independently).
+    The duplex votes run on the card unless ``--device cpu`` is given; the
+    reference's ``--backend`` reads as the device (``tpu`` is the card,
+    ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    import argparse
+
+    from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
+
+    p = argparse.ArgumentParser(description="Make duplex consensus sequences")
+    p.add_argument("--infile", required=True, help="sorted SSCS BAM")
+    p.add_argument("--outfile", required=True, help="output prefix")
+    p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
+                   help="the JAX package's flag, read as the device: tpu is the card")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the votes run (default cuda); wins over --backend")
+    args = p.parse_args(argv)
+    run_dcs(args.infile, args.outfile, entry_device(args.device, args.backend))
+
+
+if __name__ == "__main__":
+    main()

@@ -420,3 +420,28 @@ def decode_png(data: bytes) -> np.ndarray:
     if rows[:, 0].any():
         raise ValueError("PNG rows use a filter other than 0")
     return rows[:, 1:].reshape(h, w, 3)
+
+
+def main(argv=None):
+    """Standalone entry: the reference's plot files from a run's
+    ``read_families.txt``, stage ``*_stats.json`` and ``*.metrics.json``
+    (host only)."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="Generate stats plots")
+    p.add_argument("--families", help="read_families.txt path")
+    p.add_argument("--stats", nargs="*", default=[], help="stage *_stats.json paths")
+    p.add_argument("--metrics", nargs="*", default=[], help="stage *.metrics.json paths")
+    p.add_argument("--outdir", required=True)
+    args = p.parse_args(argv)
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.families:
+        plot_family_size(args.families, os.path.join(args.outdir, "family_size.png"))
+    if args.stats:
+        plot_read_recovery(args.stats, os.path.join(args.outdir, "read_recovery.png"))
+    if args.metrics:
+        plot_stage_times(args.metrics, os.path.join(args.outdir, "stage_times.png"))
+
+
+if __name__ == "__main__":
+    main()

@@ -619,3 +619,32 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
         cumulative=None if walk else cum.snapshot())
     return SingletonResult(paths["sscs_rescue"], paths["singleton_rescue"],
                            paths["remaining"], stats)
+
+
+def main(argv=None):
+    """Standalone entry (reference: each stage script runs independently).
+    The rescue's duplex votes run on the card unless ``--device cpu`` is
+    given; the reference's ``--backend`` reads as the device (``tpu`` is
+    the card, ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    import argparse
+
+    from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
+
+    p = argparse.ArgumentParser(description="Rescue singletons against the complementary strand")
+    p.add_argument("--singleton", required=True, help="sorted singleton BAM")
+    p.add_argument("--bamfile", required=True, help="sorted SSCS BAM")
+    p.add_argument("--outfile", required=True, help="output prefix")
+    p.add_argument("--max-mismatch", type=int, default=0,
+                   help="barcode Hamming tolerance (0 = exact complementary match)")
+    p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
+                   help="the JAX package's flag, read as the device: tpu is the card")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the votes run (default cuda); wins over --backend")
+    args = p.parse_args(argv)
+    device = entry_device(args.device, args.backend)
+    run_singleton_correction(args.singleton, args.bamfile, args.outfile, device,
+                             args.max_mismatch)
+
+
+if __name__ == "__main__":
+    main()

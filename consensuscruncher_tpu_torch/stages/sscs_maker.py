@@ -603,3 +603,37 @@ def run_sscs(
     paths = sink.paths
     return SscsResult(paths["sscs"], paths["singleton"], paths["bad"], stats, hist)
 
+
+def main(argv=None):
+    """Standalone entry (reference: each stage script runs independently).
+    The vote runs on the card unless ``--device cpu`` is given; the
+    reference's ``--backend`` reads as the device (``tpu`` is the card,
+    ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    import argparse
+
+    from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
+
+    p = argparse.ArgumentParser(description="Make single-strand consensus sequences")
+    p.add_argument("--infile", required=True, help="coordinate-sorted input BAM")
+    p.add_argument("--outfile", required=True, help="output prefix (files get suffixes)")
+    p.add_argument("--cutoff", type=float, default=0.7, help="consensus base fraction cutoff")
+    p.add_argument("--qualscore", type=int, default=0, help="Phred threshold; lower-quality bases vote N")
+    p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
+                   help="the JAX package's flag, read as the device: tpu is the card")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the votes run (default cuda); wins over --backend")
+    p.add_argument("--bdelim", default=tags_mod.DEFAULT_BDELIM, help="barcode delimiter in qnames")
+    args = p.parse_args(argv)
+    device = entry_device(args.device, args.backend)
+    run_sscs(
+        args.infile,
+        args.outfile,
+        device,
+        cutoff=args.cutoff,
+        qual_threshold=args.qualscore,
+        bdelim=args.bdelim,
+    )
+
+
+if __name__ == "__main__":
+    main()

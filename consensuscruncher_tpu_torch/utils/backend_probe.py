@@ -13,7 +13,9 @@ The port has no counterpart of the reference's ``jax_platform_for`` or
 process-wide platform to pin, and the silicon a stage ran on is the
 stage's device itself (:func:`record_backend` writes it under
 ``backend``, as every port stage does; ``jax_backend`` stays absent from
-the stats and null in the metrics sidecars).
+the stats and null in the metrics sidecars).  The JAX package's
+``backend`` values (a config key, a stage entry's ``--backend``) read as
+the port's device through :func:`device_of_backend`.
 """
 
 from __future__ import annotations
@@ -81,3 +83,39 @@ def ensure_backend(device, timeout_s: float | None = None):
     finally:
         done.set()
     return dev
+
+
+# The JAX package's ``backend`` values, read as the port's device.
+_BACKEND_DEVICE = {"tpu": "cuda", "xla_cpu": "cpu"}
+
+
+def device_of_backend(backend: str | None, flag: str | None = None) -> str | None:
+    """The port's device for a JAX ``backend`` value (None when unset):
+    ``tpu`` (the device kernels) is the card, ``xla_cpu`` (the same
+    kernels on the CPU) the CPU.  ``cpu`` and ``reference`` name the JAX
+    package's numpy twin and object path, which the port has not: they
+    exit, naming ``--device``.  ``flag`` names the option that gave the
+    value (a stage entry's ``--backend``); None means a config.ini key."""
+    if backend in (None, ""):
+        return None
+    if backend in _BACKEND_DEVICE:
+        return _BACKEND_DEVICE[backend]
+    where = f"{flag} " if flag else "config backend = "
+    if backend in ("cpu", "reference"):
+        advice = ("pass --device cpu to run its CPU path, or --device cuda for the card"
+                  if flag else
+                  "set device = cpu in [consensus] (or pass --device cpu) to run its CPU "
+                  "path, or device = cuda for the card")
+        raise SystemExit(f"{where}{backend}: this port has no numpy or object-path "
+                         f"backend; {advice}")
+    raise SystemExit(f"{where}{backend!r}: expected tpu, xla_cpu, cpu or reference "
+                     "(or set device = cuda|cpu)")
+
+
+def entry_device(device: str | None, backend: str | None):
+    """The device of a standalone stage entry (``python -m
+    consensuscruncher_tpu_torch.stages.<stage>``): ``--device`` wins;
+    else the reference's ``--backend`` (default ``tpu``) reads through
+    :func:`device_of_backend`.  Then :func:`ensure_backend`: the card, or
+    a ``SystemExit`` without one."""
+    return ensure_backend(device or device_of_backend(backend, flag="--backend"))

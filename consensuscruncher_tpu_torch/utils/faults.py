@@ -24,6 +24,10 @@ Kinds:
 
 Sites wired in the port (grep for ``fault_point``/``faults.hook``):
 
+  align.barrier        prestart-barrier warm-up failure -> serial fallback
+  align.barrier_worker worker-side prestart stall -> real barrier timeout
+  align.pool_worker    fork-pool worker death -> re-fork once, then serial
+  subprocess.bwa       external aligner failure -> bounded retry + backoff
   serve.accept         daemon connection accept/handling -> error reply
   serve.dispatch       scheduler gang dispatch -> jobs run solo
   serve.worker         per-job worker execution -> retry via --resume
@@ -46,8 +50,8 @@ Sites wired in the port (grep for ``fault_point``/``faults.hook``):
   route.view_publish   ring-view publish fails -> membership stays live
   route.fence          worker epoch admission -> stale router demoted
 
-The reference's aligner, BGZF, mesh, stage and streaming sites come with
-the port of their readers (the port's mesh never degrades, so it has no
+The reference's BGZF, mesh, stage and streaming sites come with the port
+of their readers (the port's mesh never degrades, so it has no
 ``mesh.unavailable``).  Stdlib-only and import-cheap.
 """
 

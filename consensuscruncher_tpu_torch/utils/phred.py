@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+SANGER_OFFSET = 33
 
 A, C, G, T, N = 0, 1, 2, 3, 4
 PAD = 5
@@ -40,6 +41,24 @@ def encode_seq(seq: str | bytes) -> np.ndarray:
 def decode_seq(codes: np.ndarray) -> str:
     """uint8 codes -> str sequence ('?' for PAD, which should never leak out)."""
     return _DECODE_LUT[np.asarray(codes, dtype=np.uint8)].tobytes().decode("ascii")
+
+
+def quals_to_array(quals) -> np.ndarray:
+    """List/iterable of Phred ints -> uint8 array."""
+    return np.asarray(quals, dtype=np.uint8)
+
+
+def qual_string_to_array(qual_str: str | bytes) -> np.ndarray:
+    """Sanger-encoded ASCII quality string -> Phred uint8 array."""
+    if isinstance(qual_str, str):
+        qual_str = qual_str.encode("ascii")
+    arr = np.frombuffer(qual_str, dtype=np.uint8)
+    return (arr - SANGER_OFFSET).astype(np.uint8)
+
+
+def array_to_qual_string(arr: np.ndarray) -> str:
+    """Phred uint8 array -> Sanger ASCII quality string."""
+    return (np.asarray(arr, dtype=np.uint8) + SANGER_OFFSET).tobytes().decode("ascii")
 
 
 def complement_codes(codes: np.ndarray) -> np.ndarray:

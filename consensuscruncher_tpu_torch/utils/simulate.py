@@ -3,11 +3,12 @@
 Port of ``consensuscruncher_tpu/utils/simulate.py``: ``SimConfig``, the
 per-read generator ``simulate_bam`` (with the degraded-read regime the
 vote policies are judged on) and the vectorized ``simulate_bam_fast``
-(benchmark scale; no degraded regime, as in the reference).  It
-fabricates duplex fragments the same way the wet lab does: a true
-molecule sequence, two strands, R1/R2 per strand, per-read sequencing
-errors, barcodes recorded in swapped order on opposite strands (see
-core/tags.py's physical model).  Numpy only, seeded by ``SimConfig.seed``:
+(benchmark scale; no degraded regime, as in the reference), and
+``simulate_fastq_pairs`` (raw FASTQ pairs and their FASTA reference for
+``fastq2bam``).  It fabricates duplex fragments the same way the wet lab
+does: a true molecule sequence, two strands, R1/R2 per strand, per-read
+sequencing errors, barcodes recorded in swapped order on opposite strands
+(see core/tags.py's physical model).  Numpy only, seeded by ``SimConfig.seed``:
 the same config writes the same BAM as the JAX package's generator.
 """
 
@@ -354,3 +355,130 @@ def simulate_bam_fast(
         writer.abort()
         raise
     return SimTruthFast(lo=lo, hi=hi, a_size=a_size, b_size=b_size)
+
+
+def simulate_fastq_pairs(out_prefix: str, cfg: SimConfig,
+                         chunk_members: int = 500_000,
+                         level: int = 4) -> tuple[str, str, str]:
+    """Vectorized raw paired-FASTQ generator for the fastq2bam flow
+    (SURVEY.md §3.1 at benchmark scale).  The rng draws come in the JAX
+    package's order, so one ``SimConfig`` gives the same FASTQ and FASTA
+    bytes from both packages.
+
+    Emits ``<prefix>_R1.fastq.gz`` / ``<prefix>_R2.fastq.gz`` (BGZF) plus
+    ``<prefix>.ref.fa``: every read is ``UMI + 'T' spacer + genomic
+    insert-end`` — the ``--bpattern NNNNNNT``-shaped inline-barcode layout
+    extract_barcodes exists to strip — with substitution errors at
+    ``cfg.error_rate`` on the genomic part only, so the builtin
+    (substitutions-only) aligner can place every read.  Family structure
+    (Poisson sizes, duplex dropout, swapped-half barcodes on strand B)
+    matches ``simulate_bam_fast``'s statistical model.
+
+    Pure numpy byte assembly: whole chunks of fixed-width FASTQ records are
+    built as one (n, rec_len) matrix and BGZF-deflated in batches.
+    """
+    from consensuscruncher_tpu_torch.io import bgzf
+
+    rng = np.random.default_rng(cfg.seed)
+    L, U = cfg.read_len, cfg.umi_len
+    Lg = L - U - 1  # genomic bases per read (after UMI + 'T' spacer)
+    if Lg < 30:
+        raise ValueError("read_len too short for UMI + spacer + useful insert")
+    nF = cfg.n_fragments
+    if cfg.ref_len < 1000 + 4 * L:
+        raise ValueError("ref_len too small for read placement")
+
+    base_lut = np.frombuffer(BASES.encode(), np.uint8)
+    ref_codes = rng.integers(0, 4, cfg.ref_len, dtype=np.int8).astype(np.uint8)
+    fasta_path = f"{out_prefix}.ref.fa"
+    # vectorized FASTA body (write_fasta's per-line loop is slow at scale)
+    with open(fasta_path, "wb") as fh:
+        fh.write(f">{cfg.ref_name}\n".encode())
+        width = 70
+        pad = (-len(ref_codes)) % width
+        mat = np.full(len(ref_codes) + pad, ord("A"), np.uint8)
+        mat[: len(ref_codes)] = base_lut[ref_codes]
+        mat = mat.reshape(-1, width)
+        out = np.full((mat.shape[0], width + 1), ord("\n"), np.uint8)
+        out[:, :width] = mat
+        body = out.reshape(-1)
+        if pad:
+            # drop the padding of the final line, keep its newline
+            body = np.concatenate([body[: -(pad + 1)], body[-1:]])
+        fh.write(body.tobytes())
+
+    # --- fragment/member tables (vectorized) -----------------------------
+    max_insert = 2 * Lg + Lg // 2  # hi = lo + insert must stay on the ref
+    if cfg.ref_len < max_insert + 1000:
+        raise ValueError("ref_len too small for the insert-size jitter")
+    lo = rng.integers(500, cfg.ref_len - max_insert - 500, nF, dtype=np.int64)
+    insert = 2 * Lg + rng.integers(0, Lg // 2, nF, dtype=np.int64)
+    hi = lo + insert  # exclusive end
+    umi_a = rng.integers(0, 4, (nF, U), dtype=np.int8).astype(np.uint8)
+    umi_b = rng.integers(0, 4, (nF, U), dtype=np.int8).astype(np.uint8)
+    a_size = np.maximum(1, rng.poisson(cfg.mean_family_size, nF)).astype(np.int32)
+    duplex = rng.random(nF) < cfg.duplex_fraction
+    b_size = np.where(duplex, np.maximum(1, rng.poisson(cfg.mean_family_size, nF)),
+                      0).astype(np.int32)
+    counts = (a_size + b_size).astype(np.int64)
+    M = int(counts.sum())
+    frag_of = np.repeat(np.arange(nF, dtype=np.int64), counts)
+    starts = np.zeros(nF, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    strand_b = (np.arange(M, dtype=np.int64) - starts[frag_of]) >= a_size[frag_of]
+
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    qname_w = 2 + 9 + 1 + 1  # '@f' + 9-digit member serial + ':' + strand
+    r1_path, r2_path = f"{out_prefix}_R1.fastq.gz", f"{out_prefix}_R2.fastq.gz"
+    w1 = bgzf.BgzfWriter(r1_path, level=level)
+    w2 = bgzf.BgzfWriter(r2_path, level=level)
+    try:
+        for c0 in range(0, M, chunk_members):
+            c1 = min(M, c0 + chunk_members)
+            n = c1 - c0
+            fr = frag_of[c0:c1]
+            sb = strand_b[c0:c1]
+            # genomic inserts: R1 end = fragment start (fwd), R2 end =
+            # fragment end (revcomp); strand B swaps the physical ends.
+            fwd = ref_codes[lo[fr, None] + np.arange(Lg, dtype=np.int64)]
+            rev = comp[ref_codes[(hi[fr, None] - 1) - np.arange(Lg, dtype=np.int64)]]
+            g1 = np.where(sb[:, None], rev, fwd)
+            g2 = np.where(sb[:, None], fwd, rev)
+            # substitution errors on genomic parts (delta 1..3 mod 4)
+            for g in (g1, g2):
+                err = rng.random((n, Lg)) < cfg.error_rate
+                delta = rng.integers(1, 4, (n, Lg), dtype=np.int8).astype(np.uint8)
+                g[err] = (g[err] + delta[err]) & 3
+            u1 = np.where(sb[:, None], umi_b[fr], umi_a[fr])
+            u2 = np.where(sb[:, None], umi_a[fr], umi_b[fr])
+
+            # fixed-width records: @f<serial>:<A|B>\n SEQ\n +\n QUAL\n
+            serial = np.arange(c0, c1, dtype=np.int64)
+            qn = np.full((n, qname_w), ord("0"), np.uint8)
+            qn[:, 0] = ord("@")
+            qn[:, 1] = ord("f")
+            digits = serial[:, None] // 10 ** np.arange(8, -1, -1, dtype=np.int64) % 10
+            qn[:, 2:11] = (ord("0") + digits).astype(np.uint8)
+            qn[:, 11] = ord(":")
+            qn[:, 12] = np.where(sb, ord("B"), ord("A")).astype(np.uint8)
+            rec_len = qname_w + 1 + L + 1 + 2 + L + 1
+            for w, u, g in ((w1, u1, g1), (w2, u2, g2)):
+                rec = np.empty((n, rec_len), np.uint8)
+                rec[:, :qname_w] = qn
+                col = qname_w
+                rec[:, col] = ord("\n"); col += 1
+                rec[:, col:col + U] = base_lut[u]
+                rec[:, col + U] = ord("T")
+                rec[:, col + U + 1:col + L] = base_lut[g]
+                col += L
+                rec[:, col] = ord("\n"); col += 1
+                rec[:, col] = ord("+"); col += 1
+                rec[:, col] = ord("\n"); col += 1
+                rec[:, col:col + L] = 33 + 35  # Q35 flat
+                col += L
+                rec[:, col] = ord("\n")
+                w.write(rec.reshape(-1).tobytes())
+    finally:
+        w1.close()
+        w2.close()
+    return r1_path, r2_path, fasta_path

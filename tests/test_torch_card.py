@@ -645,3 +645,51 @@ def test_routed_jobs_and_a_cache_hit_on_card(card, tmp_path):
     for rel in bams:
         with open(one / rel, "rb") as a, open(two / rel, "rb") as b:
             assert a.read() == b.read(), rel
+
+
+def _tree_records(base):
+    bams = sorted(os.path.relpath(os.path.join(r, f), base)
+                  for r, _d, files in os.walk(base) for f in files if f.endswith(".bam"))
+    return {rel: _records(os.path.join(base, rel)) for rel in bams}
+
+
+def test_fastq_to_dcs_on_card_matches_cpu(card, tmp_path):
+    """``simulate_fastq_pairs`` -> ``fastq2bam --bwa builtin --host_workers
+    2`` (host only) -> ``consensus`` on the card: every BAM record by
+    record equal to the ``--device cpu`` run's, through the object walks
+    (the aligner writes ``NM`` on every read), with B1 launched."""
+    from consensuscruncher_tpu_torch.utils.simulate import SimConfig, simulate_fastq_pairs
+
+    r1, r2, fa = simulate_fastq_pairs(str(tmp_path / "sim"), SimConfig(
+        n_fragments=400, ref_len=40 * 400 + 4000, seed=43))
+    res = cli_main(["fastq2bam", "-f1", r1, "-f2", r2, "-o", str(tmp_path / "f"), "-n", "s",
+                    "-r", fa, "--bwa", "builtin", "--bpattern", "NNNNNNT",
+                    "--host_workers", "2"])
+    trees = {}
+    for device in ("cuda", "cpu"):
+        before = consensus_vote.launches
+        cli_main(["consensus", "-i", res["bam"], "-o", str(tmp_path / device), "-n", "s",
+                  "--scorrect", "True", "--device", device])
+        if device == "cuda":
+            assert consensus_vote.launches > before
+        trees[device] = _tree_records(str(tmp_path / device / "s"))
+    assert len(trees["cuda"]) == 11 and trees["cuda"] == trees["cpu"]
+
+
+def test_sscs_entry_on_card_matches_cpu(card, tmp_path):
+    """``sscs_maker.main --device cuda`` on ``sample.bam`` (B1 launched)
+    writes the ``--device cpu`` entry's records and stats less backend."""
+    from consensuscruncher_tpu_torch.stages import sscs_maker
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for device in ("cuda", "cpu"):
+        os.makedirs(tmp_path / device)
+        before = consensus_vote.launches
+        sscs_maker.main(["--infile", os.path.join(repo, "test", "data", "sample.bam"),
+                         "--outfile", str(tmp_path / device / "x"), "--device", device])
+        assert (consensus_vote.launches > before) == (device == "cuda")
+    assert _tree_records(str(tmp_path / "cuda")) == _tree_records(str(tmp_path / "cpu"))
+    for name in ("x.sscs_stats.txt", "x.read_families.txt"):
+        got, want = ((tmp_path / d / name).read_text().splitlines() for d in ("cuda", "cpu"))
+        assert [ln for ln in got if "backend" not in ln] == \
+            [ln for ln in want if "backend" not in ln]

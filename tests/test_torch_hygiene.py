@@ -25,7 +25,11 @@
   workers and a ``submit`` through it) imports none of it either, and a
   router parent spawning on the card (faked here) builds the kernel
   library once into the fleet's build directory, hands that directory to
-  every worker and opens no CUDA context.
+  every worker and opens no CUDA context;
+- ``fastq2bam --bwa builtin --host_workers 2`` and each standalone stage
+  entry (``python -m ...stages.<stage>``) import none of it either, and
+  ``fastq2bam`` (on a host with, as the test pretends, a card) forks its
+  align pool without ever opening a CUDA context.
 """
 
 import json
@@ -610,3 +614,92 @@ def test_card_router_builds_once_and_opens_no_context(tmp_path, monkeypatch):
         assert argv[argv.index("--compile_cache") + 1] == str(workdir / "build")
         assert argv[argv.index("--device") + 1] == "cuda"
     assert not torch.cuda.is_initialized()
+
+
+def _spy_run(tmp_path, argv) -> list:
+    """Run ``python -m <argv>`` with the ``sitecustomize`` spy; returns
+    each Python process's record."""
+    spy, dumps = tmp_path / "spy", tmp_path / "dumps"
+    spy.mkdir(exist_ok=True)
+    dumps.mkdir(exist_ok=True)
+    (spy / "sitecustomize.py").write_text(_SPY)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(spy), CCT_SPY_DIR=str(dumps))
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "falling back to serial" not in proc.stderr
+    return [json.loads(p.read_text()) for p in dumps.iterdir()]
+
+
+@pytest.mark.parametrize("entry", ["fastq2bam", "extract_barcodes", "sscs_maker",
+                                   "singleton_correction", "dcs_maker", "generate_plots"])
+def test_fastq2bam_and_stage_entries_import_no_jax(tmp_path, entry):
+    from consensuscruncher_tpu_torch.stages import sscs_maker
+    from consensuscruncher_tpu_torch.utils.simulate import SimConfig, simulate_fastq_pairs
+
+    sample = os.path.join(REPO, "test", "data", "sample.bam")
+    pkg = "consensuscruncher_tpu_torch"
+    out = tmp_path / "out"
+    out.mkdir()
+    if entry in ("fastq2bam", "extract_barcodes"):
+        r1, r2, fa = simulate_fastq_pairs(str(tmp_path / "sim"), SimConfig(
+            n_fragments=80, ref_len=60_000, seed=3))
+        argv = ([f"{pkg}.cli", "fastq2bam", "-f1", r1, "-f2", r2, "-o", str(out), "-n", "s",
+                 "-r", fa, "--bwa", "builtin", "--bpattern", "NNNNNNT", "--host_workers", "2"]
+                if entry == "fastq2bam" else
+                [f"{pkg}.stages.extract_barcodes", "--read1", r1, "--read2", r2,
+                 "--outfile", str(out / "s"), "--bpattern", "NNNNNNT"])
+        want = out / ("bamfiles/s.sorted.bam.bai" if entry == "fastq2bam" else "s_r2.fastq.gz")
+    elif entry == "sscs_maker":
+        argv = [f"{pkg}.stages.sscs_maker", "--infile", sample, "--outfile", str(out / "x"),
+                "--device", "cpu"]
+        want = out / "x.sscs.sorted.bam"
+    elif entry == "generate_plots":
+        sscs_maker.run_sscs(sample, str(tmp_path / "x"), torch.device("cpu"))
+        argv = [f"{pkg}.stages.generate_plots", "--families", str(tmp_path / "x.read_families.txt"),
+                "--stats", str(tmp_path / "x.sscs_stats.json"), "--outdir", str(out)]
+        want = out / "read_recovery.png"
+    else:
+        sscs_maker.run_sscs(sample, str(tmp_path / "x"), torch.device("cpu"))
+        sscs = str(tmp_path / "x.sscs.sorted.bam")
+        argv = ([f"{pkg}.stages.dcs_maker", "--infile", sscs] if entry == "dcs_maker" else
+                [f"{pkg}.stages.singleton_correction", "--bamfile", sscs,
+                 "--singleton", str(tmp_path / "x.singleton.sorted.bam"), "--max-mismatch", "1"])
+        argv += ["--outfile", str(out / "y"), "--device", "cpu"]
+        want = out / ("y.dcs.sorted.bam" if entry == "dcs_maker" else "y.sscs.rescue.sorted.bam")
+    runs = _spy_run(tmp_path, argv)
+    assert len(runs) == 1 and runs[0]["bad"] == []
+    assert want.exists()
+
+
+def test_fastq2bam_forks_its_pool_and_opens_no_context(tmp_path, monkeypatch, capfd):
+    """``fastq2bam --host_workers 2`` on a host with (as this test
+    pretends) two cards: the align pool forks (no serial fallback), and
+    nothing asks torch for a CUDA context (on this CPU-only torch any such
+    call raises; ``_lazy_init`` is also made to record itself)."""
+    from consensuscruncher_tpu_torch import cli as torch_cli
+    from consensuscruncher_tpu_torch.stages import align
+    from consensuscruncher_tpu_torch.utils.simulate import SimConfig, simulate_fastq_pairs
+
+    r1, r2, fa = simulate_fastq_pairs(str(tmp_path / "sim"), SimConfig(
+        n_fragments=150, ref_len=80_000, seed=4))
+    inits, pools = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "_lazy_init", lambda: inits.append(1))
+    start_pool = align._start_pool
+
+    def spy_pool(*args):
+        pool = start_pool(*args)
+        pools.append(pool)
+        return pool
+
+    monkeypatch.setattr(align, "_start_pool", spy_pool)
+    res = torch_cli.main(["fastq2bam", "-f1", r1, "-f2", r2, "-o", str(tmp_path / "o"),
+                          "-n", "s", "-r", fa, "--bwa", "builtin", "--bpattern", "NNNNNNT",
+                          "--host_workers", "2"])
+    assert os.path.exists(res["bam"] + ".bai")
+    assert len(pools) == 1 and pools[0] is not None
+    assert "falling back to serial" not in capfd.readouterr().err
+    assert inits == [] and not torch.cuda.is_initialized()
