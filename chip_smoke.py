@@ -150,7 +150,17 @@ failure; no phase's failure is caught.  Phases:
     its one-shot run (records, stats less backend lines, manifest stages,
     ``qc.json`` less its plane when ganged); each job's node and the
     router's overhead on it, each worker's B1 launches, the gangs' B1
-    dense launches (one per batch) and the ``cct_fleet_*`` lines; (ii) two
+    dense launches (one per batch) and the ``cct_fleet_*`` lines; the
+    router and its workers also run the sampling profiler and the history
+    recorder (``CCT_PROF=1``, ``CCT_HISTORY_DIR``), and while the fleet is
+    up one reader process (no CUDA context) runs ``trace fleet`` (a lane
+    per process, the workers' ``device.dispatch`` spans, one
+    ``serve.critpath`` event per job), ``critpath report|job`` (each job's
+    segments summing to its wall), ``prof report|flame`` (per-node wall
+    attribution; the flame's samples the merge's), ``history query|trend``
+    (every node's lines; the router's ``jobs_routed``) and ``top --once``
+    (a row per worker); after the router stops, ``trace export`` of its
+    shard directory holds at least the workers' spans; (ii) two
     ``serve`` daemons started by hand behind ``route --members ...
     --journals ...``: the ring owner of phase 7's degraded job kills itself
     with the job dispatched (``serve.worker=kill:SIGKILL``), the router
@@ -179,8 +189,10 @@ failure; no phase's failure is caught.  Phases:
     True`` on that BAM on the card and with ``--device cpu``: the aligner
     writes ``NM`` on every read, so rescue and DCS take the window walks;
     the trees equal (records with tags, stats less backend lines, the
-    manifest's stages, ``qc.json``), the card run's step walls and B1
-    launches beside phase 6's tagged wall per fragment; (iv) the
+    manifest's stages, ``qc.json``; ``qc report`` of each and ``qc diff``
+    between them: every rate delta zero, ``spectrum_tv`` 0.0), the card
+    run's step walls and B1 launches beside phase 6's tagged wall per
+    fragment; (iv) the
     standalone stage entries on ``sample.bam`` (``sscs_maker``, then
     ``singleton_correction``, then ``dcs_maker`` on the SSCS BAM, then
     ``generate_plots``), each on the card in a process of its own, against
@@ -190,9 +202,11 @@ failure; no phase's failure is caught.  Phases:
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
-The line before the ``kernels`` line is the ``policies`` JSON; the line
-before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The ``policies`` JSON comes next, then the ``fleet_obs`` JSON (the obs
+readers' exit codes and seconds, phase 12 (i)'s critical-path p50/p99 per
+segment, each node's profiler wall attribution, phase 13 (iii)'s ``qc
+diff``, the smoke's seconds); the line before the last is the ``kernels``
+JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2912,19 +2926,20 @@ FLEET_WAIT_S = 300
 class _Router(_Proc):
     """``python -m consensuscruncher_tpu_torch.cli route`` in a process of
     its own, as a user starts it; the workers it spawns inherit its
-    environment (tracing on).  :meth:`start` returns once its socket
-    answers with ``n_members`` members up; :meth:`stop` drains the workers
-    it spawned."""
+    environment (tracing on, and ``env_extra``).  :meth:`start` returns
+    once its socket answers with ``n_members`` members up; :meth:`stop`
+    drains the workers it spawned."""
 
     what = "route"
 
-    def __init__(self, work: str, tag: str, dev, argv, n_members: int):
+    def __init__(self, work: str, tag: str, dev, argv, n_members: int, env_extra=None):
         self.sock = os.path.join(work, f"{tag}.sock")
         self.log = os.path.join(work, f"{tag}.log")
         self.argv = list(argv) + (["--device", "cpu"] if dev.type == "cpu" else [])
         self.n_members = n_members
-        self.env = dict(os.environ, CCT_TRACE="1",
-                        CCT_TRACE_DIR=os.path.join(work, f"{tag}_trace"))
+        self.trace_dir = os.path.join(work, f"{tag}_trace")
+        self.env = dict(os.environ, CCT_TRACE="1", CCT_TRACE_DIR=self.trace_dir,
+                        **(env_extra or {}))
         self.proc = None
 
     def start(self) -> float:
@@ -2982,6 +2997,179 @@ def _canary_status(client, want: str) -> dict:
         time.sleep(0.2)
 
 
+# the observability readers in a process of their own: each argv of the
+# JSON list through the port's cli.main in turn, its exit code, seconds and
+# stdout, and whether torch opened a CUDA context by the end
+_READERS = """
+import contextlib, io, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from consensuscruncher_tpu_torch import cli
+rows = []
+for argv in json.loads(sys.argv[2]):
+    out, code, t = io.StringIO(), 0, time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(argv)
+        except SystemExit as exc:
+            code = exc.code
+    rows.append({"code": code, "seconds": time.perf_counter() - t, "out": out.getvalue()})
+print(json.dumps({"rows": rows, "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def _obs_readers(argvs: list) -> dict:
+    """``argvs`` run by one reader process; every command must exit 0 and
+    the process must end with no CUDA context."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CCT_TRACE", "CCT_PROF", "CCT_HISTORY"))}
+    proc = subprocess.run([sys.executable, "-c", _READERS, REPO, json.dumps(argvs)],
+                          capture_output=True, text=True, timeout=300, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the obs readers failed:\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [(argv[:2], row["code"]) for argv, row in zip(argvs, res["rows"]) if row["code"]]
+    if bad or res["cuda_initialized"]:
+        raise AssertionError(f"obs readers: exits {bad}, CUDA context "
+                             f"{res['cuda_initialized']}\n{proc.stderr[-4000:]}")
+    return res
+
+
+def _in_process(argv: list) -> str:
+    """One CLI command run in this process; its stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(argv)
+    return out.getvalue()
+
+
+def _fleet_obs(router, dirs: dict, keys: list, obj_key: str, fdir: str) -> dict:
+    """(i)'s live fleet read by the six commands' readers in one process of
+    their own: the merged Chrome trace (a lane per process, the workers'
+    ``device.dispatch`` spans, one ``serve.critpath`` event per job), each
+    job's critical path (segments non-negative, summing to its wall), the
+    per-node prof attribution and flame, the history lines of every node
+    and the router's ``jobs_routed``, and a ``top`` frame with a row per
+    worker.  ``keys``: (i)'s job keys, blockers included."""
+    wire = ["--socket", router.sock]
+    files = {k: os.path.join(fdir, f"obs_{k}") for k in ("trace", "critpath", "prof", "flame")}
+    commands = {
+        "trace_fleet": ["trace", "fleet", *wire, "--dir", dirs["trace"], "--out", files["trace"]],
+        "critpath_report": ["critpath", "report", *wire, "--dir", dirs["trace"],
+                            "--json", files["critpath"]],
+        "critpath_job": ["critpath", "job", obj_key, *wire, "--dir", dirs["trace"]],
+        "prof_report": ["prof", "report", *wire, "--dir", dirs["prof"], "--json", files["prof"]],
+        "prof_flame": ["prof", "flame", *wire, "--dir", dirs["prof"], "--out", files["flame"]],
+        "history_query": ["history", "query", *wire, "--dir", dirs["history"]],
+        "history_routed": ["history", "query", *wire, "--dir", dirs["history"],
+                           "--metric", "jobs_routed"],
+        "history_trend": ["history", "trend", *wire, "--dir", dirs["history"],
+                          "--metric", "jobs_routed"],
+        "history_batches": ["history", "trend", *wire, "--dir", dirs["history"],
+                            "--metric", "batches_dispatched"],
+        "top": ["top", "--once", "True", *wire],
+    }
+    t = time.perf_counter()
+    res = _obs_readers(list(commands.values()))
+    out = dict(zip(commands, (row["out"] for row in res["rows"])))
+    row: dict = {"commands": {name: {"code": r["code"], "seconds": r["seconds"]}
+                              for name, r in zip(commands, res["rows"])},
+                 "readers_process_s": time.perf_counter() - t,
+                 "cuda_initialized": res["cuda_initialized"]}
+    nodes = {"r0", *FLEET_MEMBERS}
+
+    with open(files["trace"]) as fh:
+        doc = json.load(fh)
+    lanes = {ev["pid"]: ev["args"]["name"] for ev in doc["traceEvents"]
+             if ev.get("ph") == "M" and ev.get("name") == "process_name"}
+    events = [ev for ev in doc["traceEvents"] if ev.get("ph") != "M"]
+    dispatch = {lanes.get(ev.get("pid")) for ev in events if ev["name"] == "device.dispatch"}
+    per_key = {k: 0 for k in keys}
+    for ev in events:
+        if ev["name"] == "serve.critpath" and (ev.get("args") or {}).get("key") in per_key:
+            per_key[ev["args"]["key"]] += 1
+    worker_spans = sum(1 for ev in events if lanes.get(ev.get("pid")) in FLEET_MEMBERS)
+    # the card's busy time as the workers saw it: their device.dispatch spans
+    dispatch_ms = {w: sum(ev.get("dur", 0) for ev in events if ev["name"] == "device.dispatch"
+                          and lanes.get(ev.get("pid")) == w) / 1e3 for w in FLEET_MEMBERS}
+    if not nodes <= set(lanes.values()) or not dispatch & set(FLEET_MEMBERS) \
+            or set(per_key.values()) != {1}:
+        raise AssertionError(f"trace fleet: lanes {sorted(lanes.values())}, device.dispatch "
+                             f"on {dispatch}, serve.critpath per job {per_key}")
+    row["trace"] = {"events": len(doc["traceEvents"]), "lanes": sorted(lanes.values()),
+                    "worker_spans": worker_spans, "device_dispatch_ms": dispatch_ms,
+                    "device_dispatch_spans": sum(1 for ev in events
+                                                 if ev["name"] == "device.dispatch")}
+
+    with open(files["critpath"]) as fh:
+        crit = json.load(fh)
+    jobs = {j["key"]: j for j in crit["jobs"]}
+    for key in keys:
+        job = jobs.get(key)
+        segs = (job or {}).get("segments") or []
+        if job is None or any(sg["ms"] < 0 for sg in segs) \
+                or abs(sum(sg["ms"] for sg in segs) - job["wall_ms"]) > 1.0:
+            raise AssertionError(f"critpath: job {key}: {job}")
+    if not out["critpath_job"].startswith("job ") or f"key={obj_key}" not in out["critpath_job"]:
+        raise AssertionError(f"critpath job {obj_key}: {out['critpath_job']!r}")
+    row["critpath"] = {
+        "jobs": len(keys), "coverage_min": crit["fleet"]["coverage_min"],
+        "dominant_queue_antagonist": crit["fleet"]["dominant_queue_antagonist"],
+        "segments": {name: {k: seg[k] for k in ("p50_ms", "p99_ms", "total_ms", "share")}
+                     for name, seg in crit["fleet"]["segments"].items()},
+        "obj_chain": out["critpath_job"].splitlines()}
+
+    with open(files["prof"]) as fh:
+        attribution = json.load(fh)
+    with open(files["flame"]) as fh:
+        flame = sum(int(ln.rsplit(" ", 1)[1]) for ln in fh if ln.strip())
+    said = int(out["prof_flame"].split("(")[1].split()[0])
+    if not nodes <= set(attribution["nodes"]) or flame != said \
+            or not all(n in out["prof_report"] for n in nodes):
+        raise AssertionError(f"prof: nodes {sorted(attribution['nodes'])}, flame {flame} "
+                             f"samples against {said}")
+    row["prof"] = {"flame_samples": flame, "nodes": {
+        n: {k: attribution["nodes"][n][k] for k in ("shares", "buckets_ms", "wall_ms", "jobs")}
+        for n in sorted(nodes)}, "fleet": attribution["fleet"]}
+
+    lines = [json.loads(ln) for ln in out["history_query"].splitlines()]
+    routed = sum(ln["cum"].get("jobs_routed", 0)
+                 for ln in map(json.loads, out["history_routed"].splitlines())
+                 if ln["node"] == "r0")
+    trend_nodes = {ln.split()[1] for ln in out["history_batches"].splitlines()[2:]}
+    if not nodes <= {ln.get("node") for ln in lines} or routed < len(keys) \
+            or "jobs_routed" not in out["history_trend"] \
+            or not set(FLEET_MEMBERS) <= trend_nodes:
+        raise AssertionError(f"history: nodes {sorted({ln.get('node') for ln in lines})}, "
+                             f"jobs_routed {routed} of {len(keys)}, batches on {trend_nodes}")
+    row["history"] = {"lines": len(lines), "router_jobs_routed": routed,
+                      "trend": out["history_trend"].splitlines()[0]}
+
+    frame = out["top"].splitlines()
+    if not all(any(ln.startswith(w + " ") for ln in frame) for w in FLEET_MEMBERS):
+        raise AssertionError(f"top: {out['top']}")
+    row["top_frame"] = frame
+    return row
+
+
+def _qc_readers(card_tree: str, cpu_tree: str, work: str) -> dict:
+    """``qc report`` over each tree and ``qc diff`` between them: equal
+    trees, so every rate delta is zero and the spectrum distance 0.0."""
+    diff_doc = os.path.join(work, "qc_diff.json")
+    t = time.perf_counter()
+    reports = [_in_process(["qc", "report", tree]) for tree in (card_tree, cpu_tree)]
+    diff = _in_process(["qc", "diff", card_tree, cpu_tree, "--json", diff_doc])
+    seconds = time.perf_counter() - t
+    with open(diff_doc) as fh:
+        doc = json.load(fh)
+    deltas = [ln.split()[-1] for ln in diff.splitlines()[1:-1]]
+    if doc["spectrum_tv"] != 0.0 or doc["a"]["rates"] != doc["b"]["rates"] \
+            or any(d not in ("+0.00pp", "-") for d in deltas):
+        raise AssertionError(f"qc diff of the card and CPU trees:\n{diff}")
+    return {"seconds": seconds, "spectrum_tv": doc["spectrum_tv"], "deltas": deltas,
+            "report_lines": [len(r.splitlines()) for r in reports]}
+
+
 def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
     """(i) ``route --spawn 2 --ring_view V --result_cache P`` (the kernel
     library shared through ``--compile_cache``) serves the four 600-fragment
@@ -3020,10 +3208,16 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
 
     view, plane = os.path.join(fdir, "ring.view"), os.path.join(fdir, "plane")
     fleet_work = os.path.join(fdir, "fw")
+    # (i)'s router and the workers it spawns also sample their stacks and
+    # record their history, for the obs readers
+    obs_dirs = {"prof": os.path.join(fdir, "prof"), "history": os.path.join(fdir, "history")}
     router = _Router(fdir, "route", dev, [
         "--spawn", str(len(FLEET_MEMBERS)), "--workdir", fleet_work, "--ring_view", view,
         "--result_cache", plane, "--compile_cache", cuda_lib.BUILD_DIR,
-        "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP], len(FLEET_MEMBERS))
+        "--gang_size", str(SERVE_GANG), "--warmup_shapes", SERVE_WARMUP], len(FLEET_MEMBERS),
+        env_extra={"CCT_PROF": "1", "CCT_PROF_DIR": obs_dirs["prof"],
+                   "CCT_HISTORY_DIR": obs_dirs["history"], "CCT_HISTORY_INTERVAL_S": "1"})
+    obs_dirs["trace"] = router.trace_dir
     socks = {n: os.path.join(fleet_work, f"{n}.sock") for n in FLEET_MEMBERS}
     warm = None
     try:
@@ -3044,6 +3238,7 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
             _serve_spec(inp, out_i, n) for n, (inp, _one) in jobs.items()])
         wall = time.perf_counter() - t
         after = _worker_launches(socks)
+        keys = [sub["key"] for sub in subs]
         subs, done = subs[len(blockers):], done[len(blockers):]
         cell = {"first_submit_to_last_result_s": wall, "jobs": {}}
         for (n, (_inp, base_one)), sub, (job, latency) in zip(jobs.items(), subs, done):
@@ -3080,6 +3275,8 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
             raise AssertionError(f"a spawned worker built the library: {cell}")
         row["route"] = cell
         emit("fleet_route", card=card, **cell)
+        row["obs"] = _fleet_obs(router, obs_dirs, keys, subs[0]["key"], fdir)
+        emit("fleet_obs_live", card=card, **row["obs"])
 
         # (iii) the same question from another tenant: the router answers
         # it from the cache plane, and no worker launches
@@ -3148,6 +3345,16 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
                                               and e["args"].get("ok")]}
         warm.stop()
         router.stop()
+        # every process of (i) has flushed its shards: the export holds at
+        # least the workers' spans the live merge saw
+        t = time.perf_counter()
+        said = _in_process(["trace", "export", "--dir", obs_dirs["trace"],
+                            "--out", os.path.join(fdir, "obs_export.json")])
+        exported = int(said.split("exported ")[1].split()[0])
+        if exported < row["obs"]["trace"]["worker_spans"]:
+            raise AssertionError(f"trace export: {exported} events, fewer than the "
+                                 f"{row['obs']['trace']['worker_spans']} worker spans merged live")
+        row["obs"]["export"] = {"events": exported, "seconds": time.perf_counter() - t}
     finally:
         if warm is not None:
             warm.kill()
@@ -3376,7 +3583,8 @@ def phase_fastq(dev, work: str, tagged: dict, card: str) -> dict:
         raise AssertionError("consensus on the fastq2bam BAM never launched B1")
     held = _served_tree(os.path.join(work, "fq_card", "s"), os.path.join(work, "fq_cpu", "s"),
                         "s", ganged=False)
-    row = {"card": card, "fragments": FASTQ_PARITY_FRAGMENTS, "simulate_s": sim_s,
+    qc = _qc_readers(os.path.join(work, "fq_card", "s"), os.path.join(work, "fq_cpu", "s"), work)
+    row = {"card": card, "fragments": FASTQ_PARITY_FRAGMENTS, "simulate_s": sim_s, "qc": qc,
            "fastq2bam": {f"host_workers_{r['host_workers']}": r for r in rows},
            "files_equal": len(files), **held, "card_run": trees["card"],
            "cpu_run": trees["cpu"],
@@ -3450,7 +3658,8 @@ def phase_fastq(dev, work: str, tagged: dict, card: str) -> dict:
     emit("fastq_stage_entries", card=card, bams_equal=held, goldens=len(goldens), **entries)
     seconds = time.perf_counter() - t0
     emit("fastq_flow", card=card, seconds=seconds)
-    return {"seconds": seconds, "fastq2bam": big, "consensus": row, "entries": entries}
+    return {"seconds": seconds, "fastq2bam": big, "consensus": row, "entries": entries,
+            "qc": qc}
 
 
 def main() -> None:
@@ -3514,10 +3723,11 @@ def main() -> None:
         emit("serve", seconds=serve["seconds"])
         fleet = phase_fleet(dev, work, serve["one_shot"], rates["card"])
         emit("fleet", seconds=fleet["seconds"])
-        phase_fastq(dev, work, tagged, rates["card"])
+        fastq = phase_fastq(dev, work, tagged, rates["card"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit("smoke", seconds=time.perf_counter() - started)
+    smoke_s = time.perf_counter() - started
+    emit("smoke", seconds=smoke_s)
 
     shapes["stage_loop"] = stage
     kernels = [
@@ -3549,6 +3759,18 @@ def main() -> None:
     ]
     print(json.dumps(policies_line(policies, policy_scale, policy_runs, scale,
                                    rates["card"])), flush=True)
+    obs = fleet["obs"]
+    print(json.dumps({"fleet_obs": {
+        "card": rates["card"], "smoke_s": smoke_s,
+        "commands": obs["commands"], "readers_cuda_initialized": obs["cuda_initialized"],
+        "critpath": {name: {k: seg[k] for k in ("p50_ms", "p99_ms")}
+                     for name, seg in obs["critpath"]["segments"].items()},
+        "critpath_jobs": obs["critpath"]["jobs"],
+        "dominant_queue_antagonist": obs["critpath"]["dominant_queue_antagonist"],
+        "prof": {node: {"shares": a["shares"], "wall_ms": a["wall_ms"], "jobs": a["jobs"]}
+                 for node, a in obs["prof"]["nodes"].items()},
+        "trace": obs["trace"], "export": obs["export"],
+        "history": obs["history"], "qc_diff": fastq["qc"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

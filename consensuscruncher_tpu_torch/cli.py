@@ -67,6 +67,27 @@ over, steals, fences and adopts; it opens no CUDA context, and a spawned
 fleet (``--spawn N``) builds the kernel library once, in the parent, into
 the build directory every worker shares.  ``cache scrub`` re-hashes every
 committed cache entry and quarantines the corrupt ones (exit 1).
+
+    python -m consensuscruncher_tpu_torch.cli trace export|fleet [--dir D] [--out F] \
+        [--socket S | --host H --port P]
+    python -m consensuscruncher_tpu_torch.cli critpath report|job [KEY] [--dir D] \
+        [--json F|-] [--socket S | --host H --port P]
+    python -m consensuscruncher_tpu_torch.cli prof report|flame [--dir D] [--out F] \
+        [--json F] [--top N] [--socket S | --host H --port P]
+    python -m consensuscruncher_tpu_torch.cli history query|trend [--dir D] \
+        [--metric M] [--node N] [--last N] [--socket S | --host H --port P]
+    python -m consensuscruncher_tpu_torch.cli qc report|diff PATH... [--json F]
+    python -m consensuscruncher_tpu_torch.cli top [--once True] \
+        [--socket S | --host H --port P] [--interval_s 2.0]
+
+The observability readers, the JAX package's commands flag for flag: they
+read what a fleet writes (``CCT_TRACE``, ``CCT_PROF``, ``CCT_HISTORY_DIR``
+and the Prometheus exposition) over the router's or a daemon's wire ops,
+and merge the shards on disk under ``--dir`` (when the wire cannot be
+reached they warn and read the shards alone).  ``qc`` reads ``qc.json``
+docs.  They are host code: none takes ``--device`` or opens a CUDA
+context.  ``consensus --backend tpu|xla_cpu`` is the JAX package's flag
+read as the device (``cuda``, ``cpu``); ``--device`` wins.
 """
 
 from __future__ import annotations
@@ -74,6 +95,7 @@ from __future__ import annotations
 import argparse
 import configparser
 import copy
+import glob
 import json
 import os
 import shlex
@@ -1507,6 +1529,260 @@ def cache_cmd(args) -> None:
     raise SystemExit(1 if report["corrupt"] else 0)
 
 
+def _fleet_replies(args, op: str, label: str, verb: str = "merging") -> list:
+    """The ``op`` wire op's per-process docs, pulled fleet-wide through the
+    router (or a lone daemon) at ``--socket`` or ``--host``/``--port``.  If
+    the wire cannot be reached: a warning, and none (the shards on disk
+    remain)."""
+    from consensuscruncher_tpu_torch.serve.client import ServeClient
+
+    address = args.socket or (args.host, int(args.port))
+    try:
+        reply = ServeClient(address).request({"op": op, "fleet": True}, timeout=60.0)[op]
+    except Exception as e:
+        print(f"WARNING: {label}: wire collection failed ({e}); {verb} on-disk shards only",
+              file=sys.stderr, flush=True)
+        return []
+    if isinstance(reply, dict):  # a lone daemon answered directly
+        return [reply]
+    return reply or []
+
+
+def _trace_shards(args) -> list:
+    """The event list of each ``trace-*.ndjson`` shard under ``--dir`` (else
+    ``$CCT_TRACE_DIR``)."""
+    from consensuscruncher_tpu_torch.obs import trace as obs_trace
+
+    trace_dir = args.trace_dir or os.environ.get("CCT_TRACE_DIR")
+    if not (trace_dir and os.path.isdir(trace_dir)):
+        return []
+    return [obs_trace._read_shard(shard)
+            for shard in sorted(glob.glob(os.path.join(trace_dir, "trace-*.ndjson")))]
+
+
+def trace_cmd(args) -> None:
+    """``trace export``: merge the per-process ``trace-*.ndjson`` shards a
+    CCT_TRACE=1 run left under --dir into one Chrome-trace JSON (open it in
+    Perfetto / chrome://tracing).
+
+    ``trace fleet``: pull every live process's span buffer through the
+    router's ``trace`` wire op (router + each up member), union it with
+    any on-disk shards under --dir (dead processes' flushed spans), and
+    merge the lot into ONE Chrome-trace timeline — per-node process
+    lanes, ``follows_from`` flow arrows across the kill/steal/adoption
+    hops."""
+    from consensuscruncher_tpu_torch.obs import trace as obs_trace
+
+    if args.action == "export":
+        trace_dir = args.trace_dir or os.environ.get("CCT_TRACE_DIR")
+        if not trace_dir:
+            raise SystemExit(
+                "trace export: no trace directory — pass --dir or set "
+                "CCT_TRACE_DIR to where the traced run wrote its shards")
+        n = obs_trace.export_chrome_trace(trace_dir, args.out)
+        print(f"trace: exported {n} events from {trace_dir} -> {args.out}")
+        return
+    groups: list[list[dict]] = []
+    for buf in _fleet_replies(args, "trace", "trace fleet"):
+        events = (buf or {}).get("events") or []
+        node = (buf or {}).get("node")
+        if node:
+            for ev in events:
+                ev.setdefault("node", node)
+        groups.append(events)
+    groups += _trace_shards(args)
+    if not any(groups):
+        raise SystemExit(
+            "trace fleet: nothing collected — is the router up "
+            "(--socket/--host/--port) or --dir pointing at a "
+            "CCT_TRACE_DIR with shards?")
+    n = obs_trace.merge_fleet_trace(groups, args.out)
+    print(f"trace: merged {n} fleet events ({len(groups)} buffer(s)) -> {args.out}")
+
+
+def top_cmd(args) -> None:
+    """``top``: live terminal observatory over a router (or lone
+    daemon) — per-node queue depth, QoS latency percentiles and burn
+    rates, steal/resubmit/adoption/fence counters, router epoch."""
+    from consensuscruncher_tpu_torch.obs import top as obs_top
+
+    address = args.socket or (args.host, int(args.port))
+    raise SystemExit(obs_top.run_top(address, interval_s=float(args.interval_s),
+                                     once=_bool(args.once)))
+
+
+def _qc_docs_from_paths(paths) -> list:
+    """Resolve ``qc`` path operands into ``(label, doc)`` pairs.
+    A file operand is a qc.json; a directory is scanned recursively for
+    ``qc.json`` docs (a run tree, a fleet output root, a host-shard
+    ``.ranges`` tree)."""
+    out = []
+    for p in paths:
+        if os.path.isdir(p):
+            found = sorted(glob.glob(os.path.join(p, "**", "qc.json"), recursive=True))
+            if not found:
+                print(f"WARNING: qc: no qc.json under {p}", file=sys.stderr, flush=True)
+            for f in found:
+                doc = obs_qc.read_qc(f)
+                out.append((doc.get("run") or os.path.basename(os.path.dirname(f)) or f, doc))
+        elif os.path.exists(p):
+            doc = obs_qc.read_qc(p)
+            out.append((doc.get("run") or p, doc))
+        else:
+            print(f"WARNING: qc: {p} does not exist; skipped", file=sys.stderr, flush=True)
+    return out
+
+
+def qc_cmd(args) -> None:
+    """``qc report``: per-run consensus-quality tables (+ a merged ALL
+    row and family-size spectrum) over one or many qc.json docs — run
+    trees, fleet shards, host-shard ranges.  ``qc diff``: rate deltas
+    and spectrum drift between two runs (each side may itself be a
+    directory of shards, merged first)."""
+    if args.action == "report":
+        docs = _qc_docs_from_paths(args.paths)
+        if not docs:
+            raise SystemExit("qc report: no qc.json docs found")
+        print(obs_qc.render_report(docs))
+        if args.json:
+            obs_qc.write_qc(args.json, obs_qc.merge_docs([d for _l, d in docs]))
+        return
+    # diff: exactly two sides, each merged from whatever it resolves to
+    if len(args.paths) != 2:
+        raise SystemExit("qc diff: need exactly two paths (run dirs or qc.json files)")
+    sides = []
+    for p in args.paths:
+        docs = _qc_docs_from_paths([p])
+        if not docs:
+            raise SystemExit(f"qc diff: no qc.json docs under {p}")
+        sides.append(obs_qc.merge_docs([d for _l, d in docs]))
+    label_a = sides[0].get("run") or "A"
+    label_b = sides[1].get("run") or "B"
+    print(obs_qc.render_diff(sides[0], sides[1], label_a=label_a[:12], label_b=label_b[:12]))
+    if args.json:
+        obs_qc.write_qc(args.json, {
+            "a": sides[0], "b": sides[1],
+            "spectrum_tv": obs_qc.spectrum_distance(sides[0].get("spectrum") or {},
+                                                    sides[1].get("spectrum") or {})})
+
+
+def prof_cmd(args) -> None:
+    """``prof report``: merge every live process's profile (router's
+    ``prof`` wire op, fleet-wide) with any on-disk ``prof-*.ndjson``
+    shards under --dir (dead processes' flushed samples) into per-node
+    hottest-function tables and the wall-attribution report splitting
+    each node's wall into {queue, routing, host compute, device
+    dispatch, deflate, io}.
+
+    ``prof flame``: same merge, written as standard collapsed-stack
+    lines (``frame;frame count``) for any flamegraph renderer."""
+    from consensuscruncher_tpu_torch.obs import prof as obs_prof
+
+    docs = [d for d in _fleet_replies(args, "prof", "prof") if isinstance(d, dict)]
+    prof_dir = args.prof_dir or os.environ.get("CCT_PROF_DIR")
+    if prof_dir and os.path.isdir(prof_dir):
+        for shard in sorted(glob.glob(os.path.join(prof_dir, "prof-*.ndjson"))):
+            docs.append({"lines": obs_prof.read_shard(shard)})
+    merged = obs_prof.merge_profiles(docs)
+    if not merged["samples"] and not merged["by_node"]:
+        raise SystemExit(
+            "prof: nothing collected — is the router up "
+            "(--socket/--host/--port) or --dir pointing at a "
+            "CCT_PROF_DIR with prof-*.ndjson shards?")
+    if args.action == "flame":
+        out = args.out or "prof.collapsed"
+        with open(out, "w", encoding="utf-8") as fh:
+            fh.write("\n".join(obs_prof.collapsed_lines(merged["samples"])) + "\n")
+        print(f"prof: wrote {len(merged['samples'])} collapsed stacks "
+              f"({sum(merged['samples'].values())} samples) -> {out}")
+        return
+    sys.stdout.write(obs_prof.render_report(merged, top_n=int(args.top)))
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as fh:
+            json.dump(obs_prof.attribution_doc(merged), fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        print(f"prof: attribution -> {args.json}")
+
+
+def critpath_cmd(args) -> None:
+    """``critpath report``: decompose every finished job's wall into its
+    ordered causal segment chain (admit -> journal-ack -> queue ->
+    gang-form -> handoff -> run) from the fleet's ``serve.critpath``
+    trace events — live buffers through the router's ``trace`` wire op,
+    unioned with on-disk ``trace-*.ndjson`` shards — and render the
+    fleet-level "where does p99 queue time actually go" table plus the
+    queue-antagonist attribution (which lock / dispatcher-busy window /
+    admission idle made jobs wait).
+
+    ``critpath job KEY``: one job's chain (key or numeric id)."""
+    from consensuscruncher_tpu_torch.obs import critpath as obs_critpath
+
+    events: list[dict] = []
+    for buf in _fleet_replies(args, "trace", "critpath", verb="reading"):
+        node = (buf or {}).get("node")
+        for ev in (buf or {}).get("events") or []:
+            if node and isinstance(ev, dict):
+                ev.setdefault("node", node)
+            events.append(ev)
+    for shard in _trace_shards(args):
+        events.extend(shard)
+    doc = obs_critpath.report_doc(events)
+    if not doc["jobs"]:
+        raise SystemExit(
+            "critpath: no serve.critpath events collected — is the "
+            "fleet up with CCT_TRACE=1 (or --dir pointing at its "
+            "CCT_TRACE_DIR shards)?")
+    if args.action == "job":
+        key = str(args.key or "")
+        if not key:
+            raise SystemExit("critpath job: pass the job KEY (or id)")
+        hits = [j for j in doc["jobs"] if str(j.get("key")) == key or str(j.get("job_id")) == key]
+        if not hits:
+            raise SystemExit(f"critpath: no finished job with key/id {key!r}")
+        for job in hits:
+            sys.stdout.write(obs_critpath.render_job(job))
+        return
+    if args.json:
+        payload = obs_critpath.to_json(doc)
+        if args.json == "-":
+            sys.stdout.write(payload)
+            return
+        with open(args.json, "w", encoding="utf-8") as fh:
+            fh.write(payload)
+        print(f"critpath: report doc -> {args.json}")
+    sys.stdout.write(obs_critpath.render_report(doc))
+
+
+def history_cmd(args) -> None:
+    """``history query``: merged durable telemetry-history lines (live
+    processes through the router's ``history`` wire op, unioned with
+    on-disk ``history-*.ndjson`` shards, deduped by (pid, seq)) printed
+    as NDJSON, optionally filtered by --metric/--node/--last.
+
+    ``history trend``: per-interval delta + rate table for one metric."""
+    from consensuscruncher_tpu_torch.obs import history as obs_history
+
+    docs = [d for d in _fleet_replies(args, "history", "history") if isinstance(d, dict)]
+    hist_dir = args.history_dir or os.environ.get("CCT_HISTORY_DIR")
+    if hist_dir and os.path.isdir(hist_dir):
+        docs.append({"lines": obs_history.read_dir(hist_dir)})
+    lines = obs_history.merge_history(docs)
+    if not lines:
+        raise SystemExit(
+            "history: nothing collected — is the fleet up with "
+            "CCT_HISTORY_DIR set (or --dir pointing at its "
+            "history-*.ndjson shards)?")
+    metric = args.metric or None
+    if args.action == "trend":
+        if not metric:
+            raise SystemExit("history trend: pass --metric NAME")
+        sys.stdout.write(obs_history.render_trend(obs_history.trend(lines, metric), metric))
+        return
+    last = int(args.last) if args.last not in (None, "") else None
+    for ln in obs_history.query(lines, metric=metric, node=args.node or None, last=last):
+        sys.stdout.write(json.dumps(ln, sort_keys=True) + "\n")
+
+
 def build_parser() -> argparse.ArgumentParser:
     # Every value-bearing flag defaults to None so the precedence is the
     # JAX package's: CLI flag > config.ini value > built-in default
@@ -1604,8 +1880,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "BAMs, reproducing the staged output tree (default False)")
     c.add_argument("--device", choices=("cuda", "cpu"),
                    help="where the votes run (default cuda; cpu runs the "
-                        "kernels' plain PyTorch versions). A config.ini "
-                        "'backend' key reads as tpu -> cuda, xla_cpu -> cpu")
+                        "kernels' plain PyTorch versions); wins over --backend "
+                        "and a config.ini 'backend' key")
+    c.add_argument("--backend", choices=("cpu", "tpu", "xla_cpu", "reference"),
+                   help="the JAX package's flag, read as the device: tpu -> cuda, "
+                        "xla_cpu -> cpu; cpu and reference (its numpy twin and "
+                        "object path) exit naming --device")
     c.add_argument("--wire", choices=("stream", "dense"), default="stream",
                    help="SSCS vote layout: 'stream' (packed member stream, the "
                         "default) or 'dense' (padded (B, F, L) family batches). "
@@ -1855,6 +2135,137 @@ def build_parser() -> argparse.ArgumentParser:
                        "result_cache": "", "cache_journal": "",
                    })
 
+    t = sub.add_parser(
+        "trace", help="work with CCT_TRACE observability traces")
+    t.add_argument("action", choices=("export", "fleet"),
+                   help="export: merge trace-*.ndjson shards into one "
+                        "Chrome-trace JSON for Perfetto/chrome://tracing; "
+                        "fleet: pull live span buffers through the "
+                        "router's trace op, union with --dir shards, and "
+                        "merge into one cross-node timeline")
+    t.add_argument("-c", "--config", default=None)
+    t.add_argument("--dir", dest="trace_dir",
+                   help="trace shard directory (default $CCT_TRACE_DIR)")
+    t.add_argument("--out", help="output path (default trace.json)")
+    t.add_argument("--socket", help="router/daemon unix socket (fleet)")
+    t.add_argument("--host", help="router TCP host (default 127.0.0.1)")
+    t.add_argument("--port", type=int, help="router TCP port (default 7733)")
+    t.set_defaults(func=trace_cmd, config_section="obs", required_args=(),
+                   builtin_defaults={"trace_dir": "", "out": "trace.json",
+                                     "socket": "", "host": "127.0.0.1",
+                                     "port": 7733})
+
+    pr = sub.add_parser(
+        "prof", help="work with CCT_PROF sampling-profiler data")
+    pr.add_argument("action", choices=("report", "flame"),
+                    help="report: per-node hottest-function tables + the "
+                         "wall-attribution report (queue/routing/host/"
+                         "device/deflate/io); flame: export merged "
+                         "collapsed-stack lines for a flamegraph "
+                         "renderer")
+    pr.add_argument("-c", "--config", default=None)
+    pr.add_argument("--dir", dest="prof_dir",
+                    help="profile shard directory (default $CCT_PROF_DIR)")
+    pr.add_argument("--out", help="flame output path "
+                                  "(default prof.collapsed)")
+    pr.add_argument("--json", help="also write the attribution doc as "
+                                   "JSON to this path (report only)")
+    pr.add_argument("--top", type=int, help="rows per node in the "
+                                            "report tables (default 15)")
+    pr.add_argument("--socket", help="router/daemon unix socket (fleet)")
+    pr.add_argument("--host", help="router TCP host (default 127.0.0.1)")
+    pr.add_argument("--port", type=int, help="router TCP port "
+                                             "(default 7733)")
+    pr.set_defaults(func=prof_cmd, config_section="obs", required_args=(),
+                    builtin_defaults={"prof_dir": "", "out": "",
+                                      "json": "", "top": 15,
+                                      "socket": "", "host": "127.0.0.1",
+                                      "port": 7733})
+
+    cp = sub.add_parser(
+        "critpath", help="per-job dispatch critical-path decomposition")
+    cp.add_argument("action", choices=("report", "job"),
+                    help="report: fleet-level segment table (where p99 "
+                         "queue time goes) + queue-antagonist "
+                         "attribution; job: one job's ordered causal "
+                         "segment chain by KEY/id")
+    cp.add_argument("key", nargs="?",
+                    help="job key or numeric id (job action)")
+    cp.add_argument("-c", "--config", default=None)
+    cp.add_argument("--dir", dest="trace_dir",
+                    help="trace shard directory (default $CCT_TRACE_DIR)")
+    cp.add_argument("--json",
+                    help="write the full report doc as JSON here "
+                         "('-' prints to stdout instead of the table)")
+    cp.add_argument("--socket", help="router/daemon unix socket")
+    cp.add_argument("--host", help="router TCP host (default 127.0.0.1)")
+    cp.add_argument("--port", type=int,
+                    help="router TCP port (default 7733)")
+    cp.set_defaults(func=critpath_cmd, config_section="obs",
+                    required_args=(),
+                    builtin_defaults={"key": "", "trace_dir": "",
+                                      "json": "", "socket": "",
+                                      "host": "127.0.0.1", "port": 7733})
+
+    hp = sub.add_parser(
+        "history", help="query durable telemetry-history shards")
+    hp.add_argument("action", choices=("query", "trend"),
+                    help="query: merged history lines as NDJSON "
+                         "(--metric/--node/--last filters); trend: "
+                         "per-interval delta + rate table for one "
+                         "metric")
+    hp.add_argument("-c", "--config", default=None)
+    hp.add_argument("--dir", dest="history_dir",
+                    help="history shard directory "
+                         "(default $CCT_HISTORY_DIR)")
+    hp.add_argument("--metric",
+                    help="counter/gauge name to project (required for "
+                         "trend)")
+    hp.add_argument("--node", help="filter to one node's lines (query)")
+    hp.add_argument("--last", type=int,
+                    help="keep only the most recent N lines (query)")
+    hp.add_argument("--socket", help="router/daemon unix socket")
+    hp.add_argument("--host", help="router TCP host (default 127.0.0.1)")
+    hp.add_argument("--port", type=int,
+                    help="router TCP port (default 7733)")
+    hp.set_defaults(func=history_cmd, config_section="obs",
+                    required_args=(),
+                    builtin_defaults={"history_dir": "", "metric": "",
+                                      "node": "", "last": "",
+                                      "socket": "", "host": "127.0.0.1",
+                                      "port": 7733})
+
+    qp = sub.add_parser(
+        "qc", help="consensus-quality reports over per-run qc.json docs")
+    qp.add_argument("action", choices=("report", "diff"),
+                    help="report: per-run quality tables + merged spectrum "
+                         "over every doc found; diff: rate deltas and "
+                         "spectrum drift (total-variation) between two "
+                         "runs/shard sets")
+    qp.add_argument("paths", nargs="+",
+                    help="qc.json files or directories scanned recursively "
+                         "(run trees, fleet output roots)")
+    qp.add_argument("-c", "--config", default=None)
+    qp.add_argument("--json", help="also write the merged doc (report) / "
+                                   "the A-B comparison doc (diff) here")
+    qp.set_defaults(func=qc_cmd, config_section="qc", required_args=(),
+                    builtin_defaults={"json": ""})
+
+    w = sub.add_parser(
+        "top", help="live terminal observatory over a router or daemon")
+    w.add_argument("-c", "--config", default=None)
+    w.add_argument("--socket", help="router/daemon unix socket path")
+    w.add_argument("--host", help="router TCP host (default 127.0.0.1)")
+    w.add_argument("--port", type=int, help="router TCP port (default 7733)")
+    w.add_argument("--interval_s", type=float,
+                   help="poll interval in seconds (default 2.0)")
+    w.add_argument("--once", help="render one frame and exit (no tty "
+                                  "needed; for scripts and tests)")
+    w.set_defaults(func=top_cmd, config_section="serve", required_args=(),
+                   builtin_defaults={"socket": "", "host": "127.0.0.1",
+                                     "port": 7733, "interval_s": 2.0,
+                                     "once": "False"})
+
     ca = sub.add_parser("cache", help="operate on the fleet result-cache plane")
     ca.add_argument("action", choices=("scrub",),
                     help="scrub: offline integrity sweep — re-hash every committed "
@@ -1911,10 +2322,10 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """The command's arguments resolved as the JAX package's ``main``
     resolves them: a flag, else the config.ini value, else the built-in
-    default; then typed.  A config ``backend`` key reads as the device
-    (:func:`device_of_backend`) where neither ``--device`` nor a ``device``
-    key is given.  ``--host_workers 0`` means every core this process may
-    run on."""
+    default; then typed.  A ``--backend`` flag, else a config ``backend``
+    key, reads as the device (:func:`device_of_backend`) where neither
+    ``--device`` nor a ``device`` key is given.  ``--host_workers 0`` means
+    every core this process may run on."""
     parser = build_parser()
     args = parser.parse_args(argv)
     config_values = _config_defaults(args.config, args.config_section)
@@ -1922,8 +2333,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         if hasattr(args, key) and getattr(args, key) is None:
             setattr(args, key, value)
     if hasattr(args, "device") and args.device is None:
-        args.device = device_of_backend(getattr(args, "backend", None)
-                                        or config_values.get("backend"))
+        if getattr(args, "backend", None):
+            args.device = device_of_backend(args.backend, flag="--backend")
+        else:
+            args.device = device_of_backend(config_values.get("backend"))
     for key, value in args.builtin_defaults.items():
         if getattr(args, key) is None:
             setattr(args, key, value)

@@ -194,9 +194,9 @@ def sync_probe(site: str, device=None) -> None:
 
 # --------------------------------------------------------- interleave hooks
 #
-# A deterministic model checker (the reference's ``utils/interleave.py``,
-# not ported yet) drives real threads through one-at-a-time cooperative
-# scheduling.  Its yield points
+# The deterministic model checker (``utils/interleave.py``, run over the
+# serve plane by ``utils/model_check.py``) drives real threads through
+# one-at-a-time cooperative scheduling.  Its yield points
 # are exactly the operations this module already wraps: TrackedLock /
 # TrackedCondition acquire+release, ``sync_probe`` sites, and explicit
 # ``yield_point`` calls on the serve plane's protocol boundaries.  The

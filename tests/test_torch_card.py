@@ -693,3 +693,48 @@ def test_sscs_entry_on_card_matches_cpu(card, tmp_path):
         got, want = ((tmp_path / d / name).read_text().splitlines() for d in ("cuda", "cpu"))
         assert [ln for ln in got if "backend" not in ln] == \
             [ln for ln in want if "backend" not in ln]
+
+
+def test_critpath_job_and_top_over_a_card_daemon(card, tmp_path, capsys):
+    """A ``serve`` daemon on the card (its own process, ``CCT_TRACE=1``)
+    serves ``sample.bam``; ``critpath job <key>`` read over its socket
+    prints the job's chain (segments summing to its wall), and ``top
+    --once`` renders a frame of its exposition."""
+    import subprocess
+    import sys
+    import time
+
+    from consensuscruncher_tpu_torch.obs import critpath
+    from consensuscruncher_tpu_torch.serve.client import ServeClient
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sock = str(tmp_path / "d.sock")
+    env = dict(os.environ, CCT_TRACE="1", CCT_TRACE_DIR=str(tmp_path / "traces"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", "serve", "--socket", sock,
+         "--journal", str(tmp_path / "j.wal")], cwd=repo, env=env)
+    try:
+        deadline = time.monotonic() + 600
+        while not os.path.exists(sock):
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        client = ServeClient(sock)
+        sub = client.submit_full({"input": os.path.join(repo, "test", "data", "sample.bam"),
+                                  "output": str(tmp_path / "out"), "name": "golden"})
+        job = client.result(key=sub["key"], timeout=600)
+        assert job["state"] == "done"
+        assert client.metrics()["kernel_launches"]["vote"] > 0
+        capsys.readouterr()
+        cli_main(["critpath", "job", sub["key"], "--socket", sock])
+        chain = capsys.readouterr().out
+        assert chain.startswith(f"job {sub['job_id']} key={sub['key']} state=done")
+        events = client.request({"op": "trace"})["trace"]["events"]
+        (doc,) = critpath.from_events(events)
+        assert abs(sum(s["ms"] for s in doc["segments"]) - doc["wall_ms"]) <= 1.0
+        with pytest.raises(SystemExit) as exc:
+            cli_main(["top", "--once", "True", "--socket", sock])
+        assert exc.value.code == 0
+        assert capsys.readouterr().out.startswith(f"cct top — unix:{sock}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=120)

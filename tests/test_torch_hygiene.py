@@ -435,15 +435,17 @@ for name in names:
     importlib.import_module(name)
 print(json.dumps({"modules": names,
                   "bad": sorted(m for m in sys.modules
-                                if m in ("jax", "jaxlib", "consensuscruncher_tpu")
-                                or m.startswith(("jax.", "jaxlib.", "consensuscruncher_tpu.")))}))
+                                if m in ("jax", "jaxlib", "consensuscruncher_tpu", "tools")
+                                or m.startswith(("jax.", "jaxlib.", "consensuscruncher_tpu.",
+                                                 "tools.")))}))
 """
 
 
 def test_every_module_imports_no_jax():
-    """Every module of the port — the serve daemon, the obs core, the
-    sanitizers, the card probe of this slice included — imports, in a
-    fresh interpreter, without JAX or the JAX package."""
+    """Every module of the port — the serve daemon, the obs core and its
+    readers, the sanitizers, the model checker, the card probe included —
+    imports, in a fresh interpreter, without JAX, the JAX package or the
+    reference's ``tools``."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _ALL_MODULES], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -454,7 +456,8 @@ def test_every_module_imports_no_jax():
                  "serve.supervisor", "serve.warmup", "serve.wire", "serve.router",
                  "serve.result_cache", "serve.canary", "obs.trace", "obs.flight",
                  "obs.slo", "obs.history", "obs.prof", "utils.sanitize",
-                 "utils.backend_probe", "utils.netchaos", "utils.faults"):
+                 "utils.backend_probe", "utils.netchaos", "utils.faults", "obs.critpath",
+                 "obs.top", "utils.interleave", "utils.model_check"):
         assert f"consensuscruncher_tpu_torch.{name}" in doc["modules"]
 
 
