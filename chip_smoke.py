@@ -198,7 +198,21 @@ failure; no phase's failure is caught.  Phases:
     ``generate_plots``), each on the card in a process of its own, against
     the same entry with ``--device cpu``: every BAM record by record, the
     stats less backend lines, the SSCS and rescue outputs the
-    ``consensus`` goldens.
+    ``consensus`` goldens;
+14. the library's member-stream entries and the host backends: (i)
+    ``consensus_families_stream`` (ragged families of a
+    ``LIBRARY_FRAGMENTS``-fragment sample at phase 5's widths) and
+    ``consensus_blocks_stream`` (that sample's family blocks) on the card,
+    each batch one B1 launch (counted from 0 per entry), family by family
+    equal to the ``device="cpu"`` run, the card's wall beside the plain
+    version's; (ii) ``consensus --backend reference`` and ``--backend
+    cpu`` on ``sample.bam``, ``sample_adversarial.bam`` and a
+    ``HOST_FRAGMENTS``-fragment sample, in a process of its own that opens
+    no CUDA context and builds no kernel: every tree equal to the card's
+    ``--device cuda`` run of the same input (records, stats less backend
+    lines), each wall beside the card run's; (iii)
+    ``IndexedBamReader.fetch`` on the card run's SSCS BAM of (ii)'s sample
+    over seeded random regions, equal to a linear scan.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -266,13 +280,17 @@ from consensuscruncher_tpu_torch.serve.canary import (  # noqa: E402
 from consensuscruncher_tpu_torch.serve.client import ServeClient  # noqa: E402
 from consensuscruncher_tpu_torch.serve.journal import idempotency_key, replay  # noqa: E402
 from consensuscruncher_tpu_torch.serve.router import HashRing  # noqa: E402
-from consensuscruncher_tpu_torch.io.bam import BamWriter  # noqa: E402
+from consensuscruncher_tpu_torch.io.bai import IndexedBamReader  # noqa: E402
+from consensuscruncher_tpu_torch.io.bam import BamReader, BamWriter  # noqa: E402
 from consensuscruncher_tpu_torch.io.columnar import ColumnarReader  # noqa: E402
 from consensuscruncher_tpu_torch.stages import dcs_maker, singleton_correction  # noqa: E402
 from consensuscruncher_tpu_torch.stages.extract_barcodes import run_extract  # noqa: E402
 from consensuscruncher_tpu_torch.utils.ragged import scatter_runs  # noqa: E402
 from consensuscruncher_tpu_torch.stages.generate_plots import decode_png  # noqa: E402
-from consensuscruncher_tpu_torch.stages.grouping import stream_family_blocks  # noqa: E402
+from consensuscruncher_tpu_torch.stages.grouping import (  # noqa: E402
+    stream_families_columnar,
+    stream_family_blocks,
+)
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches, text_digest  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
 from consensuscruncher_tpu_torch.utils.profiling import trace_summary  # noqa: E402
@@ -3662,6 +3680,150 @@ def phase_fastq(dev, work: str, tagged: dict, card: str) -> dict:
             "qc": qc}
 
 
+LIBRARY_FRAGMENTS = 20_000  # (i): phase 5's widths, its fragments cut for time
+HOST_FRAGMENTS = 2_000  # (ii): the object path votes each position in Python
+HOST_BACKENDS = ("reference", "cpu")
+# The host backends in a process of their own: no CUDA context may open and
+# no kernel may build there.
+_HOST_RUNS = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from consensuscruncher_tpu_torch.cli import main
+from consensuscruncher_tpu_torch.ops import cuda_lib
+
+def refuse(*_a, **_k):
+    raise AssertionError("a host backend built a kernel")
+
+cuda_lib.build = refuse
+walls = []
+for argv in json.loads(sys.argv[2]):
+    t = time.perf_counter()
+    main(argv)
+    walls.append(time.perf_counter() - t)
+print(json.dumps({"walls_s": walls, "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def _library_families(bam: str) -> tuple[list, list]:
+    """The ragged ``(key, seqs, quals)`` families of size >= 2 of ``bam``
+    (the dense wire's per-family events) and its family blocks'
+    ``(block, fam_idx, keys)`` items (the stream wire's)."""
+    fams, items = [], []
+    with ColumnarReader(bam) as reader:
+        for kind, tag, members in stream_families_columnar(reader, reader.header, "|"):
+            if kind == "family" and len(members) > 1:
+                fams.append((len(fams), [m.codes for m in members],
+                             [m.qual if m.qual.size else np.zeros(m.seq_len, np.uint8)
+                              for m in members]))
+    with ColumnarReader(bam) as reader:
+        for n, (kind, block, _b) in enumerate(
+                stream_family_blocks(reader, reader.header, "|")):
+            if kind != "bad":
+                multi = np.nonzero(block.sizes >= 2)[0]
+                if len(multi):
+                    items.append((block, multi, [(n, int(j)) for j in multi]))
+    return fams, items
+
+
+def _stream_entry(entry, source: list, dev) -> tuple[list, float, int]:
+    """``entry`` over ``source`` on ``dev``: its per-family results, the
+    synchronised wall and the B1 launches, counted from 0."""
+    consensus_vote.launches = 0
+    t = time.perf_counter()
+    out = list(entry(iter(source), consensus_vote.ConsensusConfig(), dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t, consensus_vote.launches
+
+
+def _linear_fetch(path: str, ref: str, beg: int, end: int) -> list:
+    out = []
+    with BamReader(path) as reader:
+        for read in reader:
+            if read.ref != ref or read.is_unmapped:
+                continue
+            span = max(sum(n for op, n in read.cigar if op in "MDN=X"), 1)
+            if read.pos < end and read.pos + span > beg:
+                out.append((read.qname, read.flag, read.pos))
+    return out
+
+
+def phase_library_host(dev, work: str, card: str) -> dict:
+    """Phase 14: (i) the library's member-stream entries on the card, (ii)
+    the host backends in a process of their own against the card's runs,
+    (iii) a region fetch over a card-written BAM."""
+    started = time.perf_counter()
+    lib_bam = os.path.join(work, "lib.bam")
+    simulate_bam_fast(lib_bam, SimConfig(n_fragments=LIBRARY_FRAGMENTS,
+                                         ref_len=40 * LIBRARY_FRAGMENTS, seed=44))
+    fams, items = _library_families(lib_bam)
+    entries = {}
+    for name, entry, source in (
+            ("families_stream", consensus_segment.consensus_families_stream, fams),
+            ("blocks_stream", consensus_segment.consensus_blocks_stream, items)):
+        got, wall, launches = _stream_entry(entry, source, dev)
+        want, plain_wall, _ = _stream_entry(entry, source, torch.device("cpu"))
+        if launches <= 0 or len(got) != len(want) or any(
+                gk != wk or not np.array_equal(gb, wb) or not np.array_equal(gq, wq)
+                for (gk, gb, gq), (wk, wb, wq) in zip(got, want)):
+            raise AssertionError(f"{name}: card {len(got)} families, {launches} launches, "
+                                 f"against {len(want)} plain")
+        entries[name] = {"families": len(got), "b1_launches": launches, "wall_s": wall,
+                         "plain_wall_s": plain_wall}
+    emit("library_stream", fragments=LIBRARY_FRAGMENTS, card=card, **entries)
+
+    host_bam = os.path.join(work, "host.bam")
+    simulate_bam_fast(host_bam, SimConfig(n_fragments=HOST_FRAGMENTS,
+                                          ref_len=40 * HOST_FRAGMENTS, seed=45))
+    inputs = {"sample": SAMPLE_BAM,
+              "adv": os.path.join(REPO, "test", "data", "sample_adversarial.bam"),
+              "host": host_bam}
+    card_walls = {}
+    for name, bam in inputs.items():
+        card_walls[name] = _one_shot(bam, os.path.join(work, "host_card"), name, dev)["wall_s"]
+    argvs = [["consensus", "-i", bam, "-o", os.path.join(work, f"host_{backend}"), "-n", name,
+              "--scorrect", "True", "--backend", backend]
+             for backend in HOST_BACKENDS for name, bam in inputs.items()]
+    proc = subprocess.run([sys.executable, "-c", _HOST_RUNS, REPO, json.dumps(argvs)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the host backends failed:\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["cuda_initialized"]:
+        raise AssertionError("a host backend opened a CUDA context")
+    walls = iter(res["walls_s"])
+    runs = {}
+    for backend in HOST_BACKENDS:
+        for name in inputs:
+            _same_tree(os.path.join(work, f"host_{backend}", name), name,
+                       os.path.join(work, "host_card", name), name)
+            runs[f"{name}/{backend}"] = {"wall_s": next(walls),
+                                         "card_wall_s": card_walls[name]}
+    emit("host_backends", card=card, host_fragments=HOST_FRAGMENTS, runs=runs,
+         cuda_initialized=False)
+
+    sscs = os.path.join(work, "host_card", "host", "sscs", "host.sscs.sorted.bam")
+    rng = np.random.default_rng(14)
+    regions = 0
+    with IndexedBamReader(sscs) as reader:
+        ref, length = reader.header.refs[0]
+        for _ in range(25):
+            beg = int(rng.integers(0, length))
+            end = int(min(length, beg + rng.integers(1, 30_000)))
+            got = [(r.qname, r.flag, r.pos) for r in reader.fetch(ref, beg, end)]
+            if got != _linear_fetch(sscs, ref, beg, end):
+                raise AssertionError(f"fetch {ref}:{beg}-{end} differs from a linear scan")
+            regions += bool(got)
+        whole = sum(1 for _ in reader.fetch(ref))
+    with BamReader(sscs) as reader:
+        if whole != sum(1 for _ in reader) or not regions:
+            raise AssertionError(f"fetch of {ref}: {whole} records, {regions} regions hit")
+    seconds = time.perf_counter() - started
+    emit("fetch", records=whole, regions_with_records=regions, seconds=seconds)
+    return {"entries": entries, "runs": runs, "seconds": seconds}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -3724,6 +3886,7 @@ def main() -> None:
         fleet = phase_fleet(dev, work, serve["one_shot"], rates["card"])
         emit("fleet", seconds=fleet["seconds"])
         fastq = phase_fastq(dev, work, tagged, rates["card"])
+        library = phase_library_host(dev, work, rates["card"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     smoke_s = time.perf_counter() - started
@@ -3740,7 +3903,9 @@ def main() -> None:
          "qc_launches": scale["qc_launches"], "qc_ms": vote["qc"]["ms"],
          "qc_plain_ms": vote["qc"]["plain_ms"], "qc_bound_ms": vote["qc"]["bound_ms"],
          "qc_bound_by": vote["qc"]["bound_by"],
-         "rider_bound_ms": vote["qc"]["rider_bound_ms"]},
+         "rider_bound_ms": vote["qc"]["rider_bound_ms"],
+         "library_families_stream_launches": library["entries"]["families_stream"]["b1_launches"],
+         "library_blocks_stream_launches": library["entries"]["blocks_stream"]["b1_launches"]},
         {**DENSE_VOTE, "launches": dense["launches"], "max_abs_err": dense["max_abs_err"],
          "ms": dense["ms"], "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

@@ -18,7 +18,7 @@ opens no CUDA context.
         [--pipeline staged|streaming] [--intermediate_taps True] \\
         [--max_mismatch N] [--wire stream|dense] \\
         [--policy majority|delegation|distilled] [--host_workers N] \\
-        [--devices N] [--profile DIR] ...
+        [--devices N] [--profile DIR] [--backend cpu|reference] ...
 
 Port of ``consensuscruncher_tpu/cli.py``'s ``consensus``: SSCS -> singleton
 rescue -> rescued merge -> DCS -> all-unique merges -> BAI indexes ->
@@ -87,7 +87,11 @@ and merge the shards on disk under ``--dir`` (when the wire cannot be
 reached they warn and read the shards alone).  ``qc`` reads ``qc.json``
 docs.  They are host code: none takes ``--device`` or opens a CUDA
 context.  ``consensus --backend tpu|xla_cpu`` is the JAX package's flag
-read as the device (``cuda``, ``cpu``); ``--device`` wins.
+read as the device (``cuda``, ``cpu``); ``consensus --backend
+cpu|reference`` runs the JAX package's host backends (the numpy twin, and
+the object path that the README's speed claims are timed against): host
+only, no kernel library, no CUDA context.  ``--device``, or a ``device``
+config key, wins over ``--backend`` and a ``backend`` key.
 """
 
 from __future__ import annotations
@@ -223,7 +227,7 @@ class _Run:
     """One consensus run: its arguments and where its outputs go."""
 
     args: argparse.Namespace
-    device: object
+    device: object        # torch.device, or None under a host backend
     name: str
     base: str
     dirs: dict
@@ -426,7 +430,7 @@ def consensus(args) -> dict:
     pipeline that ran.  ``--profile DIR`` traces the whole command."""
     inputs = [p.strip() for p in str(args.input).split(",") if p.strip()]
     # only a process that drives the card traces it: a host-sharded parent
-    # opens no CUDA context
+    # opens no CUDA context (a host backend names no device at all)
     on_card = args.device == "cuda" and args.host_workers <= 1
     with maybe_profile(args.profile, cuda=on_card):
         if len(inputs) <= 1:
@@ -451,8 +455,10 @@ def _consensus_batch(args, inputs: list[str]) -> dict:
     (``sscs_maker.prestage_blocks``); host-sharded samples run their own
     worker processes instead.  A prestage that fails is reported and the
     sample decodes on its own turn (where a real fault raises); every
-    prestage is closed whatever happens."""
-    overlap = args.host_workers <= 1
+    prestage is closed whatever happens.  A host backend prestages
+    nothing."""
+    # the host backends decode their own way, as in the JAX package
+    overlap = args.host_workers <= 1 and not args.host_backend
     results = {}
     prestaged = None
     for idx, inp in enumerate(inputs):
@@ -505,7 +511,8 @@ def _consensus_host_sharded(args) -> dict:
     are not taken here (workers have their own ``--resume``)."""
     n = int(args.host_workers)
     resume = args.resume
-    device = resolve_device(args.device)  # checks for a card; opens no context
+    # checks for a card and opens no context; a host backend names no device
+    device = None if args.host_backend else resolve_device(args.device)
     name = args.name or os.path.basename(args.input).split(".")[0]
     base = os.path.join(args.output, name)
     dirs = _make_dirs(base)
@@ -536,7 +543,7 @@ def _consensus_host_sharded(args) -> dict:
     tracker.mark("split")
 
     n_cards = 0
-    if device.type == "cuda":
+    if device is not None and device.type == "cuda":
         import torch
 
         from consensuscruncher_tpu_torch.ops import cuda_lib
@@ -567,8 +574,8 @@ def _consensus_host_sharded(args) -> dict:
             "cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli", *argv],
             "retry_cmd": [sys.executable, "-m", "consensuscruncher_tpu_torch.cli",
                           *retry_argv],
-            "env": hostshard.worker_env(base_env, i, device.type, n_cards,
-                                        args.devices or 1),
+            "env": hostshard.worker_env(base_env, i, device.type if device else "cpu",
+                                        n_cards, args.devices or 1),
             "err_path": os.path.join(ranges_dir, f"r{i}.stderr"),
         })
     hostshard.run_workers(workers, retries=int(os.environ.get("CCT_WORKER_RETRIES", "1")))
@@ -648,7 +655,8 @@ def _consensus_host_sharded(args) -> dict:
     # further resume after a later failure reuses it.  Plain runs drop it.
     if args.cleanup or not resume:
         shutil.rmtree(ranges_dir, ignore_errors=True)
-    print(f"consensus: outputs under {base} ({n} host workers, {device.type})")
+    print(f"consensus: outputs under {base} ({n} host workers, "
+          f"{device.type if device else args.host_backend})")
     return {"all_sscs": os.path.join(dirs["all_unique"], f"{name}.all.unique.sscs.bam"),
             "all_dcs": os.path.join(dirs["all_unique"], f"{name}.all.unique.dcs.bam"),
             "dirs": dirs, "walls": tracker.as_phases(), "pipeline": f"host_sharded[{n}]"}
@@ -694,7 +702,8 @@ def _consensus_one(args) -> dict:
     """One sample, one process: the staged or the streaming pipeline."""
     t0 = time.perf_counter()
     io_before = bgzf.write_stats()
-    device = resolve_device(args.device)
+    # a host backend (--backend cpu|reference) names no device and opens none
+    device = None if args.host_backend else resolve_device(args.device)
     # the vote policy (and the distilled checkpoint) is resolved before any
     # output exists: an unknown name or a bad checkpoint writes nothing
     get_policy(args.policy).prepare()
@@ -714,9 +723,9 @@ def _consensus_one(args) -> dict:
     # byte-identical either way, so it is no manifest param; a resume that
     # skips SSCS leaves the store empty and rescue and DCS vote by upload.
     # A --devices N > 1 run keeps no store: its rows come back from the
-    # shards in per-device blocks.
+    # shards in per-device blocks; nor does a host backend.
     def store():
-        if (args.wire == "stream" and _bool(args.residency)
+        if (device is not None and args.wire == "stream" and _bool(args.residency)
                 and (args.devices is None or args.devices <= 1)):
             return resident_planes(device, DEFAULT_QUAL_CAP)
         return None
@@ -770,7 +779,7 @@ def _consensus_staged(run: _Run, residency) -> dict:
                              residency=residency, qc=qc_acc, wire=args.wire,
                              policy=args.policy, input_range=input_range,
                              prestaged=getattr(args, "_prestaged", None),
-                             devices=args.devices),
+                             devices=args.devices, backend=args.host_backend),
         rebuild=lambda: SscsResult.from_prefix(sscs_prefix))
     walls.mark("sscs")
     sscs_parts = [sscs.sscs_bam]
@@ -784,7 +793,8 @@ def _consensus_staged(run: _Run, residency) -> dict:
             run=lambda: run_singleton_correction(sscs.singleton_bam, sscs.sscs_bam,
                                                  corr_prefix, device,
                                                  max_mismatch=args.max_mismatch,
-                                                 level=ilevel, residency=residency),
+                                                 level=ilevel, residency=residency,
+                                                 backend=args.host_backend),
             rebuild=lambda: SingletonResult.from_prefix(corr_prefix))
         walls.mark("singleton_correction")
         sscs_parts += [corr.sscs_rescue_bam, corr.singleton_rescue_bam, corr.remaining_bam]
@@ -806,7 +816,7 @@ def _consensus_staged(run: _Run, residency) -> dict:
     dcs = checkpointed(
         "dcs", [dcs_input], list(dcs_maker.output_paths(dcs_prefix).values()), {},
         run=lambda: run_dcs(dcs_input, dcs_prefix, device, level=ilevel, residency=residency,
-                            devices=args.devices),
+                            devices=args.devices, backend=args.host_backend),
         rebuild=lambda: DcsResult.from_prefix(dcs_prefix))
     walls.mark("dcs")
 
@@ -883,7 +893,7 @@ def _consensus_streaming(run: _Run, residency) -> dict:
                             qc=qc_acc, stream_out=stream, wire=args.wire,
                             policy=args.policy,
                             prestaged=getattr(args, "_prestaged", None),
-                            devices=args.devices)
+                            devices=args.devices, backend=args.host_backend)
         walls.mark("sscs")
         sscs_mem, singleton_mem = stream.memory["sscs"], stream.memory["singleton"]
         sscs_mem_parts = [sscs_mem]
@@ -891,7 +901,7 @@ def _consensus_streaming(run: _Run, residency) -> dict:
             corr = run_singleton_correction(
                 BatchStream(singleton_mem), BatchStream(sscs_mem),
                 os.path.join(dirs["singleton"], name), device, level=ilevel,
-                residency=residency, stream_out=stream)
+                residency=residency, stream_out=stream, backend=args.host_backend)
             walls.mark("singleton_correction")
             rescue_mems = [stream.memory["sscs_rescue"], stream.memory["singleton_rescue"]]
             sscs_mem_parts += rescue_mems + [stream.memory["remaining"]]
@@ -911,7 +921,7 @@ def _consensus_streaming(run: _Run, residency) -> dict:
         stream.submit(merge_memory_bams, sscs_mem_parts, all_sscs, level=level)
         dcs = run_dcs(BatchStream(dcs_in_mem), os.path.join(dirs["dcs"], name), device,
                       level=ilevel, residency=residency, stream_out=stream,
-                      devices=args.devices)
+                      devices=args.devices, backend=args.host_backend)
         walls.mark("dcs")
         merge_memory_bams([stream.memory["dcs"], stream.memory["unpaired"]], all_dcs,
                           level=level)
@@ -965,7 +975,7 @@ def _finish(run: _Run, pipeline: str, index_parts, doomed, qc_acc) -> None:
                         obs_qc.collect_run(base, name, pipeline=pipeline, acc=qc_acc,
                                            policy=args.policy))
     print(f"consensus: outputs under {base} ({pipeline} pipeline, "
-          f"{device_name(run.device)})")
+          f"{device_name(run.device) if run.device else args.host_backend})")
 
 
 def _make_dirs(base: str) -> dict:
@@ -1883,9 +1893,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels' plain PyTorch versions); wins over --backend "
                         "and a config.ini 'backend' key")
     c.add_argument("--backend", choices=("cpu", "tpu", "xla_cpu", "reference"),
-                   help="the JAX package's flag, read as the device: tpu -> cuda, "
-                        "xla_cpu -> cpu; cpu and reference (its numpy twin and "
-                        "object path) exit naming --device")
+                   help="the JAX package's flag: tpu and xla_cpu read as the device "
+                        "(cuda, cpu); cpu (the numpy twin) and reference (the "
+                        "object path: per-read decode, dict grouping, the Counter "
+                        "vote) run on the host alone and touch no device. --device, "
+                        "or a config.ini 'device' key, wins")
     c.add_argument("--wire", choices=("stream", "dense"), default="stream",
                    help="SSCS vote layout: 'stream' (packed member stream, the "
                         "default) or 'dense' (padded (B, F, L) family batches). "
@@ -2322,23 +2334,32 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """The command's arguments resolved as the JAX package's ``main``
     resolves them: a flag, else the config.ini value, else the built-in
-    default; then typed.  A ``--backend`` flag, else a config ``backend``
-    key, reads as the device (:func:`device_of_backend`) where neither
-    ``--device`` nor a ``device`` key is given.  ``--host_workers 0`` means
-    every core this process may run on."""
+    default; then typed.  Where neither ``--device`` nor a ``device`` key
+    is given, a ``--backend`` flag, else a config ``backend`` key, reads
+    through :func:`device_of_backend`: ``tpu``/``xla_cpu`` as the device,
+    and under ``consensus`` ``cpu``/``reference`` as its host backend
+    (``args.host_backend``, with ``args.device`` None; other commands
+    exit on them).  ``--host_workers 0`` means every core this process may
+    run on."""
     parser = build_parser()
     args = parser.parse_args(argv)
     config_values = _config_defaults(args.config, args.config_section)
     for key, value in config_values.items():
         if hasattr(args, key) and getattr(args, key) is None:
             setattr(args, key, value)
+    args.host_backend = None
     if hasattr(args, "device") and args.device is None:
         if getattr(args, "backend", None):
-            args.device = device_of_backend(args.backend, flag="--backend")
+            args.device, host = device_of_backend(args.backend, flag="--backend")
         else:
-            args.device = device_of_backend(config_values.get("backend"))
+            args.device, host = device_of_backend(config_values.get("backend"))
+        if host is not None and args.command != "consensus":
+            raise SystemExit(
+                f"{args.command} --backend {host}: the host backends run under consensus "
+                "alone; this command's workers vote on a device (--device cuda|cpu)")
+        args.host_backend = host
     for key, value in args.builtin_defaults.items():
-        if getattr(args, key) is None:
+        if getattr(args, key) is None and not (key == "device" and args.host_backend):
             setattr(args, key, value)
     missing = [a for a in args.required_args if getattr(args, a, None) in (None, "")]
     if missing:

@@ -1,7 +1,8 @@
 """Consensus defaults, the exact rational cutoff and the family oracle.
 
-Port of the constants, :func:`cutoff_fraction` and :func:`consensus_maker`
-of ``consensuscruncher_tpu/core/consensus_cpu.py``, whose docstring pins the
+Port of ``consensuscruncher_tpu/core/consensus_cpu.py`` (the constants,
+:func:`cutoff_fraction`, :func:`consensus_maker` and
+:func:`consensus_maker_numpy`), whose docstring pins the
 vote's semantics (reference parity target:
 ``ConsensusCruncher/consensus_helper.py:consensus_maker``).  Per position
 over a family of ``F`` reads: a read whose qual is below ``qual_threshold``
@@ -18,7 +19,7 @@ from fractions import Fraction
 
 import numpy as np
 
-from consensuscruncher_tpu_torch.utils.phred import N
+from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES
 
 DEFAULT_CUTOFF = 0.7
 DEFAULT_QUAL_CAP = 60
@@ -84,4 +85,38 @@ def consensus_maker(
                     qsum += int(quals[j, i])
             out_base[i] = modal
             out_qual[i] = min(qsum, qual_cap)
+    return out_base, out_qual
+
+
+def consensus_maker_numpy(
+    seqs: np.ndarray,
+    quals: np.ndarray,
+    cutoff: float = DEFAULT_CUTOFF,
+    qual_threshold: int = DEFAULT_QUAL_THRESHOLD,
+    qual_cap: int = DEFAULT_QUAL_CAP,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized twin of :func:`consensus_maker`, bit-identical to it: the
+    vote of ``consensus --backend cpu``.  One-hot counts per position, the
+    first-seen member index as the tie-break, the exact rational cutoff."""
+    seqs, quals = _validate_family(seqs, quals)
+    fam, _length = seqs.shape
+    num, den = cutoff_fraction(cutoff)
+
+    eff = np.where(quals < qual_threshold, np.uint8(N), seqs)  # (F, L)
+    onehot = eff[:, :, None] == np.arange(NUM_BASES, dtype=np.uint8)  # (F, L, 5)
+    counts = onehot.sum(axis=0, dtype=np.int64)  # (L, 5)
+    member_idx = np.arange(fam, dtype=np.int64)[:, None, None]
+    first_seen = np.where(onehot, member_idx, fam).min(axis=0)  # (L, 5)
+    # (count desc, first_seen asc) as one integer score: no ties, since
+    # first-seen indexes are distinct
+    score = counts * (fam + 1) + (fam - first_seen)
+    modal = score.argmax(axis=1)
+    modal_count = np.take_along_axis(counts, modal[:, None], axis=1)[:, 0]
+    passed = (modal != N) & (modal_count * den >= num * fam)
+    # quals of the reads whose own base is the modal base and passes the
+    # threshold: for a non-N modal base, exactly the agreeing effective votes
+    agree = (seqs == modal[None, :].astype(np.uint8)) & (quals >= qual_threshold)
+    qsum = np.where(agree, quals.astype(np.int64), 0).sum(axis=0)
+    out_base = np.where(passed, modal, N).astype(np.uint8)
+    out_qual = np.where(passed, np.minimum(qsum, qual_cap), 0).astype(np.uint8)
     return out_base, out_qual

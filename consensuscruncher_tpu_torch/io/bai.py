@@ -26,7 +26,7 @@ import struct
 from dataclasses import dataclass, field
 
 from consensuscruncher_tpu_torch.io import bgzf
-from consensuscruncher_tpu_torch.io.bam import BAM_MAGIC
+from consensuscruncher_tpu_torch.io.bam import BAM_MAGIC, BamHeader, BamReader, decode_record
 from consensuscruncher_tpu_torch.utils.manifest import commit_file
 
 BAI_MAGIC = b"BAI\x01"
@@ -450,3 +450,111 @@ class BaiIndex:
             meta.append(ref_meta)
         n_no_coor = struct.unpack_from("<Q", data, off)[0] if off + 8 <= len(data) else 0
         return cls(bins=bins, linear=linear, meta=meta, n_no_coor=n_no_coor)
+
+
+class IndexedBamReader:
+    """Random-access BAM reader over a .bai (``pysam.fetch`` parity).
+
+    ``fetch(ref, beg, end)`` yields exactly the records overlapping
+    ``[beg, end)`` on ``ref``, in file (coordinate) order, touching only the
+    compressed blocks the index points at.  A missing ``.bai`` is built
+    first (:func:`index_bam`).
+    """
+
+    def __init__(self, bam_path, bai_path=None):
+        bam_path = os.fspath(bam_path)
+        bai_path = bai_path or bam_path + ".bai"
+        if not os.path.exists(bai_path):
+            index_bam(bam_path, bai_path)
+        self.index = BaiIndex.load(bai_path)
+        # the header first (it pins the ref name -> id mapping); the raw
+        # handle opens last, so a parse failure cannot leak it
+        with BamReader(bam_path) as r:
+            self.header: BamHeader = r.header
+        self._fh = open(bam_path, "rb")
+
+    def close(self) -> None:
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _read_from(self, voffset: int):
+        """Yield the ``(vbeg, body)`` record stream from ``voffset`` on."""
+        self._fh.seek(voffset >> 16)
+        buf = bytearray()
+        u = 0
+        skip = voffset & 0xFFFF
+        tracker = _VoffsetTracker()
+        eof = False
+
+        def fill(need: int) -> bool:
+            nonlocal eof
+            while len(buf) - skip < need and not eof:
+                coffset = self._fh.tell()
+                payload = bgzf.read_block(self._fh)
+                if payload is None:
+                    eof = True
+                    break
+                tracker.add_block(u + len(buf), coffset, len(payload))
+                buf.extend(payload)
+            return len(buf) - skip >= need
+
+        if not fill(0) and not buf:
+            return
+        while True:
+            if skip:  # drop the intra-block skip once; u keeps the anchors valid
+                del buf[:skip]
+                u += skip
+                skip = 0
+            if not fill(4):
+                return
+            vbeg = tracker.voffset(u)
+            (block_size,) = struct.unpack_from("<i", buf, 0)
+            if not fill(4 + block_size):
+                raise ValueError("truncated BAM record")
+            body = bytes(buf[4:4 + block_size])
+            del buf[:4 + block_size]
+            u += 4 + block_size
+            yield vbeg, body
+
+    def fetch(self, ref: str, beg: int = 0, end: int | None = None):
+        """Yield the decoded records overlapping ``[beg, end)`` on ``ref``
+        (``end`` None: to the reference's end)."""
+        rid = self.header.ref_id(ref)
+        if end is None:
+            end = self.header.refs[rid][1]
+        if end <= beg:
+            return  # nothing overlaps an empty interval
+        ref_bins = self.index.bins[rid]
+        chunks: list[tuple[int, int]] = []
+        for b in reg2bins(beg, end):
+            chunks.extend(ref_bins.get(b, ()))
+        if not chunks:
+            return
+        # the linear index's floor: skip chunks ending before the first
+        # record that could overlap beg
+        lin = self.index.linear[rid]
+        w = beg >> _LINEAR_SHIFT
+        min_off = lin[w] if w < len(lin) else (lin[-1] if lin else 0)
+        chunks = sorted(c for c in chunks if c[1] > min_off)
+        if not chunks:
+            return
+        merged = [list(chunks[0])]  # overlapping or adjacent runs read once
+        for cb, ce in chunks[1:]:
+            if cb <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], ce)
+            else:
+                merged.append([cb, ce])
+        for cb, ce in merged:
+            for vbeg, body in self._read_from(max(cb, min_off)):
+                if vbeg >= ce:
+                    break
+                ref_id, pos, rec_end, _mapped = _record_span(body)
+                if ref_id != rid or pos >= end:
+                    break
+                if rec_end > beg:
+                    yield decode_record(body, self.header)

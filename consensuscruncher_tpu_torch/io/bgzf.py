@@ -636,3 +636,46 @@ class BgzfWriter(io.RawIOBase):
             finally:
                 super().close()
 
+
+
+def total_isize(path) -> int:
+    """Total uncompressed size of a BGZF file by framing hops alone: each
+    block's header is parsed as :func:`read_block` parses it (the BC
+    subfield may sit anywhere in the extra field), the deflate payload is
+    skipped and the 4-byte ISIZE tail read; nothing is inflated."""
+    total = 0
+    with open(path, "rb") as fh:
+        while True:
+            header = fh.read(18)
+            if not header:
+                return total
+            if len(header) < 18 or header[0] != 0x1F or header[1] != 0x8B:
+                raise ValueError(f"{os.fspath(path)!r}: bad BGZF framing")
+            (xlen,) = struct.unpack_from("<H", header, 10)
+            extra = header[12:18]
+            if xlen > 6:
+                extra += fh.read(xlen - 6)
+                if len(extra) < xlen:
+                    raise TruncatedBgzfError(f"{os.fspath(path)!r}: truncated BGZF extra field")
+            bsize = None
+            off = 0
+            while off + 4 <= xlen:
+                (slen,) = struct.unpack_from("<H", extra, off + 2)
+                if extra[off] == 0x42 and extra[off + 1] == 0x43 and slen == 2:
+                    (bsize,) = struct.unpack_from("<H", extra, off + 4)
+                    break
+                off += 4 + slen
+            if bsize is None:
+                raise ValueError(f"{os.fspath(path)!r}: gzip member lacks the BGZF BC subfield")
+            # consumed so far: 12 fixed bytes + xlen extra; ISIZE is the last 4
+            fh.seek(bsize + 1 - 12 - xlen - 4, 1)
+            isize = fh.read(4)
+            if len(isize) < 4:
+                raise TruncatedBgzfError(f"{os.fspath(path)!r}: truncated BGZF block")
+            total += struct.unpack("<I", isize)[0]
+
+
+def decompress_file(path) -> bytes:
+    """A whole BGZF file's uncompressed bytes (small files, tests)."""
+    with open(path, "rb") as fh:
+        return b"".join(iter_blocks(fh))

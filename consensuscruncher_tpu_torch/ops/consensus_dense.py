@@ -13,6 +13,11 @@ wall feeds the ``device_dispatch_s`` histogram, as in the JAX package.
 Under a vote policy other than majority each batch votes
 by the policy (``consensus_vote.consensus_batch(..., policy=)``).
 
+The library's batch calls are here too: :func:`consensus_batch_host`
+votes a whole padded batch on a device and returns host arrays, and
+:func:`qc_member_reduction` is the QC reduction over family-major member
+planes, as torch ops on their device.
+
 While an ``obs.qc`` plane sink is armed, every batch carries the dense
 rider (see ``consensus_vote.consensus_batch``: every position of the
 padded width, no length mask), summed on the device into one int64 total
@@ -21,6 +26,7 @@ that goes to the sink as one handle when the batches end.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
@@ -39,6 +45,7 @@ from consensuscruncher_tpu_torch.parallel.prefetch import (
 )
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.utils import sanitize
+from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD
 
 
 def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.device,
@@ -56,6 +63,42 @@ def consensus_batch(batch: FamilyBatch, config: ConsensusConfig, device: torch.d
                                          config, qc=qc, policy=policy)
     planes = torch.stack(out[:2])
     return (planes, out[2]) if qc else planes
+
+
+def consensus_batch_host(bases, quals, fam_sizes, config: ConsensusConfig,
+                         device: torch.device):
+    """Vote a padded ``(B, F, L)`` batch (PAD in unused member slots and
+    positions, ``fam_sizes`` ``(B,)``, 0 for a dummy slot) on ``device``:
+    host ``(B, L)`` uint8 ``(bases, quals)``; dummy slots come back all
+    ``(N, 0)``.  On the card, one launch of B1's dense form."""
+    b = np.ascontiguousarray(bases, dtype=np.uint8)
+    q = np.ascontiguousarray(quals, dtype=np.uint8)
+    sizes = np.asarray(fam_sizes, dtype=np.int32)
+    obs_metrics.note_transfer("h2d", b.nbytes + q.nbytes + sizes.nbytes, device)
+    out_b, out_q = consensus_vote.consensus_batch(
+        torch.from_numpy(b).to(device), torch.from_numpy(q).to(device),
+        torch.from_numpy(sizes), config)[:2]
+    obs_metrics.note_transfer("d2h", out_b.nbytes + out_q.nbytes, device)
+    return out_b.cpu().numpy(), out_q.cpu().numpy()
+
+
+def qc_member_reduction(bases: torch.Tensor, quals: torch.Tensor, fam_sizes: torch.Tensor,
+                        *, qual_threshold: int):
+    """The QC reduction over family-major ``(F, B, L)`` member planes and
+    ``(B,)`` sizes, on their device: batch-summed ``(L,)`` int32 ``(votes,
+    disagree)``.  A member slot past its family's size votes nothing (PAD
+    is no lane), a member below ``qual_threshold`` votes N; ``disagree``
+    is the votes off each position's modal lane."""
+    fam_cap = bases.shape[0]
+    member = (torch.arange(fam_cap, device=bases.device)[:, None]
+              < fam_sizes.to(bases.device)[None, :])[:, :, None]
+    eff = torch.where(quals >= qual_threshold, bases, N)
+    eff = torch.where(member, eff, PAD)
+    lanes = torch.arange(NUM_BASES, dtype=torch.uint8, device=bases.device)
+    counts = (eff[..., None] == lanes).sum(0, dtype=torch.int32)  # (B, L, 5)
+    votes = counts.sum(-1, dtype=torch.int32)
+    disagree = votes - counts.amax(-1)
+    return votes.sum(0, dtype=torch.int32), disagree.sum(0, dtype=torch.int32)
 
 
 def consensus_families(families, config: ConsensusConfig, device: torch.device,

@@ -14,8 +14,11 @@ family gathered into a dense ``(NF, cap, L)`` block and voted by torch
 ops on the wire's device; a batch with a family over ``MAX_DENSE_CAP``
 members is refused, as the reference refuses it.
 
-Two users: the SSCS stage (:func:`consensus_blocks_stream_batched`, the
-SSCS vote), and the fused SSCS+DCS API (:func:`segment_duplex_step`,
+Users: the SSCS stage (:func:`consensus_blocks_stream_batched`, the
+SSCS vote); the library's member-stream entries
+(:func:`consensus_families_stream` over ragged families,
+:func:`consensus_blocks_stream` over family blocks: the same batches, one
+B1 launch each on the card, yielded per family); and the fused SSCS+DCS API (:func:`segment_duplex_step`,
 :func:`run_duplex_pipelined`, the fused duplex vote), whose member stream
 holds strand A's families in slots ``0..n-1`` and strand B's in
 ``n..2n-1``.
@@ -46,10 +49,27 @@ from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod
 from consensuscruncher_tpu_torch.parallel.batching import (
     QUAL_FILL_SENTINEL,
     bucket_member_blocks,
+    bucket_members,
 )
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.utils.phred import N
 from consensuscruncher_tpu_torch.utils import sanitize
+
+
+def derive_ids_device(sizes: torch.Tensor, total_members: int):
+    """``(fam_ids, ranks)`` int32 tensors of a member stream from its
+    per-family ``sizes``, on their device: member ``m`` belongs to family
+    ``fam_ids[m]`` and is its ``ranks[m]``-th member.  ``total_members``
+    must be ``sizes.sum()`` (the stream's length)."""
+    sizes = sizes.to(torch.int32)
+    nf = sizes.shape[0]
+    fam_ids = torch.repeat_interleave(
+        torch.arange(nf, dtype=torch.int32, device=sizes.device), sizes,
+        output_size=total_members)
+    starts = torch.cumsum(sizes, 0, dtype=torch.int32) - sizes
+    ranks = (torch.arange(total_members, dtype=torch.int32, device=sizes.device)
+             - starts[fam_ids.long()])
+    return fam_ids, ranks
 
 
 def encode_member_batch(batch):
@@ -266,6 +286,42 @@ def consensus_blocks_stream_batched(items, config: ConsensusConfig,
     :func:`_run_member_batch_stream`)."""
     yield from _run_member_batch_stream(bucket_member_blocks(items), config, device,
                                         on_device_batch, policy, mesh)
+
+
+def _per_family(batched):
+    """Per-batch ``(keys, lengths, out_bases, out_quals)`` -> per-family
+    ``(key, consensus_base, consensus_qual)``, sliced to true length."""
+    for keys, lengths, out_b, out_q in batched:
+        for i, key in enumerate(keys):
+            length = int(lengths[i])
+            yield key, out_b[i, :length], out_q[i, :length]
+
+
+def consensus_families_stream(families, config: ConsensusConfig, device: torch.device,
+                              max_batch: int = 4096, member_limit: int = 32768,
+                              policy=DEFAULT_POLICY):
+    """Member-stream twin of ``ops.consensus_dense.consensus_families``.
+
+    Consumes ``(key, member_seqs, member_quals)`` (ragged lists of 1-D
+    uint8 arrays), batched by ``parallel.batching.bucket_members``; yields
+    ``(key, consensus_base, consensus_qual)`` sliced to true length, in
+    batch order, each batch one vote on ``device`` (on the card, one B1
+    launch) under ``policy``.  Bit-identical to the dense wire's outputs."""
+    yield from _per_family(_run_member_batch_stream(
+        bucket_members(families, max_batch=max_batch, member_limit=member_limit),
+        config, device, policy=policy))
+
+
+def consensus_blocks_stream(items, config: ConsensusConfig, device: torch.device,
+                            max_batch: int = 4096, member_limit: int = 32768,
+                            policy=DEFAULT_POLICY):
+    """FamilyBlock twin of :func:`consensus_families_stream`: ``items``
+    yields ``(block, fam_idx, keys)`` (see
+    ``parallel.batching.bucket_member_blocks``); yields the same per-family
+    ``(key, consensus_base, consensus_qual)`` stream, bit-identical."""
+    yield from _per_family(_run_member_batch_stream(
+        bucket_member_blocks(items, max_batch=max_batch, member_limit=member_limit),
+        config, device, policy=policy))
 
 
 # ------------------------------------------------- fused SSCS + DCS (B9)

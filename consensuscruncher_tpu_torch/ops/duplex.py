@@ -5,7 +5,8 @@ two-strand agreement vote over ``(B, L)`` planes — keep agreeing non-N
 bases with summed, capped quality, anything else is ``(N, 0)``.  Used for
 DCS and for singleton rescue (a correction is a 2-deep duplex vote).  An
 XLA program in the JAX package, so elementwise torch ops on the chosen
-device here.
+device here.  :func:`duplex_batch` is the reference's bucketed batch
+call (the stages vote through :func:`duplex_batch_host`, unpadded).
 """
 
 from __future__ import annotations
@@ -30,6 +31,28 @@ def duplex_vote(seq1, qual1, seq2, qual2, *, qual_cap: int = DEFAULT_QUAL_CAP,
     qsum = qual1.to(torch.int32) + qual2.to(torch.int32)
     out_qual = torch.where(agree, qsum.clamp(max=qual_cap), 0).to(torch.uint8)
     return out_base, out_qual
+
+
+def duplex_batch(seq1, qual1, seq2, qual2, qual_cap: int = DEFAULT_QUAL_CAP,
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """Batched duplex vote at the JAX package's bucketed shape: four host
+    ``(B, L)`` uint8 arrays, zero-padded to ``(Bp, Lp)`` (``Bp`` the next
+    power of two of ``B``, ``Lp`` the batching layer's length bucket), ->
+    one stacked ``(2, Bp, Lp)`` uint8 tensor on ``device`` (default: the
+    card); callers slice ``[:, :B, :L]``."""
+    from consensuscruncher_tpu_torch.parallel.batching import len_bucket, next_pow2
+
+    dev = resolve_device(device)
+    b = int(np.shape(seq1)[0]) if np.ndim(seq1) else 0
+    length = int(np.shape(seq1)[1]) if np.ndim(seq1) > 1 else 0
+    bp, lp = next_pow2(b), len_bucket(length)
+    planes = []
+    for x in (seq1, qual1, seq2, qual2):
+        p = np.zeros((bp, lp), np.uint8)
+        p[:b, :length] = np.asarray(x, dtype=np.uint8)
+        planes.append(torch.from_numpy(p).to(dev))
+    obs_metrics.note_transfer("h2d", sum(p.nbytes for p in planes), dev)
+    return torch.stack(duplex_vote(*planes, qual_cap=int(qual_cap)))
 
 
 def duplex_batch_host(seq1, qual1, seq2, qual2, qual_cap: int = DEFAULT_QUAL_CAP,

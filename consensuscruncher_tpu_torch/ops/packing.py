@@ -14,7 +14,10 @@ codebook:
 - pack4: base 2 bits + qual bin 2 bits, two positions per byte — 0.5 byte.
 
 On the card the vote kernels decode the wire themselves; the torch
-unpacks serve the plain versions and the tests.
+unpacks serve the plain versions and the tests.  The host helpers of the
+reference's library (:func:`can_pack`, :func:`unpack_host`,
+:func:`can_pack4`, :func:`sanitize_for_pack4`, :func:`unpack4_host`,
+:func:`unpack6_host`) are numpy, as there.
 
 Dead cells (member rows past the real members, positions past a family's
 true length) decode to codebook-legal garbage; the vote never reads dead
@@ -49,6 +52,11 @@ def build_codebook(quals: np.ndarray) -> np.ndarray | None:
     return _build_codebook(quals, CODEBOOK_SIZE)
 
 
+def can_pack(quals: np.ndarray) -> bool:
+    """True iff ``quals`` fit the pack8 codebook (at most 16 distinct)."""
+    return np.unique(np.asarray(quals, dtype=np.uint8)).size <= CODEBOOK_SIZE
+
+
 def _qual_lut(codebook: np.ndarray) -> np.ndarray:
     """256-entry qual->index LUT (O(1) per element vs searchsorted's log k;
     packing runs over tens of MB per batch, so per-element cost is the whole
@@ -72,6 +80,12 @@ def pack(bases: np.ndarray, quals: np.ndarray, codebook: np.ndarray) -> np.ndarr
     if idx.max(initial=0) >= CODEBOOK_SIZE:
         raise ValueError("quals not in codebook — rebuild with build_codebook")
     return bases | (idx << _BASE_BITS)
+
+
+def unpack_host(packed: np.ndarray, codebook: np.ndarray):
+    """Host inverse of :func:`pack`: ``(bases, quals)`` uint8 arrays."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    return packed & _BASE_MASK, np.asarray(codebook, dtype=np.uint8)[packed >> _BASE_BITS]
 
 
 def _lookup(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -98,6 +112,34 @@ def build_codebook4(quals: np.ndarray) -> np.ndarray | None:
     return _build_codebook(quals, CODEBOOK4_SIZE)
 
 
+def can_pack4(bases: np.ndarray, quals: np.ndarray) -> bool:
+    """True iff bases are pure ACGT and quals fit a 4-entry codebook."""
+    return (int(np.asarray(bases, dtype=np.uint8).max(initial=0)) < 4
+            and np.unique(np.asarray(quals, dtype=np.uint8)).size <= CODEBOOK4_SIZE)
+
+
+def sanitize_for_pack4(bases: np.ndarray, quals: np.ndarray, fam_sizes: np.ndarray,
+                       fill_qual: int, lengths: np.ndarray | None = None):
+    """Rewrite the dead slots of a padded ``(B, F, L)`` batch so it packs:
+    member rows ``>= fam_sizes`` (and, given ``lengths``, positions ``>=``
+    each family's true length), PAD and qual 0 from the batching layer,
+    become (base A, ``fill_qual``), ``fill_qual`` any codebook value.  The
+    vote never reads dead rows, but a live row's padded positions then vote
+    A where they voted N: callers slice outputs to ``lengths``.  Returns
+    new arrays; then :func:`can_pack4` decides on the live data alone."""
+    bases = np.asarray(bases, dtype=np.uint8).copy()
+    quals = np.asarray(quals, dtype=np.uint8).copy()
+    fam_sizes = np.asarray(fam_sizes)
+    dead = np.arange(bases.shape[1])[None, :, None] >= fam_sizes[:, None, None]
+    if lengths is not None:
+        dead = dead | (np.arange(bases.shape[2])[None, None, :]
+                       >= np.asarray(lengths)[:, None, None])
+    dead = np.broadcast_to(dead, bases.shape)
+    bases[dead] = 0
+    quals[dead] = fill_qual
+    return bases, quals
+
+
 def pack4(bases: np.ndarray, quals: np.ndarray, codebook4: np.ndarray) -> np.ndarray:
     """Pack to two positions per byte along the last axis.
 
@@ -121,6 +163,17 @@ def pack4(bases: np.ndarray, quals: np.ndarray, codebook4: np.ndarray) -> np.nda
         pad = np.zeros(nib.shape[:-1] + (1,), np.uint8)
         nib = np.concatenate([nib, pad], axis=-1)
     return (nib[..., 0::2] | (nib[..., 1::2] << 4)).astype(np.uint8)
+
+
+def unpack4_host(packed: np.ndarray, codebook4: np.ndarray, length: int):
+    """Host inverse of :func:`pack4`; ``length`` is the true position
+    count before nibble padding."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    nib = np.empty(packed.shape[:-1] + (packed.shape[-1] * 2,), np.uint8)
+    nib[..., 0::2] = packed & 0xF
+    nib[..., 1::2] = packed >> 4
+    nib = nib[..., :length]
+    return nib & 3, np.asarray(codebook4, dtype=np.uint8)[nib >> 2]
 
 
 def unpack4_device(packed: torch.Tensor, codebook4: torch.Tensor, length: int):
@@ -161,6 +214,21 @@ def pack6(bases: np.ndarray, quals: np.ndarray, codebook: np.ndarray,
           | (bases[..., 2::4] << 4) | (bases[..., 3::4] << 6))
     q4 = (idx[..., 0::2] | (idx[..., 1::2] << 4)).astype(np.uint8)
     return np.concatenate([b2.astype(np.uint8), q4], axis=-1)
+
+
+def unpack6_host(packed: np.ndarray, codebook: np.ndarray, length: int):
+    """Host inverse of :func:`pack6`; ``length`` is the true position count
+    before the pad to a multiple of 4."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    w = packed.shape[-1] // 3
+    b2, q4 = packed[..., :w], packed[..., w:]
+    bases = np.empty(packed.shape[:-1] + (4 * w,), np.uint8)
+    for k in range(4):
+        bases[..., k::4] = (b2 >> (2 * k)) & 3
+    idx = np.empty(packed.shape[:-1] + (4 * w,), np.uint8)
+    idx[..., 0::2] = q4 & 0xF
+    idx[..., 1::2] = q4 >> 4
+    return bases[..., :length], np.asarray(codebook, dtype=np.uint8)[idx[..., :length]]
 
 
 def unpack6_device(packed: torch.Tensor, codebook: torch.Tensor, length: int):

@@ -99,6 +99,7 @@ class ResidentPlanes:
         self._rows = 0
         self._lengths = np.zeros(0, np.int64)  # true length per row
         self._index: dict[bytes, int] = {}  # key -> row
+        self._nbytes = 0  # bytes of the rows appended, at their widths
 
     def append(self, keys, lengths, planes: torch.Tensor, n_real: int) -> None:
         """Register rows ``0..n_real-1`` of the stacked ``(2, n, L)`` planes
@@ -114,6 +115,7 @@ class ResidentPlanes:
         self._lengths[self._rows:end] = np.asarray(lengths[:n_real], np.int64)
         self._index.update(zip(_as_keys(keys), range(self._rows, end)))
         self._rows = end
+        self._nbytes += 2 * n_real * width
 
     def _reserve(self, rows: int, width: int) -> None:
         old = self._planes
@@ -133,6 +135,13 @@ class ResidentPlanes:
     @property
     def families(self) -> int:
         return len(self._index)
+
+    @property
+    def nbytes_resident(self) -> int:
+        """Device bytes of the planes registered: ``2 * rows * width`` of
+        every append, as the JAX store counts its chunks (the buffer grows
+        by doubling, so it may hold up to twice as many)."""
+        return self._nbytes
 
     def rows_for(self, keys, length: int) -> np.ndarray | None:
         """Resident row per key, -1 on a miss (absent, or stored at another

@@ -7,7 +7,9 @@ Port of ``consensuscruncher_tpu/parallel/batching.py``, both wires:
   structure from the per-family sizes.  Families bucket by consensus
   length (a multiple of ``LEN_QUANTUM``) and by pow2 family-size class; a
   bucket flushes at ``MAX_BATCH`` families or ``MEMBER_LIMIT`` member rows
-  (:func:`bucket_member_blocks`).
+  (:func:`bucket_member_blocks`, the SSCS stage's).  The library's
+  per-family form, :func:`bucket_members`, buckets ragged families by
+  length alone.
 - **dense** (``--wire dense``): each family padded into an ``(F, L)`` slot
   of a ``(B, F, L)`` batch, ``F`` the next power of two of its size, ``L``
   its length bucket; families sharing an ``(F, L)`` bucket pack up to
@@ -180,6 +182,70 @@ class MemberBatch:
     n_members: int  # real member rows (before member-axis padding)
 
 
+class _MemberBucket:
+    __slots__ = ("keys", "rows", "qrows", "sizes", "lengths", "members")
+
+    def __init__(self):
+        self.keys, self.rows, self.qrows, self.sizes, self.lengths = [], [], [], [], []
+        self.members = 0
+
+
+def bucket_members(
+    families: Iterable[tuple[object, Sequence[np.ndarray], Sequence[np.ndarray]]],
+    max_batch: int = 1024,
+    member_limit: int = 8192,
+) -> Iterator[MemberBatch]:
+    """Stream ``(key, member_seqs, member_quals)`` into member-stream batches.
+
+    The rectangularization of :func:`bucket_families` (:func:`rectangularize`,
+    so both wires vote the same rows), but batches bucket by length only; a
+    bucket flushes when it holds ``max_batch`` families or ``member_limit``
+    member rows, whichever first (one giant family flushes as its own
+    batch).  The remaining buckets flush in length order at the end.
+    """
+    buckets: dict[int, _MemberBucket] = {}
+    for key, seqs, quals in families:
+        if len(seqs) == 0:
+            raise ValueError(f"empty family for key {key!r}")
+        rect_s, rect_q, true_len = rectangularize(seqs, quals)
+        lb = len_bucket(true_len)
+        bucket = buckets.setdefault(lb, _MemberBucket())
+        bucket.keys.append(key)
+        bucket.rows.append(rect_s)
+        bucket.qrows.append(rect_q)
+        bucket.sizes.append(rect_s.shape[0])
+        bucket.lengths.append(true_len)
+        bucket.members += rect_s.shape[0]
+        if len(bucket.keys) >= max_batch or bucket.members >= member_limit:
+            yield _emit_members(buckets.pop(lb), lb)
+    for lb, bucket in sorted(buckets.items()):
+        yield _emit_members(bucket, lb)
+
+
+def _emit_members(bucket: _MemberBucket, lb: int) -> MemberBatch:
+    # family axis: pow2 >= n, at least MIN_BATCH (a member_limit flush can
+    # hold far fewer families than max_batch)
+    n = len(bucket.keys)
+    cap = max(MIN_BATCH, next_pow2(n))
+    obs_metrics.observe("batch_occupancy", n / cap)
+    m = bucket.members
+    m_pad = max(MEMBER_QUANTUM, -(-m // MEMBER_QUANTUM) * MEMBER_QUANTUM)
+    rows = np.zeros((m_pad, lb), dtype=np.uint8)
+    qrows = np.full((m_pad, lb), QUAL_FILL_SENTINEL, dtype=np.uint8)
+    r = 0
+    for rect_s, rect_q in zip(bucket.rows, bucket.qrows):
+        f, length = rect_s.shape
+        rows[r:r + f, :length] = rect_s
+        qrows[r:r + f, :length] = rect_q
+        r += f
+    sizes = np.zeros(cap, dtype=np.int32)
+    sizes[:n] = bucket.sizes
+    lengths = np.zeros(cap, dtype=np.int32)
+    lengths[:n] = bucket.lengths
+    return MemberBatch(keys=list(bucket.keys), rows=rows, qrows=qrows, sizes=sizes,
+                       lengths=lengths, n_real=n, n_members=m)
+
+
 class _BlockBucket:
     __slots__ = ("chunks", "keys", "sizes", "lengths", "members")
 
@@ -197,13 +263,16 @@ class _BlockBucket:
 
 def bucket_member_blocks(
     items: Iterable[tuple[object, np.ndarray, list]],
+    max_batch: int = MAX_BATCH,
+    member_limit: int = MEMBER_LIMIT,
 ) -> Iterator[MemberBatch]:
     """Bucket family blocks into member-stream batches, fully array-level.
 
     ``items`` yields ``(block, fam_idx, keys)``: the selected families of a
     ``stages.grouping.FamilyBlock`` and their stream keys.  The module's
     rectangularization (truncate to the modal length, pad short members
-    with (N, qual 0)) runs as scatter passes at flush time.
+    with (N, qual 0)) runs as scatter passes at flush time.  A bucket
+    flushes at ``max_batch`` families or ``member_limit`` member rows.
     """
     buckets: dict[tuple[int, int], _BlockBucket] = {}
 
@@ -285,7 +354,7 @@ def bucket_member_blocks(
             bucket.sizes.append(block.sizes[fams])
             bucket.lengths.append(block.target_len[fams])
             bucket.members += tot
-            if len(bucket.keys) >= MAX_BATCH or bucket.members >= MEMBER_LIMIT:
+            if len(bucket.keys) >= max_batch or bucket.members >= member_limit:
                 yield flush((lb, sc))
     for key in sorted(buckets):
         yield flush(key)

@@ -219,14 +219,16 @@ def worker_argv(input_path: str, out_dir: str, name: str, args,
     its BAI coordinate range of the shared input; ``resume`` lets an
     intact worker skip via its own manifest.
 
-    The JAX package's argv, with ``--device`` in place of ``--backend``:
-    as there, ``--policy``, ``--residency``, ``--pipeline``,
+    The JAX package's argv, with ``--device`` in place of ``--backend``
+    (a host backend passes ``--backend cpu|reference`` on, as the JAX
+    package passes its backend): as there, ``--policy``, ``--residency``, ``--pipeline``,
     ``--intermediate_taps`` and ``--cleanup`` are not passed on, so every
     worker runs its defaults (the majority vote, staged, residency on), and
     the two packages' sharded runs agree."""
     argv = [
         "consensus", "-i", input_path, "-o", out_dir, "-n", name,
-        "--device", str(args.device),
+        *(["--backend", host] if (host := getattr(args, "host_backend", None))
+          else ["--device", str(args.device)]),
         "--cutoff", str(args.cutoff),
         "--qualscore", str(args.qualscore),
         "--scorrect", str(args.scorrect),

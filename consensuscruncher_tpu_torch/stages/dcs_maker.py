@@ -38,6 +38,7 @@ import torch
 from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS
+from consensuscruncher_tpu_torch.core.duplex_cpu import duplex_consensus
 from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed, ragged
 from consensuscruncher_tpu_torch.core.streamgraph import StreamFallback
 from consensuscruncher_tpu_torch.io.columnar import SortingBamWriter, open_batch_source
@@ -58,6 +59,7 @@ from consensuscruncher_tpu_torch.utils.profiling import (
     write_metrics,
 )
 from consensuscruncher_tpu_torch.utils import sanitize
+from consensuscruncher_tpu_torch.utils.backend_probe import check_host_backend, record_backend
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs, scatter_runs
 from consensuscruncher_tpu_torch.utils.stats import StageStats, TimeTracker
 
@@ -86,11 +88,19 @@ def output_paths(out_prefix: str) -> dict[str, str]:
     }
 
 
-def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device, mesh=None):
+def _duplex_vote_batch(s1, q1, s2, q2, device: torch.device | None, mesh=None):
     """One duplex vote over stacked ``(P, L)`` pairs on ``device`` — the
     single dispatch shared by DCS and the singleton rescue.  ``mesh`` (a
     ``parallel.mesh.Mesh``) shards the pair axis instead (elementwise: no
-    collective)."""
+    collective).  ``device`` None is a host backend's vote: each pair
+    through ``core.duplex_cpu.duplex_consensus`` in numpy, as the JAX
+    package's host branch votes."""
+    if device is None:
+        out_b = np.empty_like(s1)
+        out_q = np.empty_like(q1)
+        for i in range(s1.shape[0]):
+            out_b[i], out_q[i] = duplex_consensus(s1[i], q1[i], s2[i], q2[i], DEFAULT_QUAL_CAP)
+        return out_b, out_q
     # the pairs' upload and the planes' download are the stage's sanctioned
     # transfers under CCT_SANITIZE (utils.sanitize.guarded_stage)
     with sanitize.allow_transfer("duplex vote upload and download"):
@@ -406,12 +416,17 @@ def _consume_pair_blocks(reader, stats, unpaired_writer, rec_writer,
             stats.incr("dcs_written", k)
 
 
-def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
+def run_dcs(sscs_bam, out_prefix: str, device: torch.device | None,
             level: int = 6, residency=None, stream_out=None,
-            devices: int | None = None) -> DcsResult:
+            devices: int | None = None, backend: str | None = None) -> DcsResult:
     """Pair the SSCSes of ``sscs_bam`` with the duplex votes on ``device``;
     ``residency`` is the SSCS stage's plane store (or None: every pair
     votes by upload; the window walk never uses it).
+
+    ``backend``: ``"cpu"`` or ``"reference"``, a host backend
+    (``utils.backend_probe.HOST_BACKENDS``): ``device`` is ignored, every
+    pair votes in numpy on the host, ``residency`` is not used, and
+    ``devices > 1`` raises as in the JAX package.
 
     ``devices``: shard the duplex votes' pair axis over a mesh of this
     many shards (``parallel.mesh.device_mesh``: over the visible cards, or
@@ -424,6 +439,11 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
     ``sscs_bam`` may then be an in-memory batch source, which the window
     walk cannot re-read: a foreign tag layout raises ``StreamFallback``
     (the CLI re-runs the staged pipeline)."""
+    if backend is not None:
+        check_host_backend(backend)
+        if devices is not None and devices > 1:
+            raise ValueError("--devices > 1 requires the tpu backend")
+        device, residency = None, None
     mesh = device_mesh(device, devices) if devices is not None and devices > 1 else None
     tracker = TimeTracker()
     stats = StageStats("DCS")
@@ -475,14 +495,14 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
         dcs_writer.close()
         unpaired_writer.close()
     tracker.mark("sort")
-    stats.set("backend", device.type)
+    record_backend(stats, backend or device)
     stats.write(paths["stats_txt"])
     tracker.write(f"{out_prefix}.dcs.time_tracker.txt")
     add_counter_deltas(cum, marks)
     cumulative = cum.snapshot()
     write_metrics(
         f"{out_prefix}.dcs.metrics.json", "DCS", tracker.as_phases(),
-        {"backend": device.type, "jax_backend": None, "pairs": stats.get("pairs"),
+        {"backend": stats.get("backend"), "jax_backend": None, "pairs": stats.get("pairs"),
          "sscs_total": stats.get("sscs_total"), "recompiles": cumulative["recompiles"]},
         cumulative=cumulative)
     return DcsResult(paths["dcs"], paths["unpaired"], stats)
@@ -491,8 +511,8 @@ def run_dcs(sscs_bam, out_prefix: str, device: torch.device,
 def main(argv=None):
     """Standalone entry (reference: each stage script runs independently).
     The duplex votes run on the card unless ``--device cpu`` is given; the
-    reference's ``--backend`` reads as the device (``tpu`` is the card,
-    ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    reference's ``--backend`` reads as the device (``tpu`` is the card),
+    ``--backend cpu`` votes on the host in numpy, and ``--device`` wins."""
     import argparse
 
     from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
@@ -501,11 +521,12 @@ def main(argv=None):
     p.add_argument("--infile", required=True, help="sorted SSCS BAM")
     p.add_argument("--outfile", required=True, help="output prefix")
     p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
-                   help="the JAX package's flag, read as the device: tpu is the card")
+                   help="the JAX package's flag: tpu is the card, cpu the host's numpy vote")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the votes run (default cuda); wins over --backend")
     args = p.parse_args(argv)
-    run_dcs(args.infile, args.outfile, entry_device(args.device, args.backend))
+    device, backend = entry_device(args.device, args.backend)
+    run_dcs(args.infile, args.outfile, device, backend=backend)
 
 
 if __name__ == "__main__":

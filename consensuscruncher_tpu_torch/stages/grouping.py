@@ -17,12 +17,14 @@ Port of ``consensuscruncher_tpu/stages/grouping.py``, which holds the
 same grouping rules at three altitudes; a semantic change must land in all
 of them:
 
-1. OBJECT PATH (``consensus_windows``, ``classify_bad``, ``derive_tag``):
-   per-read ``BamRead`` objects — the rescue window walk, and the readable
-   statement of the rules.
+1. OBJECT PATH (``stream_families``, ``consensus_windows``,
+   ``classify_bad``, ``derive_tag``): per-read ``BamRead`` objects — the
+   grouping of ``consensus --backend reference``, the rescue window walk,
+   and the readable statement of the rules.  Not to be optimized: it is
+   the reference-style baseline the other paths are timed against.
 2. COLUMNAR PER-FAMILY PATH (``stream_families_columnar``,
    ``consensus_windows_columnar``): batch decode, per-family emission —
-   the dense wire and the DCS window walk.
+   the dense wire, ``--backend cpu`` and the DCS window walk.
 3. BLOCK PATH (``stream_family_blocks`` / ``duplex_pair_blocks`` /
    ``singleton_rescue_blocks``): the vectorized producers of the main
    path.  They take this pipeline's own consensus BAMs only (every tag
@@ -33,7 +35,7 @@ of them:
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -126,6 +128,45 @@ def classify_bad(read: BamRead, bdelim: str) -> str | None:
     return None
 
 
+def stream_families(
+    reads: Iterable[BamRead],
+    header: BamHeader,
+    bdelim: str = tags_mod.DEFAULT_BDELIM,
+) -> Iterator[tuple[str, object, object]]:
+    """Yield ``("bad", read, reason)`` and ``("family", tag, [reads])`` events.
+
+    OBJECT PATH (see module docstring): the grouping walk of ``consensus
+    --backend reference``.  Families are emitted as soon as the sorted
+    stream passes their anchor position (by position, then tag string).
+    Raises :class:`NotCoordinateSorted` if the input violates coordinate
+    order.
+    """
+    pending: dict[tags_mod.FamilyTag, list[BamRead]] = {}
+    cur: tuple[int, int] | None = None  # (ref_id, pos) high-water mark
+
+    def flush() -> Iterator[tuple[str, object, object]]:
+        for tag in sorted(pending, key=lambda t: (t.pos, str(t))):
+            yield "family", tag, pending[tag]
+        pending.clear()
+
+    for read in reads:
+        reason = classify_bad(read, bdelim)
+        if reason is not None:
+            yield "bad", read, reason
+            continue
+        key = (header.ref_id(read.ref), read.pos)
+        if cur is not None and key < cur:
+            raise NotCoordinateSorted(
+                f"input BAM is not coordinate-sorted: {read.qname} at {read.ref}:{read.pos} "
+                f"after ref_id={cur[0]} pos={cur[1]} — run sort first"
+            )
+        if cur is not None and key != cur:
+            yield from flush()
+        cur = key
+        tag = tags_mod.unique_tag(read, tags_mod.barcode_from_qname(read.qname, bdelim))
+        pending.setdefault(tag, []).append(read)
+    yield from flush()
+
 # ------------------------------------------------------------- columnar path
 #
 # Vectorized twin of the JAX package's object-path stream_families over
@@ -141,6 +182,7 @@ def classify_bad(read: BamRead, bdelim: str) -> str | None:
 # classify_bad reason codes, in classify_bad's priority order.
 _BAD_REASONS = (None, "unmapped", "mate_unmapped", "secondary",
                 "supplementary", "qcfail", "no_barcode")
+
 
 
 def _classify_batch(batch, bdelim_byte: int):

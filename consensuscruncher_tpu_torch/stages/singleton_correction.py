@@ -14,7 +14,8 @@ genomic anchor — an SSCS (singleton-SSCS rescue) or another singleton
   cumulative counters)
 
 The correction is the duplex vote of singleton vs partner
-(``dcs_maker._duplex_vote_batch`` on ``device``): agreement keeps the base
+(``dcs_maker._duplex_vote_batch`` on ``device``, or per pair in numpy on a
+host backend, ``--backend cpu|reference``): agreement keeps the base
 with summed-capped quality, disagreement yields N.  Partners of unequal
 read length are not rescued.
 
@@ -55,6 +56,7 @@ from consensuscruncher_tpu_torch.stages.grouping import (
     consensus_windows,
     singleton_rescue_blocks,
 )
+from consensuscruncher_tpu_torch.utils.backend_probe import check_host_backend, record_backend
 from consensuscruncher_tpu_torch.utils.phred import decode_seq, encode_seq
 from consensuscruncher_tpu_torch.utils.profiling import (
     Counters,
@@ -522,8 +524,9 @@ def _run_rescue_walk(singleton_bam, sscs_bam, writers, stats, max_mismatch: int,
     with BamReader(singleton_bam) as s_reader, BamReader(sscs_bam) as x_reader:
         windows = _merge_windows(consensus_windows(s_reader), consensus_windows(x_reader))
         for chunk in _window_chunks(windows):
-            dists = (_chunk_distances(chunk, device) if max_mismatch > 0
-                     else [None] * len(chunk))
+            # a host backend (device None) takes the numpy distances
+            dists = (_chunk_distances(chunk, device or torch.device("cpu"))
+                     if max_mismatch > 0 else [None] * len(chunk))
             for (singles, sscses), dist in zip(chunk, dists):
                 if not singles:
                     continue
@@ -536,10 +539,15 @@ def _run_rescue_walk(singleton_bam, sscs_bam, writers, stats, max_mismatch: int,
 
 
 def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
-                             device: torch.device, max_mismatch: int = 0,
+                             device: torch.device | None, max_mismatch: int = 0,
                              level: int = 6, residency=None,
-                             stream_out=None) -> SingletonResult:
+                             stream_out=None, backend: str | None = None) -> SingletonResult:
     """Singleton rescue with the duplex votes on ``device``.
+
+    ``backend``: ``"cpu"`` or ``"reference"``, a host backend
+    (``utils.backend_probe.HOST_BACKENDS``): ``device`` is ignored, the
+    votes and the Hamming matcher run in numpy on the host and
+    ``residency`` is not used, as in the JAX package.
 
     ``max_mismatch == 0`` (exact complementary-tag matching, the default)
     runs the vectorized block path; ``max_mismatch > 0`` (and foreign tag
@@ -554,6 +562,9 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
     It needs the block path: the walk re-reads its inputs as files, so a
     foreign tag layout raises ``StreamFallback`` (the CLI re-runs the
     staged pipeline) and ``max_mismatch > 0`` raises ``ValueError``."""
+    if backend is not None:
+        check_host_backend(backend)
+        device, residency = None, None
     tracker = TimeTracker()
     stats = StageStats("singleton_correction")
     cum = Counters()
@@ -605,7 +616,7 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
         for w in writers.values():
             w.close()  # lexsort + final BGZF write
     stats.set("max_mismatch", max_mismatch)
-    stats.set("backend", device.type)
+    record_backend(stats, backend or device)
     stats.write(all_paths["stats_txt"])
     tracker.mark("rescue")
     tracker.write(f"{out_prefix}.singleton.time_tracker.txt")
@@ -614,7 +625,7 @@ def run_singleton_correction(singleton_bam, sscs_bam, out_prefix: str,
         add_counter_deltas(cum, marks)
     write_metrics(
         f"{out_prefix}.singleton.metrics.json", "singleton_correction", tracker.as_phases(),
-        {"backend": device.type, "jax_backend": None,
+        {"backend": stats.get("backend"), "jax_backend": None,
          "singletons": stats.get("singletons_total")},
         cumulative=None if walk else cum.snapshot())
     return SingletonResult(paths["sscs_rescue"], paths["singleton_rescue"],
@@ -625,7 +636,8 @@ def main(argv=None):
     """Standalone entry (reference: each stage script runs independently).
     The rescue's duplex votes run on the card unless ``--device cpu`` is
     given; the reference's ``--backend`` reads as the device (``tpu`` is
-    the card, ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    the card), ``--backend cpu`` votes and matches on the host in numpy,
+    and ``--device`` wins."""
     import argparse
 
     from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
@@ -637,13 +649,13 @@ def main(argv=None):
     p.add_argument("--max-mismatch", type=int, default=0,
                    help="barcode Hamming tolerance (0 = exact complementary match)")
     p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
-                   help="the JAX package's flag, read as the device: tpu is the card")
+                   help="the JAX package's flag: tpu is the card, cpu the host's numpy vote")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the votes run (default cuda); wins over --backend")
     args = p.parse_args(argv)
-    device = entry_device(args.device, args.backend)
+    device, backend = entry_device(args.device, args.backend)
     run_singleton_correction(args.singleton, args.bamfile, args.outfile, device,
-                             args.max_mismatch)
+                             args.max_mismatch, backend=backend)
 
 
 if __name__ == "__main__":

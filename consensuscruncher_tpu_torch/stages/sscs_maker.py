@@ -25,6 +25,13 @@ size >= 2 that ship to ``device`` and come back voted, on one of two wires
   padded ``(B, F, L)`` batches (``ops.consensus_dense``), records emitted
   one family at a time (:func:`emit_consensus`).
 
+The host backends of the JAX package run here as they are, touching no
+torch device (``backend``): ``cpu`` votes the columnar per-family events
+with ``core.consensus_cpu.consensus_maker_numpy``, ``reference`` decodes
+reads one by one (``io.bam.BamReader``), groups them with
+``grouping.stream_families`` and votes with the per-position Counter loop
+``consensus_maker``.
+
 The sorting writers buffer records in memory and write the
 coordinate-sorted BAMs at close, or hand them to the next stage in memory
 (``stream_out``).  A host worker reads one BAI coordinate range of the
@@ -41,9 +48,14 @@ import numpy as np
 import torch
 
 from consensuscruncher_tpu_torch.core import tags as tags_mod
-from consensuscruncher_tpu_torch.core.consensus_read import _KEEP_FLAGS, modal_cigar
+from consensuscruncher_tpu_torch.core.consensus_cpu import consensus_maker, consensus_maker_numpy
+from consensuscruncher_tpu_torch.core.consensus_read import (
+    _KEEP_FLAGS,
+    build_consensus_read,
+    modal_cigar,
+)
 from consensuscruncher_tpu_torch.core.qnames import build_strings, const, fixed, ragged
-from consensuscruncher_tpu_torch.io.bam import BamWriter
+from consensuscruncher_tpu_torch.io.bam import BamReader, BamWriter
 from consensuscruncher_tpu_torch.io.columnar import (
     ColumnarReader,
     SortingBamWriter,
@@ -60,10 +72,13 @@ from consensuscruncher_tpu_torch.ops.consensus_dense import consensus_families
 from consensuscruncher_tpu_torch.ops.consensus_segment import consensus_blocks_stream_batched
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.residency import record_keys
+from consensuscruncher_tpu_torch.parallel.batching import rectangularize
 from consensuscruncher_tpu_torch.parallel.mesh import device_mesh
 from consensuscruncher_tpu_torch.parallel.prefetch import start_prefetch
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
 from consensuscruncher_tpu_torch.stages.grouping import (
+    MemberView,
+    stream_families,
     stream_families_columnar,
     stream_family_blocks,
 )
@@ -74,6 +89,7 @@ from consensuscruncher_tpu_torch.utils.profiling import (
     write_metrics,
 )
 from consensuscruncher_tpu_torch.utils import sanitize
+from consensuscruncher_tpu_torch.utils.backend_probe import check_host_backend, record_backend
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 from consensuscruncher_tpu_torch.utils.stats import (
     FamilySizeHistogram,
@@ -259,8 +275,9 @@ class SscsSink:
         self.bad_writer.write(record)
 
     def family_events(self, events):
-        """Route the dense wire's grouping events
-        (``grouping.stream_families_columnar``): bad reads and size-1
+        """Route per-family grouping events (``grouping.
+        stream_families_columnar`` of the dense wire and ``--backend cpu``,
+        or ``stream_families`` of ``--backend reference``): bad reads and size-1
         families are written here; yields ``(fid, seqs, quals)`` per family
         of size >= 2, whose vote comes back through :meth:`emit`."""
         next_id = 0
@@ -284,7 +301,12 @@ class SscsSink:
     def emit(self, fid: int, codes, quals) -> None:
         """Write family ``fid``'s consensus read from its voted planes."""
         tag, members = self._pending.pop(fid)
-        emit_consensus(self.rec_writer, tag, members, codes, quals)
+        if isinstance(members[0], MemberView):
+            emit_consensus(self.rec_writer, tag, members, codes, quals)
+        else:  # the object path's BamRead members (--backend reference)
+            self.sscs_writer.write(build_consensus_read(
+                tag, members, codes, quals, qname=tags_mod.sscs_qname(tag),
+                extra_tags={"XT": ("Z", tag.barcode)}))
         self.stats.incr("sscs_written")
 
     def abort(self) -> None:
@@ -323,14 +345,16 @@ class SscsSink:
         self.tracker.mark("sort")
         return mem
 
-    def write_sidecars(self, device: torch.device, cutoff: float,
+    def write_sidecars(self, device, cutoff: float,
                        policy: str = DEFAULT_POLICY, marks=None) -> None:
         """The stats, histogram, time-tracker and ``metrics.json`` sidecars.
-        A non-default ``policy`` is recorded under the ``policy`` stats
-        key, so default sidecars keep their golden bytes.  ``marks``
+        ``device``: the votes' ``torch.device``, or the host backend's name;
+        either is recorded under the ``backend`` stats key.  A non-default
+        ``policy`` is recorded under the ``policy`` stats key, so default
+        sidecars keep their golden bytes.  ``marks``
         (``utils.profiling.counter_marks``) adds the process counters'
         deltas since then to the cumulative block."""
-        self.stats.set("backend", device.type)
+        record_backend(self.stats, device)
         self.stats.set("cutoff", cutoff)
         if policy != DEFAULT_POLICY:
             self.stats.set("policy", policy)
@@ -342,7 +366,7 @@ class SscsSink:
             add_counter_deltas(self.cum, marks)
         write_metrics(
             f"{self.prefix}.metrics.json", "SSCS", self.tracker.as_phases(),
-            {"backend": device.type, "jax_backend": None,
+            {"backend": self.stats.get("backend"), "jax_backend": None,
              "n_families": self.stats.get("families"),
              "n_reads": self.stats.get("total_reads")},
             cumulative=self.cum.snapshot())
@@ -364,8 +388,10 @@ def run_sscs(
     input_range=None,
     prestaged: PrestagedBlocks | None = None,
     devices: int | None = None,
+    backend: str | None = None,
 ) -> SscsResult:
-    """Run the SSCS stage with the family votes on ``device``.
+    """Run the SSCS stage with the family votes on ``device``, or on the
+    host with ``backend``.
 
     ``wire``: ``"stream"`` (packed member-stream batches, the default) or
     ``"dense"`` (padded ``(B, F, L)`` batches); bit-identical outputs.
@@ -415,10 +441,24 @@ def run_sscs(
     output exists), fills no residency store and arms no QC rider, so
     ``qc.json`` then has no vote plane.
 
+    ``backend``: ``"cpu"`` or ``"reference"``, the JAX package's host
+    backends (``utils.backend_probe.HOST_BACKENDS``; ``device`` is then
+    ignored, and may be None): the numpy twin over the columnar family
+    events, or the object path (per-read decode, ``stream_families``, the
+    Counter vote).  They touch no torch device, and refuse what the JAX
+    host backends refuse, with its messages: a non-majority ``policy``,
+    ``devices > 1``, and ``input_range`` under ``reference``.  ``wire``,
+    ``residency`` and ``qc`` are ignored, and a ``prestaged`` decode is
+    closed unread, as in the JAX package.
+
     Besides the stats, the stage writes ``<p>.metrics.json``: phase walls,
     and in its ``cumulative`` block the batches and families voted, the
     bytes moved to and from the card, and the BGZF deflate wall and bytes
     (``utils.profiling.write_metrics``)."""
+    if backend is not None:
+        return _run_sscs_host(in_bam, out_prefix, backend, cutoff, qual_threshold, bdelim,
+                              level, stream_out, wire, policy, input_range, prestaged,
+                              devices)
     if prestaged is not None and (input_range is not None or wire != "stream"):
         # a prestage that cannot be consumed must not leak its producer
         # thread and open reader: close it and decode normally
@@ -604,11 +644,58 @@ def run_sscs(
     return SscsResult(paths["sscs"], paths["singleton"], paths["bad"], stats, hist)
 
 
+
+def _run_sscs_host(in_bam, out_prefix: str, backend: str, cutoff: float, qual_threshold: int,
+                   bdelim: str, level: int, stream_out, wire: str, policy: str,
+                   input_range, prestaged, devices) -> SscsResult:
+    """:func:`run_sscs` on a host backend (the JAX ``cpu``/``reference``
+    branch of ``run_sscs``): every family of size >= 2 voted one at a time
+    with numpy, in stream order, touching no torch device."""
+    check_host_backend(backend)
+    vote_policy = get_policy(policy)
+    if vote_policy.name != DEFAULT_POLICY:
+        raise ValueError(f"vote policy {vote_policy.name!r} requires the tpu backend")
+    if wire not in ("stream", "dense"):
+        raise ValueError(f"unknown wire {wire!r} (expected 'stream' or 'dense')")
+    if devices is not None and devices > 1:
+        raise ValueError("--devices > 1 requires the tpu backend")
+    if prestaged is not None:  # the host backends decode their own way
+        prestaged.close()
+    if backend == "reference":
+        if input_range is not None:
+            raise ValueError("input_range requires a columnar backend")
+        reader = BamReader(in_bam)
+        source = stream_families(reader, reader.header, bdelim)
+        vote = consensus_maker
+    else:
+        reader = (ColumnarReader(in_bam, bam_range=input_range) if input_range is not None
+                  else open_batch_source(in_bam))
+        source = stream_families_columnar(reader, reader.header, bdelim)
+        vote = consensus_maker_numpy
+    sink = SscsSink(out_prefix, reader.header, level)
+    ok = False
+    try:
+        for fid, seqs, quals in sink.family_events(source):
+            sink.cum.add("families_in")
+            rect_s, rect_q, _ = rectangularize(seqs, quals)
+            codes, cquals = vote(rect_s, rect_q, cutoff=cutoff, qual_threshold=qual_threshold)
+            sink.emit(fid, codes, cquals)
+        sink.rec_writer.flush()
+        ok = True
+    finally:
+        reader.close()
+        if not ok:  # never promote a partial output on error
+            sink.abort()
+    sink.close(stream_out)
+    sink.write_sidecars(backend, cutoff)
+    paths = sink.paths
+    return SscsResult(paths["sscs"], paths["singleton"], paths["bad"], sink.stats, sink.hist)
+
 def main(argv=None):
     """Standalone entry (reference: each stage script runs independently).
     The vote runs on the card unless ``--device cpu`` is given; the
-    reference's ``--backend`` reads as the device (``tpu`` is the card,
-    ``cpu`` exits naming ``--device``), and ``--device`` wins."""
+    reference's ``--backend`` reads as the device (``tpu`` is the card),
+    ``--backend cpu`` votes on the host in numpy, and ``--device`` wins."""
     import argparse
 
     from consensuscruncher_tpu_torch.utils.backend_probe import entry_device
@@ -619,12 +706,12 @@ def main(argv=None):
     p.add_argument("--cutoff", type=float, default=0.7, help="consensus base fraction cutoff")
     p.add_argument("--qualscore", type=int, default=0, help="Phred threshold; lower-quality bases vote N")
     p.add_argument("--backend", choices=("cpu", "tpu"), default="tpu",
-                   help="the JAX package's flag, read as the device: tpu is the card")
+                   help="the JAX package's flag: tpu is the card, cpu the host's numpy vote")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the votes run (default cuda); wins over --backend")
     p.add_argument("--bdelim", default=tags_mod.DEFAULT_BDELIM, help="barcode delimiter in qnames")
     args = p.parse_args(argv)
-    device = entry_device(args.device, args.backend)
+    device, backend = entry_device(args.device, args.backend)
     run_sscs(
         args.infile,
         args.outfile,
@@ -632,6 +719,7 @@ def main(argv=None):
         cutoff=args.cutoff,
         qual_threshold=args.qualscore,
         bdelim=args.bdelim,
+        backend=backend,
     )
 
 

@@ -14,8 +14,11 @@ process-wide platform to pin, and the silicon a stage ran on is the
 stage's device itself (:func:`record_backend` writes it under
 ``backend``, as every port stage does; ``jax_backend`` stays absent from
 the stats and null in the metrics sidecars).  The JAX package's
-``backend`` values (a config key, a stage entry's ``--backend``) read as
-the port's device through :func:`device_of_backend`.
+``backend`` values (``consensus --backend``, a config key, a stage
+entry's ``--backend``) read through :func:`device_of_backend`: ``tpu``
+and ``xla_cpu`` as the port's device, ``cpu`` and ``reference`` as the
+host backends (:data:`HOST_BACKENDS`), which run on the host alone and
+never touch torch's devices.
 """
 
 from __future__ import annotations
@@ -35,8 +38,10 @@ def _default_timeout_s() -> float:
 
 
 def record_backend(stats, device) -> None:
-    """Record the silicon a stage ran on under the ``backend`` stats key
-    (``cuda`` or ``cpu``; the golden digests drop every line naming it)."""
+    """Record what a stage ran on under the ``backend`` stats key: its
+    device (``cuda`` or ``cpu``) or its host backend (``cpu`` or
+    ``reference``, as the JAX package records them).  The golden digests
+    drop every line naming it."""
     stats.set("backend", getattr(device, "type", str(device)))
 
 
@@ -85,37 +90,50 @@ def ensure_backend(device, timeout_s: float | None = None):
     return dev
 
 
-# The JAX package's ``backend`` values, read as the port's device.
+# The JAX package's ``backend`` values that name a device of the port.
 _BACKEND_DEVICE = {"tpu": "cuda", "xla_cpu": "cpu"}
 
+# The JAX package's host backends, which the port runs as they are: ``cpu``
+# the numpy twin (columnar decode, ``consensus_maker_numpy``), ``reference``
+# the object path (per-read decode, ``grouping.stream_families``, the
+# per-position Counter vote).  Both rescue and pair on the host with numpy.
+HOST_BACKENDS = ("cpu", "reference")
 
-def device_of_backend(backend: str | None, flag: str | None = None) -> str | None:
-    """The port's device for a JAX ``backend`` value (None when unset):
-    ``tpu`` (the device kernels) is the card, ``xla_cpu`` (the same
-    kernels on the CPU) the CPU.  ``cpu`` and ``reference`` name the JAX
-    package's numpy twin and object path, which the port has not: they
-    exit, naming ``--device``.  ``flag`` names the option that gave the
-    value (a stage entry's ``--backend``); None means a config.ini key."""
+
+def check_host_backend(backend: str) -> None:
+    """Refuse a stage's ``backend`` keyword that names no host backend."""
+    if backend not in HOST_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected 'cpu' or 'reference')")
+
+
+def device_of_backend(backend: str | None,
+                      flag: str | None = None) -> tuple[str | None, str | None]:
+    """``(device, host backend)`` for a JAX ``backend`` value; ``(None,
+    None)`` when unset.  ``tpu`` (the device kernels) is the card,
+    ``xla_cpu`` (the same kernels on the CPU) the CPU; ``cpu`` and
+    ``reference`` are host backends (:data:`HOST_BACKENDS`) and name no
+    device.  Any other value exits.  ``flag`` names the option that gave
+    the value (``--backend``); None means a config.ini key."""
     if backend in (None, ""):
-        return None
+        return None, None
     if backend in _BACKEND_DEVICE:
-        return _BACKEND_DEVICE[backend]
+        return _BACKEND_DEVICE[backend], None
+    if backend in HOST_BACKENDS:
+        return None, backend
     where = f"{flag} " if flag else "config backend = "
-    if backend in ("cpu", "reference"):
-        advice = ("pass --device cpu to run its CPU path, or --device cuda for the card"
-                  if flag else
-                  "set device = cpu in [consensus] (or pass --device cpu) to run its CPU "
-                  "path, or device = cuda for the card")
-        raise SystemExit(f"{where}{backend}: this port has no numpy or object-path "
-                         f"backend; {advice}")
     raise SystemExit(f"{where}{backend!r}: expected tpu, xla_cpu, cpu or reference "
                      "(or set device = cuda|cpu)")
 
 
 def entry_device(device: str | None, backend: str | None):
-    """The device of a standalone stage entry (``python -m
-    consensuscruncher_tpu_torch.stages.<stage>``): ``--device`` wins;
-    else the reference's ``--backend`` (default ``tpu``) reads through
-    :func:`device_of_backend`.  Then :func:`ensure_backend`: the card, or
-    a ``SystemExit`` without one."""
-    return ensure_backend(device or device_of_backend(backend, flag="--backend"))
+    """``(device, host backend)`` of a standalone stage entry (``python -m
+    consensuscruncher_tpu_torch.stages.<stage>``): ``--device`` wins, and
+    is resolved by :func:`ensure_backend` (the card, or a ``SystemExit``
+    without one); else the reference's ``--backend`` (default ``tpu``)
+    reads through :func:`device_of_backend`, and ``cpu`` runs the stage's
+    host backend, touching no device: ``(None, "cpu")``."""
+    if not device:
+        device, host = device_of_backend(backend, flag="--backend")
+        if host is not None:
+            return None, host
+    return ensure_backend(device), None

@@ -65,3 +65,11 @@ def complement_codes(codes: np.ndarray) -> np.ndarray:
     """A<->T, C<->G, N->N on the integer encoding."""
     lut = np.array([T, G, C, A, N, PAD], dtype=np.uint8)
     return lut[np.asarray(codes, dtype=np.uint8)]
+
+
+_REVCOMP = str.maketrans("ACGTNacgtn", "TGCANtgcan")
+
+
+def revcomp_str(seq: str) -> str:
+    """Reverse complement of a base string (ACGTN, either case)."""
+    return seq.translate(_REVCOMP)[::-1]

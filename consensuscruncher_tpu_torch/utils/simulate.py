@@ -3,9 +3,10 @@
 Port of ``consensuscruncher_tpu/utils/simulate.py``: ``SimConfig``, the
 per-read generator ``simulate_bam`` (with the degraded-read regime the
 vote policies are judged on) and the vectorized ``simulate_bam_fast``
-(benchmark scale; no degraded regime, as in the reference), and
-``simulate_fastq_pairs`` (raw FASTQ pairs and their FASTA reference for
-``fastq2bam``).  It fabricates duplex fragments the same way the wet lab
+(benchmark scale; no degraded regime, as in the reference),
+``simulate_bam_adversarial`` (the edge-case BAM: clips, ambiguity bases,
+flag soup, reference edges) and ``simulate_fastq_pairs`` (raw FASTQ pairs
+and their FASTA reference for ``fastq2bam``).  It fabricates duplex fragments the same way the wet lab
 does: a true molecule sequence, two strands, R1/R2 per strand, per-read
 sequencing errors, barcodes recorded in swapped order on opposite strands
 (see core/tags.py's physical model).  Numpy only, seeded by ``SimConfig.seed``:
@@ -355,6 +356,198 @@ def simulate_bam_fast(
         writer.abort()
         raise
     return SimTruthFast(lo=lo, hi=hi, a_size=a_size, b_size=b_size)
+
+
+def simulate_bam_adversarial(path: str, seed: int = 0,
+                             bdelim: str = DEFAULT_BDELIM) -> dict:
+    """Write a small coordinate-sorted barcoded BAM stuffed with the edge
+    cases real sequencing data throws at a pipeline (the generator behind
+    ``test/data/sample_adversarial.bam``): indel/soft-clip/hard-clip cigars,
+    mixed and odd read lengths inside one family, ambiguity bases, missing
+    quals, exotic-but-legal tag types, long qnames, flag soup
+    (secondary/supplementary/qcfail/duplicate), placed-unmapped mates and
+    fully-unplaced pairs, families anchored at position 0 and at the
+    reference edge.
+
+    Returns a dict of expected stage-routing counts for assertions:
+    ``bad_reads`` (reads the SSCS stage must route to badReads.bam) and
+    ``good_reads`` (reads that must enter family grouping).
+    """
+    rng = np.random.default_rng(seed)
+    ref_name, ref_len = "chrAdv", 400_000
+    header = BamHeader.from_refs([(ref_name, ref_len)])
+    reads: list[BamRead] = []
+    expect = {"bad_reads": 0, "good_reads": 0}
+
+    def qual(n, lo=25, hi=41):
+        return rng.integers(lo, hi, n).astype(np.uint8)
+
+    def add_pair(qname, pos, mpos, seq1, seq2, cigar1, cigar2, flag_extra1=0,
+                 flag_extra2=0, q1=None, q2=None, tags1=None, tags2=None,
+                 good=True, r1_first=True):
+        # r1_first mirrors simulate_bam's strand model: strand A reads are
+        # (read1 fwd @ pos, read2 rev @ mpos); the complementary strand B
+        # flips the read-number bits — the flip the duplex tag pairs on.
+        tlen = mpos - pos + len(seq2)
+        reads.append(BamRead(
+            qname=qname,
+            flag=0x1 | 0x2 | 0x20 | (0x40 if r1_first else 0x80) | flag_extra1,
+            ref=ref_name, pos=pos, mapq=60, cigar=cigar1,
+            mate_ref=ref_name, mate_pos=mpos, tlen=tlen,
+            seq=seq1, qual=qual(len(seq1)) if q1 is None else q1,
+            tags=dict(tags1 or {}),
+        ))
+        reads.append(BamRead(
+            qname=qname,
+            flag=0x1 | 0x2 | 0x10 | (0x80 if r1_first else 0x40) | flag_extra2,
+            ref=ref_name, pos=mpos, mapq=60, cigar=cigar2,
+            mate_ref=ref_name, mate_pos=pos, tlen=-tlen,
+            seq=seq2, qual=qual(len(seq2)) if q2 is None else q2,
+            tags=dict(tags2 or {}),
+        ))
+        bad_flags = 0x4 | 0x8 | 0x100 | 0x200 | 0x800
+        for fx in (flag_extra1, flag_extra2):
+            if good and not (fx & bad_flags):
+                expect["good_reads"] += 1
+            else:
+                expect["bad_reads"] += 1
+
+    def bc(u1, u2):
+        return f"{u1}{BARCODE_SEP}{u2}"
+
+    serial = 0
+
+    def qn(tag, barcode, extra=""):
+        nonlocal serial
+        serial += 1
+        return f"adv:{tag}:{serial}{extra}{bdelim}{barcode}"
+
+    # 1. plain duplex families (baseline population, incl. one at pos 0 and
+    #    one at the reference edge)
+    for i, lo in enumerate([0, 5_000, 12_345, ref_len - 260]):
+        hi = lo + 150
+        u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+        mol1, mol2 = _rand_seq(rng, 100), _rand_seq(rng, 100)
+        for strand, barcode in (("A", bc(u1, u2)), ("B", bc(u2, u1))):
+            for _ in range(3):
+                name = qn(f"base{i}{strand}", barcode)
+                add_pair(name, lo, hi, mol1, mol2,
+                         [("M", 100)], [("M", 100)], r1_first=strand == "A")
+
+    # 2. indel/clip cigar families: query-consuming ops sum to seq length;
+    #    members disagree on cigar (modal-cigar path) and lengths vary
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    mol1, mol2 = _rand_seq(rng, 100), _rand_seq(rng, 100)
+    cigs = [
+        [("S", 5), ("M", 90), ("S", 5)],
+        [("M", 40), ("I", 4), ("M", 56)],
+        [("M", 30), ("D", 7), ("M", 70)],
+        [("H", 12), ("M", 100)],
+        [("M", 25), ("N", 500), ("M", 75)],
+    ]
+    for k, cig in enumerate(cigs):
+        name = qn("indel", bc(u1, u2))
+        add_pair(name, 20_000, 20_180, mol1, mol2, cig, [("M", 100)])
+
+    # 3. mixed/odd read lengths inside one family + ambiguity bases
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    for ln in (99, 100, 100, 97):
+        s1 = _rand_seq(rng, ln)
+        s1 = s1[:10] + "NRYK"[: max(0, min(4, ln - 10))] + s1[14:]
+        name = qn("mixlen", bc(u1, u2))
+        add_pair(name, 30_000, 30_200, s1, _rand_seq(rng, 100),
+                 [("M", ln)], [("M", 100)])
+
+    # 4. missing quals (SAM '*'): qual arrays of size 0
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    for _ in range(2):
+        name = qn("noqual", bc(u1, u2))
+        add_pair(name, 40_000, 40_150, _rand_seq(rng, 80), _rand_seq(rng, 80),
+                 [("M", 80)], [("M", 80)],
+                 q1=np.zeros(0, np.uint8), q2=np.zeros(0, np.uint8))
+
+    # 5. exotic-but-legal tags on every member
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    tag_soup = {
+        "XA": ("A", "c"), "Xc": ("c", -12), "XC": ("C", 250),
+        "Xs": ("s", -30000), "XS": ("S", 65000), "Xi": ("i", -(1 << 30)),
+        "XI": ("I", (1 << 31) + 7), "Xf": ("f", 1.5), "XZ": ("Z", "free text"),
+        "XH": ("H", "DEADBEEF"),
+        "XB": ("B", ("i", [-1, 0, 1 << 20])),
+        "XD": ("B", ("f", [0.5, -2.25])),
+    }
+    for _ in range(3):
+        name = qn("tags", bc(u1, u2))
+        add_pair(name, 50_000, 50_160, _rand_seq(rng, 100), _rand_seq(rng, 100),
+                 [("M", 100)], [("M", 100)], tags1=tag_soup, tags2=tag_soup)
+
+    # 6. qname edge cases: near-the-255-limit names, punctuation-rich
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    long_tail = ":".join(["x" * 9] * 18)  # ~180 chars of qname
+    for _ in range(2):
+        name = qn("longq", bc(u1, u2), extra=":" + long_tail)
+        add_pair(name, 60_000, 60_140, _rand_seq(rng, 100), _rand_seq(rng, 100),
+                 [("M", 100)], [("M", 100)])
+    name = qn("punct.q-n+m=e", bc(u1, u2))
+    add_pair(name, 60_500, 60_640, _rand_seq(rng, 100), _rand_seq(rng, 100),
+             [("M", 100)], [("M", 100)])
+
+    # 7. flag soup -> badReads routing: secondary, supplementary, qcfail,
+    #    mate-unmapped, and fully-unplaced pairs; duplicate-flagged KEPT
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    add_pair(qn("dup", bc(u1, u2)), 70_000, 70_150,
+             _rand_seq(rng, 100), _rand_seq(rng, 100),
+             [("M", 100)], [("M", 100)], flag_extra1=0x400, flag_extra2=0x400)
+    add_pair(qn("sec", bc(u1, u2)), 70_000, 70_150,
+             _rand_seq(rng, 100), _rand_seq(rng, 100),
+             [("M", 100)], [("M", 100)], flag_extra1=0x100, flag_extra2=0x800)
+    add_pair(qn("qcf", bc(u1, u2)), 70_000, 70_150,
+             _rand_seq(rng, 100), _rand_seq(rng, 100),
+             [("M", 100)], [("M", 100)], flag_extra1=0x200, flag_extra2=0x200)
+    # placed-unmapped mate: R1 mapped but mate-unmapped bit -> bad
+    reads.append(BamRead(
+        qname=qn("mu", bc(u1, u2)), flag=0x1 | 0x8 | 0x40, ref=ref_name,
+        pos=71_000, mapq=60, cigar=[("M", 60)], mate_ref=ref_name,
+        mate_pos=71_000, tlen=0, seq=_rand_seq(rng, 60), qual=qual(60),
+    ))
+    reads.append(BamRead(  # its unmapped mate, placed at same pos
+        qname=qn("mu2", bc(u1, u2)), flag=0x1 | 0x4 | 0x80, ref=ref_name,
+        pos=71_000, mapq=0, cigar=[], mate_ref=ref_name, mate_pos=71_000,
+        tlen=0, seq=_rand_seq(rng, 60), qual=qual(60),
+    ))
+    expect["bad_reads"] += 2
+    # fully-unplaced pair
+    for fl in (0x1 | 0x4 | 0x8 | 0x40, 0x1 | 0x4 | 0x8 | 0x80):
+        reads.append(BamRead(
+            qname=qn("nc", bc(u1, u2)), flag=fl, ref=None, pos=-1, mapq=0,
+            cigar=[], mate_ref=None, mate_pos=-1, tlen=0,
+            seq=_rand_seq(rng, 50), qual=qual(50),
+        ))
+        expect["bad_reads"] += 1
+    # barcode-less qname -> bad
+    reads.append(BamRead(
+        qname="adv:nobc:999", flag=0x1 | 0x2 | 0x40, ref=ref_name, pos=72_000,
+        mapq=60, cigar=[("M", 50)], mate_ref=ref_name, mate_pos=72_100,
+        tlen=150, seq=_rand_seq(rng, 50), qual=qual(50),
+    ))
+    expect["bad_reads"] += 1
+
+    # 8. singleton + complementary-strand singleton with indel cigars
+    #    (rescue over non-trivial cigars)
+    u1, u2 = _rand_seq(rng, 6), _rand_seq(rng, 6)
+    mol = _rand_seq(rng, 100)
+    add_pair(qn("resA", bc(u1, u2)), 80_000, 80_170, mol, _rand_seq(rng, 100),
+             [("S", 3), ("M", 94), ("S", 3)], [("M", 100)])
+    add_pair(qn("resB", bc(u2, u1)), 80_000, 80_170, mol, _rand_seq(rng, 100),
+             [("S", 3), ("M", 94), ("S", 3)], [("M", 100)], r1_first=False)
+
+    tmp = path + ".unsorted"
+    with BamWriter(tmp, header) as w:
+        for read in reads:
+            w.write(read)
+    sort_bam(tmp, path)
+    os.unlink(tmp)
+    return expect
 
 
 def simulate_fastq_pairs(out_prefix: str, cfg: SimConfig,

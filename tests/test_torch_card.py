@@ -738,3 +738,29 @@ def test_critpath_job_and_top_over_a_card_daemon(card, tmp_path, capsys):
     finally:
         proc.terminate()
         proc.wait(timeout=120)
+
+
+@pytest.mark.parametrize("max_batch,member_limit", [(4096, 32768), (64, 512)])
+def test_consensus_families_stream_on_card_matches_cpu(card, max_batch, member_limit):
+    """The library's member-stream entry: each batch one B1 launch on the
+    card, equal family by family to its ``device="cpu"`` run."""
+    rng = np.random.default_rng(max_batch)
+    fams = []
+    for key in range(3000):
+        size = int(rng.integers(1, 9))
+        length = int(rng.choice([64, 100, 151]))
+        truth = rng.integers(0, 4, length, dtype=np.uint8)
+        seqs = [np.where(rng.random(length) < 0.9, truth,
+                         rng.integers(0, 5, length)).astype(np.uint8) for _ in range(size)]
+        fams.append((key, seqs, [rng.integers(2, 41, length, dtype=np.uint8)
+                                 for _ in range(size)]))
+    cfg = consensus_vote.ConsensusConfig()
+    before = consensus_vote.launches
+    got = list(consensus_segment.consensus_families_stream(
+        iter(fams), cfg, card, max_batch=max_batch, member_limit=member_limit))
+    assert consensus_vote.launches > before
+    want = list(consensus_segment.consensus_families_stream(
+        iter(fams), cfg, torch.device("cpu"), max_batch=max_batch, member_limit=member_limit))
+    assert [k for k, _b, _q in got] == [k for k, _b, _q in want]
+    for (_k, gb, gq), (_w, wb, wq) in zip(got, want):
+        assert np.array_equal(gb, wb) and np.array_equal(gq, wq)

@@ -109,21 +109,24 @@ def test_flag_over_config_over_builtin(tmp_path, monkeypatch):
 def test_backend_key_reads_as_the_device(tmp_path):
     # the committed config.ini says backend = tpu: the card (resolved, not run)
     args = torch_cli.parse_args(["consensus", "-c", CONFIG, "-i", "a.bam", "-o", "o"])
-    assert args.device == "cuda"
-    assert torch_cli.device_of_backend("tpu") == "cuda"
-    assert torch_cli.device_of_backend("xla_cpu") == "cpu"
-    assert torch_cli.device_of_backend(None) is None
+    assert (args.device, args.host_backend) == ("cuda", None)
+    assert torch_cli.device_of_backend("tpu") == ("cuda", None)
+    assert torch_cli.device_of_backend("xla_cpu") == ("cpu", None)
+    assert torch_cli.device_of_backend(None) == (None, None)
     for backend in ("cpu", "reference"):
+        assert torch_cli.device_of_backend(backend) == (None, backend)
+        # backend = cpu|reference chooses the host backend, no device
         cfg = _ini(tmp_path / f"{backend}.ini", f"[consensus]\nbackend = {backend}\n")
-        with pytest.raises(SystemExit, match="--device"):
-            torch_cli.parse_args(["consensus", "-c", cfg, "-i", "a.bam", "-o", "o"])
+        args = torch_cli.parse_args(["consensus", "-c", cfg, "-i", "a.bam", "-o", "o"])
+        assert (args.device, args.host_backend) == (None, backend)
         # a device key or --device wins over the backend key
-        assert torch_cli.parse_args(["consensus", "-c", cfg, "-i", "a.bam", "-o", "o",
-                                     "--device", "cpu"]).device == "cpu"
+        args = torch_cli.parse_args(["consensus", "-c", cfg, "-i", "a.bam", "-o", "o",
+                                     "--device", "cpu"])
+        assert (args.device, args.host_backend) == ("cpu", None)
         both = _ini(tmp_path / f"{backend}_dev.ini",
                     f"[consensus]\nbackend = {backend}\ndevice = cuda\n")
-        assert torch_cli.parse_args(["consensus", "-c", both, "-i", "a.bam",
-                                     "-o", "o"]).device == "cuda"
+        args = torch_cli.parse_args(["consensus", "-c", both, "-i", "a.bam", "-o", "o"])
+        assert (args.device, args.host_backend) == ("cuda", None)
     with pytest.raises(SystemExit, match="expected tpu"):
         torch_cli.device_of_backend("gpu")
     with pytest.raises(SystemExit, match="config file not found"):

@@ -387,12 +387,12 @@ def test_consensus_backend_reads_as_the_device(tmp_path):
     assert torch_cli.parse_args(bare + ["--backend", "xla_cpu"]).device == "cpu"
     assert torch_cli.parse_args(bare).device == "cuda"
     for backend in ("cpu", "reference"):
-        with pytest.raises(SystemExit, match="--device") as exc:
-            torch_cli.parse_args(bare + ["--backend", backend])
-        assert str(exc.value).startswith(f"--backend {backend}:")
+        # the host backends: no device, the backend carried beside it
+        args = torch_cli.parse_args(bare + ["--backend", backend])
+        assert (args.device, args.host_backend) == (None, backend)
         # --device wins over the flag
-        assert torch_cli.parse_args(bare + ["--backend", backend, "--device", "cpu"]).device \
-            == "cpu"
+        args = torch_cli.parse_args(bare + ["--backend", backend, "--device", "cpu"])
+        assert (args.device, args.host_backend) == ("cpu", None)
     assert torch_cli.parse_args(bare + ["--backend", "tpu", "--device", "cpu"]).device == "cpu"
     # the flag wins over a config key
     cfg = tmp_path / "c.ini"

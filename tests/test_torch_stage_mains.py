@@ -11,7 +11,8 @@ CPU platform under ``JAX_PLATFORMS=cpu``): ``sscs_maker``, then
 SSCS and rescue outputs also equal the ``consensus`` goldens of
 ``test/golden.json``.  The entries read the reference's ``--backend``
 as the device: ``tpu`` (the default) is the card, and raises without
-CUDA; ``cpu`` exits naming ``--device``; ``--device`` wins.
+CUDA; ``cpu`` runs the JAX entry's numpy host path, touching no card, and
+writes the JAX entry's outputs; ``--device`` wins.
 ``generate_plots.main`` writes the reference's file names.
 """
 
@@ -148,12 +149,33 @@ def test_entries_default_to_the_card_and_raise_without_it(monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
-def test_backend_cpu_exits_naming_device(tmp_path, entry):
-    mod, argv = _entry_argv(entry, tmp_path)
-    with pytest.raises(SystemExit, match="--device cpu") as info:
-        mod.main([*argv, "--backend", "cpu"])
-    assert str(info.value).startswith("--backend cpu: this port has no numpy")
-    assert os.listdir(tmp_path) == []
+def test_backend_cpu_exits_naming_device(monkeypatch, sscs_runs, tmp_path, entry):
+    """``--backend cpu`` without ``--device`` runs the entry's host backend
+    (the JAX entry's numpy path): it opens no CUDA context and builds no
+    kernel, and writes the JAX entry's outputs under the same flag, its
+    stats recording ``backend: cpu``."""
+    from consensuscruncher_tpu_torch.ops import cuda_lib
+
+    def no_card(*_a, **_k):
+        raise AssertionError("a host backend touched the card")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_card)
+    monkeypatch.setattr(cuda_lib, "build", no_card)
+    src = sscs_runs["jax"] / "sscs"
+    mod, jax_mod, argv, stats = {
+        "sscs_maker": (sscs_maker, jax_sscs, ["--infile", SAMPLE], "sscs_stats"),
+        "singleton_correction": (singleton_correction, jax_sc, [
+            "--singleton", str(src / "golden.singleton.sorted.bam"),
+            "--bamfile", str(src / "golden.sscs.sorted.bam")], "singleton_stats"),
+        "dcs_maker": (dcs_maker, jax_dcs, ["--infile", str(src / "golden.sscs.sorted.bam")],
+                      "dcs_stats"),
+    }[entry]
+    for tag, m in (("port", mod), ("jax", jax_mod)):
+        os.makedirs(tmp_path / tag)
+        m.main([*argv, "--outfile", str(tmp_path / tag / "golden"), "--backend", "cpu"])
+    assert _same_outputs(tmp_path / "port", tmp_path / "jax", "golden") >= 2
+    with open(tmp_path / "port" / f"golden.{stats}.json") as fh:
+        assert json.load(fh)["backend"] == "cpu"
 
 
 def test_device_wins_over_backend(tmp_path):
