@@ -212,7 +212,23 @@ failure; no phase's failure is caught.  Phases:
     ``--device cuda`` run of the same input (records, stats less backend
     lines), each wall beside the card run's; (iii)
     ``IndexedBamReader.fetch`` on the card run's SSCS BAM of (ii)'s sample
-    over seeded random regions, equal to a linear scan.
+    over seeded random regions, equal to a linear scan;
+15. training and the last public names: (i) the distilled head's trainer
+    (``python -m consensuscruncher_tpu_torch.policies.distill_train``) at
+    its defaults on the card, within the stated tolerances of the
+    committed checkpoint (every weight within 1e-4, every held-out
+    accuracy within 0.001, every ``n`` exact, distilled above majority on
+    mixed and degraded, the rest equal but ``meta.tool``), and at
+    ``TRAIN_CUT`` on the card and with ``--device cpu``, the card's within
+    the same tolerances of the CPU's; each run's seconds, the card's
+    steps/s and CUDA launches per step; (ii) the card-trained file
+    as ``DistilledPolicy(checkpoint=...)`` voting phase 7's stream batch
+    on the card, equal to its plain version; (iii)
+    ``policies.majority_family_vote`` on phase 6 (b)'s largest bucket, one
+    family per call, with and without the rider: one B1 dense launch per
+    call (counted from 0, the B1 dense row's
+    ``majority_family_vote_launches``), each output equal to the plain
+    version's.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -272,6 +288,8 @@ from consensuscruncher_tpu_torch.ops.packing import (  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import distributed  # noqa: E402
 from consensuscruncher_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from consensuscruncher_tpu_torch.parallel.batching import MAX_BATCH, bucket_member_blocks  # noqa: E402
+from consensuscruncher_tpu_torch.policies import distill_train, distilled  # noqa: E402
+from consensuscruncher_tpu_torch.policies import majority_family_vote  # noqa: E402
 from consensuscruncher_tpu_torch.serve.canary import (  # noqa: E402
     CANARY_FRAGMENTS,
     CANARY_SEED,
@@ -3824,6 +3842,171 @@ def phase_library_host(dev, work: str, card: str) -> dict:
     return {"entries": entries, "runs": runs, "seconds": seconds}
 
 
+# ------------------------------------------------------- training (phase 15)
+
+TRAIN_WEIGHT_TOL = 1e-4  # the trained weights, against the committed file and the CPU run
+TRAIN_ACCURACY_TOL = 1e-3  # the held-out accuracies, likewise
+TRAIN_RATE_STEPS = 100  # the steps timed for the card's steps/s
+# The card against the CPU on a cut run: the CPU at the defaults took 23.5 s
+# of the phase's 40 s budget on the card's host (PERF.md section 4).
+TRAIN_CUT = ("--samples", "24000", "--steps", "100")
+VOTE_FAMILIES = 256  # the dense bucket's families voted one at a time
+COMMITTED_CHECKPOINT = os.path.join(REPO, "consensuscruncher_tpu_torch", "policies",
+                                    "checkpoints", distilled.CHECKPOINT_NAME)
+
+
+def _train(device: str, out: str, *extra: str) -> tuple[dict, float]:
+    """The trainer's command on ``device`` (its defaults, less ``extra``):
+    the document it wrote and its seconds."""
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = distill_train.main(["--out", out, "--device", device, *extra])
+    seconds = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"distill_train --device {device} exited {rc}")
+    with open(out) as fh:
+        return json.load(fh), seconds
+
+
+def _held_to(doc: dict, want: dict, what: str) -> dict:
+    """A trained document against another at the stated tolerances: every
+    weight, every held-out accuracy, every ``n`` exact, distilled above
+    majority on mixed and degraded, the rest equal but ``meta.tool``."""
+    weight = max(float(np.abs(np.asarray(doc[k], np.float64) - np.asarray(want[k])).max())
+                 for k in ("w1", "b1", "w2", "b2"))
+    got_acc, want_acc = doc["meta"]["holdout_accuracy"], want["meta"]["holdout_accuracy"]
+    accuracy = max(abs(got_acc[r][k] - want_acc[r][k])
+                   for r in want_acc for k in ("distilled", "majority"))
+    rest = [{k: v for k, v in d.items() if k not in ("w1", "b1", "w2", "b2", "meta")}
+            | {"meta": {k: v for k, v in d["meta"].items()
+                        if k not in ("tool", "holdout_accuracy")}} for d in (doc, want)]
+    if (weight > TRAIN_WEIGHT_TOL or accuracy > TRAIN_ACCURACY_TOL or rest[0] != rest[1]
+            or any(got_acc[r]["n"] != want_acc[r]["n"] for r in want_acc)
+            or any(got_acc[r]["distilled"] <= got_acc[r]["majority"]
+                   for r in ("mixed", "degraded"))
+            or doc["meta"]["tool"] != distill_train.TOOL):
+        raise AssertionError(f"trained checkpoint against {what}: weights {weight}, "
+                             f"accuracy {accuracy}: {got_acc} vs {want_acc}")
+    return {"max_weight_diff": weight, "max_accuracy_diff": accuracy}
+
+
+def _step_rate(dev) -> dict:
+    """The card's full-batch Adam steps at the defaults' data: steps/s over
+    ``TRAIN_RATE_STEPS`` synchronised steps, and the CUDA launches of one
+    step as the profiler sees them."""
+    args = distill_train.build_parser().parse_args([])
+    rng, _per, counts, qsums, fam, labels = distill_train.make_data(args.seed, args.samples)
+    with distill_train.highest_precision():
+        feats = distilled.features(*(torch.from_numpy(a).to(dev) for a in (counts, qsums, fam)),
+                                   qual_cap=distill_train.QUAL_CAP)
+        _hold, tr = distill_train.split(rng, len(feats))
+        x = feats[torch.from_numpy(tr).to(dev)]
+        y = torch.from_numpy(labels[tr]).to(dev, torch.int64)
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in distill_train.init_params(rng, args.hidden).items()}
+        m = {k: torch.zeros_like(v) for k, v in params.items()}
+        v = {k: torch.zeros_like(p) for k, p in params.items()}
+        step = [0]
+
+        def one():
+            step[0] += 1
+            distill_train.adam_step(params, m, v, step[0], x, y, args.lr)
+
+        one()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TRAIN_RATE_STEPS):
+            one()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = torch_launches(one)
+    return {"steps_per_s": TRAIN_RATE_STEPS / seconds, "train_rows": int(len(tr)),
+            "launches_per_step": launches["launches"], "copies_per_step": launches["copies"]}
+
+
+def phase_training(dev, sim_bam: str, dense_batch, work: str, card: str) -> dict:
+    """Phase 15: (i) the trainer at its defaults on the card, held to the
+    committed checkpoint, and at ``TRAIN_CUT`` on the card and on the CPU,
+    held to each other; the card's steps/s and launches per step; (ii) the card-trained
+    file loaded as ``DistilledPolicy(checkpoint=...)``, phase 7's stream
+    batch voted by it on the card against its plain version; (iii)
+    ``majority_family_vote`` on the dense bucket's families, one B1 dense
+    launch each (counted from 0), against its plain version."""
+    started = time.perf_counter()
+    with open(COMMITTED_CHECKPOINT) as fh:
+        committed = json.load(fh)
+    card_doc, card_s = _train("cuda", os.path.join(work, "trained_card.json"))
+    cut_doc, cut_s = _train("cuda", os.path.join(work, "cut_card.json"), *TRAIN_CUT)
+    cpu_doc, cpu_s = _train("cpu", os.path.join(work, "cut_cpu.json"), *TRAIN_CUT)
+    rate = _step_rate(dev)
+    emit("training", card=card, steps=card_doc["meta"]["steps"],
+         samples=card_doc["meta"]["samples"], card_s=card_s, **rate,
+         card_vs_committed=_held_to(card_doc, committed, "the committed file"),
+         holdout=card_doc["meta"]["holdout_accuracy"], cut=" ".join(TRAIN_CUT),
+         cut_card_s=cut_s, cut_cpu_s=cpu_s,
+         cut_card_vs_cpu=_held_to(cut_doc, cpu_doc, "the CPU run"),
+         cut_holdout=cut_doc["meta"]["holdout_accuracy"])
+
+    policy = distilled.DistilledPolicy(checkpoint=os.path.join(work, "trained_card.json"))
+    batch = main_path_batch(sim_bam)
+    n = batch.n_real
+    wire, a, w = consensus_segment.encode_member_batch(batch)
+    a_h, book = torch.from_numpy(a), torch.from_numpy(w)
+    b_d = book.to(dev) if wire == "raw" else book
+    sizes = torch.from_numpy(batch.sizes[:n])
+    lengths = torch.from_numpy(batch.lengths[:n])
+    out_len = consensus_segment._out_len(batch)
+    cfg = consensus_vote.ConsensusConfig()
+    errs: list[int] = []
+    before = consensus_vote.launches
+    got = consensus_segment.stream_vote(wire, a_h.to(dev), b_d, sizes, cfg, out_len, lengths,
+                                        policy=policy)
+    if consensus_vote.launches != before:
+        raise AssertionError("the trained head's vote launched B1")
+    want = consensus_segment.stream_vote(wire, a_h, book, sizes, cfg, out_len, lengths,
+                                         policy=policy)
+    _check_equal("trained/main_path_batch/planes", got[0].cpu(), want[0], errs)
+    _check_equal("trained/main_path_batch/qc", got[1].cpu(), want[1], errs)
+    called = int((want[0][0] != N).sum())
+    emit("training_policy", card=card, families=n, wire=wire, out_len=out_len,
+         called_bases=called, max_abs_err=max(errs))
+
+    k = min(VOTE_FAMILIES, dense_batch.n_real)
+    planes = [torch.from_numpy(x[:k]) for x in (dense_batch.bases, dense_batch.quals)]
+    fam_sizes = dense_batch.fam_sizes[:k].tolist()
+    card_planes = [x.to(dev) for x in planes]
+    num, den = cfg.cutoff_rational
+    kw = dict(num=num, den=den, qual_threshold=cfg.qual_threshold, qual_cap=cfg.qual_cap)
+    consensus_vote.launches = 0
+    got = [majority_family_vote(card_planes[0][i], card_planes[1][i], fam_sizes[i], **kw,
+                                with_qc=bool(i % 2)) for i in range(k)]
+    torch.cuda.synchronize()
+    launches = consensus_vote.launches
+    if launches != k:
+        raise AssertionError(f"majority_family_vote: {launches} B1 launches for {k} calls")
+    vote_errs: list[int] = []
+    for i, outs in enumerate(got):
+        want = majority_family_vote(planes[0][i], planes[1][i], fam_sizes[i], **kw,
+                                    with_qc=bool(i % 2))
+        for j, (g, w_) in enumerate(zip(outs, want)):
+            _check_equal(f"majority_family_vote/{i}/{j}", g.cpu(), w_, vote_errs)
+
+    def card_call():
+        majority_family_vote(card_planes[0][0], card_planes[1][0], fam_sizes[0], **kw)
+
+    t = time.perf_counter()
+    for i in range(k):
+        majority_family_vote(planes[0][i], planes[1][i], fam_sizes[i], **kw)
+    plain_ms = (time.perf_counter() - t) / k * 1e3
+    vote = {"launches": launches, "calls": k, "max_abs_err": max(vote_errs),
+            "call_ms": cuda_ms(card_call, 200), "plain_ms": plain_ms,
+            "shape": {"F": int(planes[0].shape[1]), "L": int(planes[0].shape[2])}}
+    emit("majority_family_vote", card=card, **vote)
+    seconds = time.perf_counter() - started
+    emit("training_phase", seconds=seconds)
+    return {"vote": vote, "card_s": card_s, "rate": rate, "seconds": seconds}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -3887,6 +4070,7 @@ def main() -> None:
         emit("fleet", seconds=fleet["seconds"])
         fastq = phase_fastq(dev, work, tagged, rates["card"])
         library = phase_library_host(dev, work, rates["card"])
+        training = phase_training(dev, sim_bam, dense_batch, work, rates["card"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     smoke_s = time.perf_counter() - started
@@ -3913,7 +4097,8 @@ def main() -> None:
          "serve_gang_launches": serve["large"]["launches"],
          "serve_small_gang_launches": serve["small"]["launches"],
          "serve_small_alone_launches": sum(serve["small"]["alone_dense_b1_launches"].values()),
-         "fleet_gang_launches": fleet["route"]["gang_b1_launches"]},
+         "fleet_gang_launches": fleet["route"]["gang_b1_launches"],
+         "majority_family_vote_launches": training["vote"]["launches"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

@@ -16,10 +16,13 @@ policies (``--policy majority|delegation|distilled``, ``policies/``);
 the fused SSCS+DCS API; the serve daemon (``serve``/``submit``,
 ``serve/``) with the obs core it stands on (``obs/``); and its fleet: the
 router (``route``), the content-addressed result cache (``--result_cache``,
-``cache scrub``, ``serve --warm_from``) and the golden canary.  Entry
+``cache scrub``, ``serve --warm_from``) and the golden canary; and the
+distilled head's trainer (``policies.distill_train``).  Entry
 points run on the CUDA card
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where each kernel's plain PyTorch version runs instead.
 """
 
 __version__ = "0.1.0"
+
+from consensuscruncher_tpu_torch.utils.phred import SANGER_OFFSET  # noqa: E402, F401

@@ -110,6 +110,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 
+from consensuscruncher_tpu_torch import __version__
 from consensuscruncher_tpu_torch.core.consensus_cpu import DEFAULT_QUAL_CAP
 from consensuscruncher_tpu_torch.core.tags import DEFAULT_BDELIM
 from consensuscruncher_tpu_torch.device import device_name, resolve_device
@@ -1799,6 +1800,7 @@ def build_parser() -> argparse.ArgumentParser:
     # (applied in parse_args; argparse defaults would mask the config).
     p = argparse.ArgumentParser(prog="consensuscruncher_tpu_torch",
                                 description="PyTorch/CUDA port of ConsensusCruncher")
+    p.add_argument("--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="command", required=True)
     f = sub.add_parser("fastq2bam", help="extract UMIs and align FASTQ pairs")
     f.add_argument("-c", "--config", default=None,

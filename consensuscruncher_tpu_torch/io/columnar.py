@@ -46,7 +46,7 @@ from consensuscruncher_tpu_torch.io.bam import (
     read_bam_header,
 )
 from consensuscruncher_tpu_torch.utils.manifest import commit_file
-from consensuscruncher_tpu_torch.utils.phred import encode_seq
+from consensuscruncher_tpu_torch.utils.phred import N as CODE_N, encode_seq  # noqa: F401
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
 
 # nibble (0-15, spec '=ACMGRSVTWYHKDBN') -> pipeline base code (A=0..N=4);
@@ -217,6 +217,9 @@ class ColumnarBatch:
         )
         return "".join(f"{int(w) >> 4}{CIGAR_OPS[int(w) & 0xF]}" for w in words)
 
+    def record_blob(self, i: int) -> bytes:
+        """Byte-exact record ``i`` including the length prefix."""
+        return self.buf[self.rec_off[i] : self.rec_off[i + 1]].tobytes()
 
     def materialize(self, i: int):
         """Full ``BamRead`` for record ``i`` (slow path: bad reads,

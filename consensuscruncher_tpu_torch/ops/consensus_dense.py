@@ -29,6 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from consensuscruncher_tpu_torch.core.consensus_cpu import (  # noqa: F401 (the reference's names)
+    DEFAULT_CUTOFF,
+    DEFAULT_QUAL_CAP,
+    DEFAULT_QUAL_THRESHOLD,
+)
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
 from consensuscruncher_tpu_torch.obs import qc as obs_qc
 from consensuscruncher_tpu_torch.obs import trace as obs_trace

@@ -52,7 +52,7 @@ from consensuscruncher_tpu_torch.parallel.batching import (
     bucket_members,
 )
 from consensuscruncher_tpu_torch.policies import DEFAULT_POLICY, get_policy
-from consensuscruncher_tpu_torch.utils.phred import N
+from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES  # noqa: F401
 from consensuscruncher_tpu_torch.utils import sanitize
 
 

@@ -3,9 +3,10 @@ per-position count/qual features.
 
 Port of ``consensuscruncher_tpu/policies/distilled.py``.  A per-position
 MLP (``features -> tanh hidden -> 5 base logits``), trained offline by the
-JAX package's ``tools/distill_train.py`` and shipped as a versioned
-checkpoint (``checkpoints/distilled_v1.json``, a byte-for-byte copy of the
-JAX package's).  Features per position (11): the 5 lane count fractions,
+JAX package's ``tools/distill_train.py`` (or by this package's
+``policies.distill_train``) and shipped as a versioned checkpoint
+(``checkpoints/distilled_v1.json``, a byte-for-byte copy of the JAX
+package's).  Features per position (11): the 5 lane count fractions,
 the 5 lane quality-mass fractions (each lane's Phred sum over ``fam_size *
 qual_cap``) and the clipped family size.  The head votes the argmax lane
 and abstains (N/0) where the softmax confidence is below
@@ -21,13 +22,16 @@ TF32 and no library summation order); ``tanh`` is the rational
 approximation XLA's CPU backend uses (the same bits as the JAX package's
 ``jnp.tanh`` on the CPU), with its fused multiply-adds taken in float64;
 ``exp`` is rounded from float64.  Only ``+ - * /``, compares and selects
-on the planes' device.
+on the planes' device.  :func:`forward` is differentiable for the trainer
+(``policies.distill_train``): ``tanh`` takes the JAX package's derivative
+rule, and the chain rule's products run as float64 matmuls.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -106,30 +110,77 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
 def xla_tanh(x: torch.Tensor) -> torch.Tensor:
     """float32 ``tanh`` as XLA's CPU backend computes it."""
     xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
-    x2 = xc * xc
+    x2 = (xc * xc).double()
     p = torch.full_like(xc, _TANH_P[0])
     for c in _TANH_P[1:]:
-        p = _fma(x2, p.double(), float(np.float32(c)))
+        p = x2.mul(p).add_(float(np.float32(c))).float()
     p = xc * p
     q = torch.full_like(xc, _TANH_Q[0])
     for c in _TANH_Q[1:]:
-        q = _fma(x2, q.double(), float(np.float32(c)))
+        q = x2.mul(q).add_(float(np.float32(c))).float()
     return torch.where(x.abs() < _TANH_SMALL, x, p / q)
 
 
-def _affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+class _Affine(torch.autograd.Function):
     """float32 ``x @ w + b`` over the last axis: the exact products summed
-    in float64 in input order, rounded once, then the bias added."""
-    acc = x[..., 0:1].double() * w[0].double()
-    for k in range(1, w.shape[0]):
-        acc = acc + x[..., k:k + 1].double() * w[k].double()
-    return acc.float() + b
+    in float64 in input order, rounded once, then the bias added.  Its
+    derivative: the two products of the chain rule in float64, rounded
+    once, and the bias's the sum of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        xd, wd = x.double(), w.double()
+        acc = xd[..., 0:1] * wd[0]
+        for k in range(1, w.shape[0]):
+            acc.addcmul_(xd[..., k:k + 1], wd[k])
+        ctx.save_for_backward(x, w)
+        return acc.float() + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gd = g.double()
+        gx = (gd @ w.double().T).float() if ctx.needs_input_grad[0] else None
+        gw = (x.double().reshape(-1, x.shape[-1]).T @ gd.reshape(-1, g.shape[-1])).float()
+        return gx, gw, g.reshape(-1, g.shape[-1]).sum(0)
+
+
+class _Tanh(torch.autograd.Function):
+    """:func:`xla_tanh` with the derivative the JAX package's autodiff
+    applies to ``jnp.tanh`` at default accuracy, ``(g + g * y) * (1 - y)``
+    with ``y`` the forward's output, in the form XLA's CPU backend runs
+    its transpose: ``t = g * (1 - y)``, then ``t + t * y`` as one fused
+    multiply-add.  The rational approximation itself is never
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = xla_tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        t = g * (1 - y)
+        return _fma(t, y.double(), t.double())
+
+
+def forward(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    """The head itself, ``tanh(x @ w1 + b1) @ w2 + b2``: ``(..., 11)``
+    float32 features -> ``(..., 5)`` logits, on the features' device.
+    ``params`` holds ``w1`` ``(11, hidden)``, ``b1``, ``w2`` ``(hidden, 5)``
+    and ``b2``, as tensors or arrays; it is differentiable in tensors that
+    require grad (the training tool, ``policies.distill_train``)."""
+    w1, b1, w2, b2 = (torch.as_tensor(params[k], dtype=torch.float32, device=feats.device)
+                      for k in ("w1", "b1", "w2", "b2"))
+    return _Affine.apply(_Tanh.apply(_Affine.apply(feats, w1, b1)), w2, b2)
 
 
 class DistilledHead(nn.Module):
-    """The head: ``tanh(x @ w1 + b1) @ w2 + b2`` over ``(..., 11)`` float32
-    features -> ``(..., 5)`` logits, the weights float32 buffers in the
-    reference's layout (``w1`` ``(11, hidden)``, ``w2`` ``(hidden, 5)``)."""
+    """The head of :func:`forward` with its weights frozen as float32
+    buffers in the reference's layout (``w1`` ``(11, hidden)``, ``w2``
+    ``(hidden, 5)``)."""
 
     def __init__(self, w1, b1, w2, b2):
         super().__init__()
@@ -137,13 +188,28 @@ class DistilledHead(nn.Module):
             self.register_buffer(name, torch.as_tensor(np.asarray(value, np.float32)))
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        return _affine(xla_tanh(_affine(feats, self.w1, self.b1)), self.w2, self.b2)
+        return forward({"w1": self.w1, "b1": self.b1, "w2": self.w2, "b2": self.b2}, feats)
 
 
 def head_from_params(params: dict) -> DistilledHead:
     """The weights carried across: the dict of the JAX package's
     ``load_checkpoint`` (or this module's) -> a :class:`DistilledHead`."""
     return DistilledHead(params["w1"], params["b1"], params["w2"], params["b2"])
+
+
+@lru_cache(maxsize=4)
+def _checkpoint_head(path: str, device: torch.device) -> DistilledHead:
+    return head_from_params(load_checkpoint(path)).to(device)
+
+
+def checkpoint_forward(feats, path: str | None = None) -> torch.Tensor:
+    """The head of the checkpoint at ``path`` (default: the resolved
+    checkpoint) on ``feats``, on their device; one head is kept per path
+    and device."""
+    if not isinstance(feats, torch.Tensor):
+        feats = torch.from_numpy(np.array(feats, np.float32))
+    with torch.no_grad():
+        return _checkpoint_head(path or checkpoint_path(), feats.device)(feats)
 
 
 def features(counts, qsums, lengths, *, qual_cap):

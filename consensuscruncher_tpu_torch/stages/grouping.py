@@ -658,6 +658,9 @@ class FamilyBlock:
     def barcode(self, j: int) -> str:
         return bytes(self.bcm[j, : self.bclen[j]]).decode("ascii")
 
+    def cigar_words_of(self, j: int) -> np.ndarray:
+        """Family ``j``'s modal cigar, as its uint32 BAM words."""
+        return self.cigar_data[self.cigar_off[j]:self.cigar_off[j + 1]]
 
     def tmpl_src(self, j: int):
         return self.batches[int(self.src_chunk[j])], int(self.src_row[j])

@@ -142,6 +142,11 @@ class PrestagedBlocks:
     reader: object  # the input's ColumnarReader (its header heads the outputs)
     events: object  # parallel.prefetch.start_prefetch iterator
 
+    @property
+    def header(self):
+        """The input's header (the reader's), which heads the outputs."""
+        return self.reader.header
+
     def close(self) -> None:
         try:
             self.events.close()

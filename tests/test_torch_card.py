@@ -764,3 +764,62 @@ def test_consensus_families_stream_on_card_matches_cpu(card, max_batch, member_l
     assert [k for k, _b, _q in got] == [k for k, _b, _q in want]
     for (_k, gb, gq), (_w, wb, wq) in zip(got, want):
         assert np.array_equal(gb, wb) and np.array_equal(gq, wq)
+
+
+@pytest.mark.parametrize("with_qc", [False, True])
+def test_majority_family_vote_on_card_matches_plain(card, with_qc):
+    """The per-family vote: one B1 dense launch per call on the card,
+    equal to its plain version on the CPU."""
+    from consensuscruncher_tpu_torch.policies import majority_family_vote
+
+    rng = np.random.default_rng(14 + with_qc)
+    kw = dict(num=7, den=10, qual_threshold=20, qual_cap=60, with_qc=with_qc)
+    for f in range(1, 17):
+        for length in (1, 1 + (41 * f) % 130, 130):
+            bases = rng.integers(0, 6, (f, length), dtype=np.uint8)
+            quals = rng.integers(0, 45, (f, length), dtype=np.uint8)
+            size = int(rng.integers(0, f + 1))
+            before = consensus_vote.launches
+            got = majority_family_vote(torch.from_numpy(bases).to(card),
+                                       torch.from_numpy(quals).to(card), size, **kw)
+            assert consensus_vote.launches == before + 1
+            want = majority_family_vote(torch.from_numpy(bases), torch.from_numpy(quals),
+                                        size, **kw)
+            assert len(got) == len(want) == (4 if with_qc else 2)
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+def test_distill_training_on_card_follows_cpu(card, monkeypatch):
+    """20 full-batch steps of the trainer on the card against the same
+    steps on the CPU: every step's loss within 1e-5 relative, the weights
+    within 1e-5."""
+    import argparse
+    import contextlib
+    import io
+
+    from consensuscruncher_tpu_torch.policies import distill_train
+
+    real = distill_train.loss_and_grads
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = argparse.Namespace(seed=17, samples=24_000, hidden=16, steps=20, lr=0.01,
+                                  device=dev)
+        losses: list = []
+
+        def recording(params, x, y, losses=losses):
+            loss, grads = real(params, x, y)
+            losses.append(float(loss))
+            return loss, grads
+
+        monkeypatch.setattr(distill_train, "loss_and_grads", recording)
+        with contextlib.redirect_stderr(io.StringIO()):
+            params, accuracy = distill_train.train(args)
+        runs[dev] = (params, accuracy, np.array(losses))
+    (gp, ga, gl), (wp, wa, wl) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gl, wl, rtol=1e-5, atol=0)
+    for key in wp:
+        np.testing.assert_allclose(gp[key], wp[key], rtol=0, atol=1e-5)
+    for name, row in wa.items():
+        assert ga[name]["n"] == row["n"]
+        assert abs(ga[name]["distilled"] - row["distilled"]) <= 1e-3

@@ -193,8 +193,8 @@ def test_modal_with_tiebreak_matches_jax():
 
 
 def test_majority_policy_equals_the_kernels_plain_vote():
-    """The majority rule over the plane protocol is B1's plain version."""
-    assert tpol.majority_family_vote is consensus_vote.vote_members_plain
+    """The majority rule over the plane protocol, and the per-family
+    ``majority_family_vote``, are B1's plain version."""
     rng = np.random.default_rng(8)
     bases, quals, sizes = _batch(rng, 120, 8, 40)
     cfg = consensus_vote.ConsensusConfig(qual_threshold=20)
@@ -204,6 +204,12 @@ def test_majority_policy_equals_the_kernels_plain_vote():
                                           sizes, cfg)
     np.testing.assert_array_equal(got[0], want[0].numpy())
     np.testing.assert_array_equal(got[1], want[1].numpy())
+    for i in range(len(sizes)):
+        one = tpol.majority_family_vote(torch.from_numpy(bases[i]), torch.from_numpy(quals[i]),
+                                        int(sizes[i]), num=7, den=10, qual_threshold=20,
+                                        qual_cap=60)
+        np.testing.assert_array_equal(one[0].numpy(), want[0][i].numpy())
+        np.testing.assert_array_equal(one[1].numpy(), want[1][i].numpy())
 
 
 def test_cutoff_guard_matches_jax():
