@@ -228,7 +228,26 @@ failure; no phase's failure is caught.  Phases:
     family per call, with and without the rider: one B1 dense launch per
     call (counted from 0, the B1 dense row's
     ``majority_family_vote_launches``), each output equal to the plain
-    version's.
+    version's;
+16. the quality and capacity yardsticks (``tools/ci_check.sh:184-298`` on
+    the card): (i) ``utils.accuracy_harness`` at ``BENCH_QC_r17.json``'s
+    config (400 fragments, seed 7, half the reads degraded, the three
+    policies) on the card with ``--repeats 2`` and with ``--device cpu
+    --repeats 1``: both artifacts' ``accuracy`` and ``qc`` equal each other
+    and that file's; each pipeline run's B1 launches counted from 0 (every
+    majority run launches B1, with the QC rider on every launch of a qc-on
+    run and on none of a qc-off run; a delegation or distilled run votes
+    with torch ops and launches none); ``utils.qc_gate --smoke`` passes the
+    card's artifact against the newest committed ``BENCH_QC_r*.json`` and
+    fails the ``--corrupt 0.02`` control and a ``--policy distilled`` run
+    under a rigged checkpoint (``b2`` calling C at full confidence); (ii)
+    two ``utils.loadgen`` passes, each against its own spawned ``serve``
+    on the card (the tool's input sizes, ``LOADGEN_CUT``, the kernel
+    library of phase 2 as ``--compile_cache``), the second under the
+    sampling profiler: no lost job at any level, a knee throughput above 0,
+    the SLO classes, the daemon's gangs' B1 dense launches (one per batch,
+    from its ``serve.gang_batches`` trace events) above 0, and
+    ``utils.perf_gate --smoke`` passing pass 2 against pass 1.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 
@@ -256,6 +275,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -308,6 +328,12 @@ from consensuscruncher_tpu_torch.stages.generate_plots import decode_png  # noqa
 from consensuscruncher_tpu_torch.stages.grouping import (  # noqa: E402
     stream_families_columnar,
     stream_family_blocks,
+)
+from consensuscruncher_tpu_torch.utils import (  # noqa: E402
+    accuracy_harness,
+    loadgen,
+    perf_gate,
+    qc_gate,
 )
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches, text_digest  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
@@ -4007,6 +4033,258 @@ def phase_training(dev, sim_bam: str, dense_batch, work: str, card: str) -> dict
     return {"vote": vote, "card_s": card_s, "rate": rate, "seconds": seconds}
 
 
+# ------------------------------------------- quality and capacity (phase 16)
+
+# BENCH_QC_r17.json's config: the committed quality baseline's run, whose
+# accuracy rows and qc doc the port reproduces exactly
+QC_BASELINE = os.path.join(REPO, "BENCH_QC_r17.json")
+QC_CONFIG = ("--fragments", "400", "--seed", "7", "--degraded_rate", "0.5",
+             "--policies", "majority,delegation,distilled")
+QC_CARD_REPEATS = "2"
+RIGGED_B2 = [0.0, 50.0, 0.0, 0.0, 0.0]  # the distilled head calls C at full confidence
+# the load generator at its own input sizes (24/96/48 fragments a class, 3
+# inputs a class); its levels cut from 0.5,1,2,4 at 30 s each, for the
+# smoke's time limit (PERF.md section 4).  A 3 s level offers too few jobs
+# to fill the daemon's queue, so the knee it reports is the top level
+# offered, not the daemon's capacity (PERF.md section 5 has 6 s levels)
+LOADGEN_CUT = ("--levels", "1,2,4", "--duration", "3")
+PROF_ENV = {"CCT_PROF": "1", "CCT_PROF_HZ": "199"}
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its stdout and stderr captured; printed to stderr
+    only when it raises."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            return fn(*args)
+    except BaseException:
+        print(out.getvalue()[-6000:], file=sys.stderr, flush=True)
+        raise
+
+
+def _harness(out: str, *argv: str) -> tuple[dict, list]:
+    """``accuracy_harness`` in this process, its artifact at ``out``: the
+    artifact and each pipeline run's policy, QC flag, wall and B1 launches
+    (all, and those with the QC rider), each count set to 0 just before
+    the run and read just after."""
+    runs: list[dict] = []
+    original = accuracy_harness._run_pipeline
+
+    def counted(bam, run_out, name, target, qc_on, policy="majority"):
+        consensus_vote.launches = consensus_vote.qc_launches = 0
+        wall = original(bam, run_out, name, target, qc_on, policy)
+        runs.append({"run": os.path.basename(run_out), "policy": policy, "qc": qc_on,
+                     "wall_s": wall, "b1_launches": consensus_vote.launches,
+                     "qc_launches": consensus_vote.qc_launches})
+        return wall
+
+    accuracy_harness._run_pipeline = counted
+    try:
+        with mock.patch.dict(os.environ):  # the harness sets CCT_QC per run
+            rc = _quiet(accuracy_harness.main, ["--out", out, *argv])
+    finally:
+        accuracy_harness._run_pipeline = original
+    if rc != 0:
+        raise AssertionError(f"accuracy_harness {argv} exited {rc}")
+    with open(out) as fh:
+        return json.load(fh), runs
+
+
+def _check_runs(what: str, runs: list, dev) -> int:
+    """On the card every majority run launches B1, with the rider on every
+    launch of a qc-on run and on none of a qc-off run; a policy run votes
+    with torch ops and launches no B1 (as phase 7 holds).  Returns the B1
+    launches."""
+    for run in runs:
+        if dev.type != "cuda":
+            continue
+        if run["policy"] != "majority":
+            bad = run["b1_launches"] != 0
+        else:
+            bad = run["b1_launches"] == 0 or run["qc_launches"] != (
+                run["b1_launches"] if run["qc"] else 0)
+        if bad:
+            raise AssertionError(f"{what}: run {run}")
+    return sum(run["b1_launches"] for run in runs)
+
+
+def _qc_gate(fresh: str, *argv: str) -> dict:
+    """``qc_gate --smoke`` on ``fresh`` (the default baseline, the newest
+    committed ``BENCH_QC_r*.json``): its exit code and verdict."""
+    verdict = fresh + ".verdict.json"
+    rc = _quiet(qc_gate.main, ["--fresh", fresh, "--smoke", "--out", verdict, *argv])
+    with open(verdict) as fh:
+        doc = json.load(fh)
+    return {"rc": rc, "baseline": doc["baseline"], "checks": len(doc["checks"]),
+            "failed": [c["name"] for c in doc["checks"] if not c["ok"]]}
+
+
+def _policy_rows(doc: dict) -> dict:
+    return {policy: {"per_base_error": row["per_base_error"], "recovered": row["recovered"],
+                     "variants": {lv: {k: v[k] for k in ("recall", "fp_per_mb")}
+                                  for lv, v in row["variants"].items()}}
+            for policy, row in doc["accuracy"]["policies"].items()}
+
+
+def phase_quality(dev, work: str, card: str) -> dict:
+    """(i) The accuracy harness at ``BENCH_QC_r17.json``'s config on the card
+    (the default device) and with ``--device cpu --repeats 1``: the two
+    artifacts' ``accuracy`` and ``qc`` equal; ``qc_gate --smoke`` passes the
+    card's against the committed baseline, and fails the ``--corrupt 0.02``
+    control and a run under a rigged distilled checkpoint."""
+    started = time.perf_counter()
+    root = os.path.join(work, "quality")
+    os.makedirs(root)
+    target = [] if dev.type == "cuda" else ["--device", "cpu"]
+    card_doc, card_runs = _harness(os.path.join(root, "card.json"), *QC_CONFIG,
+                                   "--repeats", QC_CARD_REPEATS,
+                                   "--workdir", os.path.join(root, "card"), *target)
+    if card_doc["config"]["device"] != dev.type:
+        raise AssertionError(f"the harness ran on {card_doc['config']['device']}")
+    cpu_doc, _ = _harness(os.path.join(root, "cpu.json"), *QC_CONFIG, "--repeats", "1",
+                          "--workdir", os.path.join(root, "cpu"), "--device", "cpu")
+    with open(QC_BASELINE) as fh:
+        baseline = json.load(fh)
+    for key in ("accuracy", "qc"):
+        if card_doc[key] != cpu_doc[key]:
+            raise AssertionError(f"the card's {key} differs from the CPU's")
+        if card_doc[key] != baseline[key]:
+            raise AssertionError(f"the card's {key} differs from {QC_BASELINE}'s")
+    honest = _qc_gate(os.path.join(root, "card.json"))
+    if honest["rc"] != 0:
+        raise AssertionError(f"qc_gate failed the honest card run: {honest}")
+
+    corrupt_doc, corrupt_runs = _harness(os.path.join(root, "corrupt.json"), "--repeats", "1",
+                                         "--corrupt", "0.02", *target,
+                                         "--workdir", os.path.join(root, "corrupt"))
+    corrupt = _qc_gate(os.path.join(root, "corrupt.json"))
+    rigged_ckpt = os.path.join(root, "distilled_rigged.json")
+    with open(COMMITTED_CHECKPOINT) as fh:
+        ckpt = json.load(fh)
+    with open(rigged_ckpt, "w") as fh:
+        json.dump(dict(ckpt, b2=RIGGED_B2), fh)
+    with mock.patch.dict(os.environ, CCT_DISTILLED_CHECKPOINT=rigged_ckpt):
+        _rigged_doc, rigged_runs = _harness(os.path.join(root, "rigged.json"), "--repeats",
+                                            "1", "--policy", "distilled", *target,
+                                            "--workdir", os.path.join(root, "rigged"))
+    rigged = _qc_gate(os.path.join(root, "rigged.json"))
+    if corrupt["rc"] == 0 or rigged["rc"] == 0:
+        raise AssertionError(f"qc_gate passed a control: corrupt {corrupt}, rigged {rigged}")
+    launches = {"card": _check_runs("card harness", card_runs, dev),
+                "corrupt": _check_runs("corrupt control", corrupt_runs, dev),
+                "rigged": _check_runs("rigged control", rigged_runs, dev)}
+    seconds = time.perf_counter() - started
+    row = {"card": card, "config": " ".join(QC_CONFIG), "repeats": int(QC_CARD_REPEATS),
+           "accuracy": _policy_rows(card_doc), "qc_overhead_pct": card_doc["qc_overhead_pct"],
+           "stage_wall_s": card_doc["stage_wall_s"],
+           "cpu_stage_wall_s": cpu_doc["stage_wall_s"], "equal_to_cpu": True,
+           "equal_to": os.path.basename(QC_BASELINE),
+           "gate": {"honest": honest, "corrupt": corrupt, "rigged": rigged},
+           "corrupt_per_base_error": corrupt_doc["accuracy"]["policies"]["majority"][
+               "per_base_error"],
+           "b1_launches": launches, "runs": card_runs, "seconds": seconds}
+    emit("quality", **row)
+    return row
+
+
+def _loadgen_pass(dev, root: str, tag: str, **env) -> tuple[dict, dict, float]:
+    """One load-generator pass in this process against its own spawned
+    ``serve`` (on the card; tracing on, ``env`` inherited), the kernel
+    library phase 2 built as its ``--compile_cache``: the artifact, and,
+    read from the daemon before it stops, its B1 launches and its gangs'
+    B1 dense launches (``serve.gang_batches`` trace events)."""
+    seen: dict = {}
+    original = loadgen._pull_attribution
+
+    def read_daemon(client):
+        seen["b1_launches"] = client.metrics()["kernel_launches"]["vote"]
+        events = client.request({"op": "trace"})["trace"]["events"]
+        gangs = [e["args"] for e in events if e["name"] == "serve.gang_batches"]
+        seen.update(gangs=len(gangs), gang_batches=sum(g["batches"] for g in gangs),
+                    gang_b1_launches=sum(g["launches"] for g in gangs))
+        return original(client)
+
+    out = os.path.join(root, f"{tag}.json")
+    argv = ["--workdir", os.path.join(root, tag), *LOADGEN_CUT,
+            "--compile_cache", cuda_lib.BUILD_DIR, "--device", dev.type, "--out", out]
+    loadgen._pull_attribution = read_daemon
+    t = time.perf_counter()
+    try:
+        with mock.patch.dict(os.environ, CCT_TRACE="1",
+                             CCT_TRACE_DIR=os.path.join(root, f"{tag}_trace"), **env):
+            rc = _quiet(loadgen.main, argv)
+    finally:
+        loadgen._pull_attribution = original
+    seconds = time.perf_counter() - t
+    with open(out) as fh:
+        doc = json.load(fh)
+    # tools/ci_check.sh's structural asserts (less the autotune table: A11)
+    if (rc != 0 or not doc["levels"] or any(lv["aggregate"]["lost"] for lv in doc["levels"])
+            or not doc["knee"]["max_throughput_jobs_per_s"] > 0
+            or not doc["slo"]["classes"]):
+        raise AssertionError(f"loadgen {tag}: rc {rc}, levels {doc['levels']}, "
+                             f"knee {doc['knee']}")
+    if not seen.get("gangs") or (dev.type == "cuda" and (
+            seen["gang_b1_launches"] == 0 or seen["gang_b1_launches"] != seen["gang_batches"])):
+        raise AssertionError(f"loadgen {tag}: the daemon's gangs {seen}")
+    return doc, seen, seconds
+
+
+def _level_rows(doc: dict) -> list:
+    return [{"offered_jobs_per_s": lv["offered_jobs_per_s"],
+             "aggregate": lv["aggregate"], "max_schedule_slip_s": lv["max_schedule_slip_s"],
+             "classes": {q: {k: c[k] for k in ("submitted", "done", "shed", "shed_ratio",
+                                              "p50_s", "p99_s", "throughput_jobs_per_s")}
+                         for q, c in lv["classes"].items()},
+             "recompiles_total": lv["recompiles_total"]} for lv in doc["levels"]]
+
+
+def phase_capacity(dev, work: str, card: str) -> dict:
+    """(ii) Two load-generator passes against a ``serve`` daemon on the card
+    (the tool's input sizes, ``LOADGEN_CUT``), the second under the
+    sampling profiler: each artifact passes ``tools/ci_check.sh``'s
+    structural asserts, ``perf_gate --smoke`` passes pass 2 against pass 1,
+    and each pass's daemon ganged its jobs into B1 dense launches."""
+    started = time.perf_counter()
+    root = os.path.join(work, "capacity")
+    os.makedirs(root)
+    passes = {}
+    for tag, env in (("pass1", {}), ("pass2", {**PROF_ENV,
+                                              "CCT_PROF_DIR": os.path.join(root, "profs")})):
+        doc, daemon, seconds = _loadgen_pass(dev, root, tag, **env)
+        passes[tag] = {"knee": doc["knee"], "levels": _level_rows(doc),
+                       "preflight_recompiles_total": doc["preflight_recompiles_total"],
+                       "daemon": daemon, "attribution": doc.get("attribution", {}).get("fleet"),
+                       "seconds": seconds}
+        emit("capacity", card=card, cut=" ".join(LOADGEN_CUT), **{"pass": tag},
+             **passes[tag])
+    verdict = os.path.join(root, "perf_gate.json")
+    rc = _quiet(perf_gate.main, ["--fresh", os.path.join(root, "pass2.json"), "--baseline",
+                                 os.path.join(root, "pass1.json"), "--smoke", "--out", verdict])
+    with open(verdict) as fh:
+        gate = json.load(fh)
+    if rc != 0 or not passes["pass2"]["attribution"]:
+        raise AssertionError(f"perf_gate exited {rc}: {gate}")
+    seconds = time.perf_counter() - started
+    row = {"card": card, "perf_gate": {"rc": rc, "checks": len(gate["checks"])},
+           "dense_gang_launches": sum(p["daemon"]["gang_b1_launches"] for p in passes.values()),
+           "seconds": seconds}
+    emit("capacity_gate", **row)
+    return {**row, "passes": passes}
+
+
+def phase_yardsticks(dev, work: str, card: str) -> dict:
+    """Phase 16: the quality (i) and capacity (ii) yardsticks on the card."""
+    started = time.perf_counter()
+    quality = phase_quality(dev, work, card)
+    capacity = phase_capacity(dev, work, card)
+    seconds = time.perf_counter() - started
+    emit("yardsticks_phase", seconds=seconds, quality_s=quality["seconds"],
+         capacity_s=capacity["seconds"])
+    return {"quality": quality, "capacity": capacity, "seconds": seconds}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--fragments", type=int, default=200_000,
@@ -4071,6 +4349,7 @@ def main() -> None:
         fastq = phase_fastq(dev, work, tagged, rates["card"])
         library = phase_library_host(dev, work, rates["card"])
         training = phase_training(dev, sim_bam, dense_batch, work, rates["card"])
+        yardsticks = phase_yardsticks(dev, work, rates["card"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     smoke_s = time.perf_counter() - started
@@ -4089,7 +4368,8 @@ def main() -> None:
          "qc_bound_by": vote["qc"]["bound_by"],
          "rider_bound_ms": vote["qc"]["rider_bound_ms"],
          "library_families_stream_launches": library["entries"]["families_stream"]["b1_launches"],
-         "library_blocks_stream_launches": library["entries"]["blocks_stream"]["b1_launches"]},
+         "library_blocks_stream_launches": library["entries"]["blocks_stream"]["b1_launches"],
+         "accuracy_harness_launches": sum(yardsticks["quality"]["b1_launches"].values())},
         {**DENSE_VOTE, "launches": dense["launches"], "max_abs_err": dense["max_abs_err"],
          "ms": dense["ms"], "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
@@ -4098,7 +4378,8 @@ def main() -> None:
          "serve_small_gang_launches": serve["small"]["launches"],
          "serve_small_alone_launches": sum(serve["small"]["alone_dense_b1_launches"].values()),
          "fleet_gang_launches": fleet["route"]["gang_b1_launches"],
-         "majority_family_vote_launches": training["vote"]["launches"]},
+         "majority_family_vote_launches": training["vote"]["launches"],
+         "loadgen_launches": yardsticks["capacity"]["dense_gang_launches"]},
         {**FUSED, "launches": path["fused_launches"], "max_abs_err": max(fused_errs),
          "ms": stage["ms"], "plain_ms": stage["plain_ms"], "bound_ms": stage["bound_ms"],
          "bound_by": stage["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

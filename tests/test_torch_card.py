@@ -823,3 +823,29 @@ def test_distill_training_on_card_follows_cpu(card, monkeypatch):
     for name, row in wa.items():
         assert ga[name]["n"] == row["n"]
         assert abs(ga[name]["distilled"] - row["distilled"]) <= 1e-3
+
+
+def test_accuracy_harness_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """The truth-set harness at 40 fragments, all three policies: the card's
+    ``accuracy`` and ``qc`` sections equal the ``--device cpu`` artifact's."""
+    import contextlib
+    import io
+
+    from consensuscruncher_tpu_torch.utils import accuracy_harness
+
+    monkeypatch.delenv("CCT_QC", raising=False)  # the harness sets it per run
+    monkeypatch.delenv("CCT_DISTILLED_CHECKPOINT", raising=False)
+    docs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / f"{device}.json"
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert accuracy_harness.main([
+                "--fragments", "40", "--repeats", "1", "--degraded_rate", "0.5",
+                "--policies", "majority,delegation,distilled", "--device", device,
+                "--workdir", str(tmp_path / device), "--out", str(out)]) == 0
+        docs[device] = json.loads(out.read_text())
+    assert docs["cuda"]["config"]["device"] == "cuda"
+    assert set(docs["cuda"]["accuracy"]["policies"]) == {"majority", "delegation", "distilled"}
+    for key in ("accuracy", "qc"):
+        assert docs["cuda"][key] == docs["cpu"][key]

@@ -18,7 +18,8 @@
   hold no data, so any copy to the host raises), every output is on that
   device and no op reads member planes on the CPU;
 - every module of the port imports without JAX (the serve daemon, the
-  fleet router, result cache and canary, and the obs core too); a ``serve
+  fleet router, result cache and canary, the obs core, and the quality
+  and capacity tools too); a ``serve
   --device cpu`` daemon and a ``submit`` client import none of it;
   ``serve`` without a card exits before it binds;
 - a ``route --spawn 2 --backend xla_cpu`` fleet (the router, its two
@@ -443,7 +444,9 @@ print(json.dumps({"modules": names,
 
 def test_every_module_imports_no_jax():
     """Every module of the port — the serve daemon, the obs core and its
-    readers, the sanitizers, the model checker, the card probe included —
+    readers, the sanitizers, the model checker, the card probe, the
+    quality and capacity tools (the gates, the accuracy harness, the load
+    generator) included —
     imports, in a fresh interpreter, without JAX, the JAX package or the
     reference's ``tools``."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -457,7 +460,8 @@ def test_every_module_imports_no_jax():
                  "serve.result_cache", "serve.canary", "obs.trace", "obs.flight",
                  "obs.slo", "obs.history", "obs.prof", "utils.sanitize",
                  "utils.backend_probe", "utils.netchaos", "utils.faults", "obs.critpath",
-                 "obs.top", "utils.interleave", "utils.model_check"):
+                 "obs.top", "utils.interleave", "utils.model_check", "utils.qc_gate",
+                 "utils.accuracy_harness", "utils.perf_gate", "utils.loadgen"):
         assert f"consensuscruncher_tpu_torch.{name}" in doc["modules"]
 
 

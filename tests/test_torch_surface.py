@@ -11,6 +11,13 @@ a flag of the port's CLI.  A name may be missing only when ``ALLOWED``
 lists it, and each entry's reason is a passage of ``ROADMAP.md``; an
 allowed name that the port has gained fails too, so the list stays true.
 
+The JAX package's four measuring tools under ``tools/`` (``TOOLS``) are
+walked the same way against their ports under ``utils/``: every public
+name of the tool has a counterpart, and every flag of the tool is a flag
+of the port's with the same default; the port's only extra flags, and its
+perf gate's missing default baseline, are the departures ``TOOL_ALLOWED``
+lists, each with its ROADMAP passage.
+
 Some names are also held to the JAX ones by value:
 ``policies.majority_family_vote`` exactly, with and without the QC rider,
 at F 1-16 and L 1-130, with PAD in member and padding slots;
@@ -22,7 +29,10 @@ import argparse
 import ast
 import contextlib
 import functools
+import importlib
+import importlib.util
 import io
+import json
 import os
 import re
 
@@ -84,6 +94,15 @@ ALLOWED = {
         "consensus_batch_pallas", "consensus_batch_pallas_host", "duplex_batch_pallas",
         "duplex_batch_pallas_host")},
 }
+
+# the JAX package's measuring tools -> the port's modules
+TOOLS = {"qc_gate": "utils/qc_gate.py", "accuracy_harness": "utils/accuracy_harness.py",
+         "perf_gate": "utils/perf_gate.py", "loadgen": "utils/loadgen.py"}
+TOOL_DEVICE = "The tools' `--device`"
+NO_DEFAULT_BASELINE = "`perf_gate` takes no default baseline"
+TOOL_ALLOWED = {("accuracy_harness", "--device"): TOOL_DEVICE,
+                ("loadgen", "--device"): TOOL_DEVICE,
+                ("perf_gate", "--baseline"): NO_DEFAULT_BASELINE}
 
 _UPPER = re.compile(r"^[A-Z][A-Z0-9_]*$")
 
@@ -205,8 +224,71 @@ def test_every_jax_name_has_a_counterpart():
 def test_every_allowed_departure_has_its_roadmap_reason():
     with open(os.path.join(REPO, "ROADMAP.md")) as fh:
         roadmap = fh.read()
-    for reason in set(ALLOWED.values()):
+    for reason in set(ALLOWED.values()) | set(TOOL_ALLOWED.values()):
         assert reason in roadmap, reason
+
+
+class _Parsed(Exception):
+    def __init__(self, parser):
+        super().__init__()
+        self.parser = parser
+
+
+def _tool_parser(module) -> argparse.ArgumentParser:
+    """The parser a tool's ``main`` builds (each parses its argv first)."""
+    def capture(parser, args=None, namespace=None):
+        raise _Parsed(parser)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Parsed) as parsed:
+            module.main([])
+    return parsed.value.parser
+
+
+def _jax_tool(name: str):
+    spec = importlib.util.spec_from_file_location(f"surface_reference_{name}",
+                                                  os.path.join(REPO, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _tool_module(name: str):
+    return importlib.import_module("consensuscruncher_tpu_torch." +
+                                   TOOLS[name][:-3].replace("/", "."))
+
+
+@pytest.mark.parametrize("name", sorted(TOOLS))
+def test_every_tool_name_has_a_counterpart(name):
+    with open(os.path.join(REPO, "tools", f"{name}.py")) as fh:
+        names, _ = _module_names(ast.parse(fh.read()))
+    with open(os.path.join(PORT_ROOT, TOOLS[name])) as fh:
+        _, defined = _module_names(ast.parse(fh.read()))
+    assert names and sorted(names - defined) == []
+
+
+@pytest.mark.parametrize("name", sorted(TOOLS))
+def test_every_tool_flag_has_a_counterpart_with_its_default(name):
+    jax_parser, port_parser = _tool_parser(_jax_tool(name)), _tool_parser(_tool_module(name))
+    jax_flags, port_flags = _flags(jax_parser), _flags(port_parser)
+    assert sorted(jax_flags - port_flags) == []
+    extra = {flag for _, flag in port_flags - jax_flags}
+    assert extra == {flag for (tool, flag) in TOOL_ALLOWED
+                     if tool == name and flag not in {f for _, f in jax_flags}}
+    defaults = {a.dest: a.default for a in port_parser._actions}
+    for action in jax_parser._actions:
+        assert defaults[action.dest] == action.default, action.dest
+
+
+def test_perf_gate_departure_is_its_missing_default_baseline(tmp_path):
+    fresh = tmp_path / "fresh.json"
+    fresh.write_text(json.dumps({"levels": []}))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        assert _tool_module("perf_gate").main(["--fresh", str(fresh)]) == 2
+        assert _jax_tool("perf_gate").main(["--fresh", str(fresh)]) == 0
+    assert "pass --baseline" in err.getvalue()
 
 
 def test_every_jax_cli_flag_has_a_counterpart():
