@@ -166,8 +166,8 @@ failure; no phase's failure is caught.  Phases:
     with the job dispatched (``serve.worker=kill:SIGKILL``), the router
     resubmits it by key to the other daemon, whose tree equals the
     one-shot run (the seconds from the kill to the result); (iii) (i)'s
-    50,000-fragment spec again under another tenant and output: answered
-    ``cached`` by the router, no worker launching, every file the first
+    ``OBJECT_FRAGMENTS``-fragment spec again under another tenant and
+    output: answered ``cached`` by the router, no worker launching, every file the first
     tree's bytes (hit latency beside the miss's); (iv) a third daemon
     ``serve --warm_from V`` joins with ``member_add``: no kernel build
     (``cct_recompiles_total`` 0) and the job routed to it equals its
@@ -247,9 +247,46 @@ failure; no phase's failure is caught.  Phases:
     sampling profiler: no lost job at any level, a knee throughput above 0,
     the SLO classes, the daemon's gangs' B1 dense launches (one per batch,
     from its ``serve.gang_batches`` trace events) above 0, and
-    ``utils.perf_gate --smoke`` passing pass 2 against pass 1.
+    ``utils.perf_gate --smoke`` passing pass 2 against pass 1;
+17. the soaks, the fleet's HA paths on the card ((i) right after phase
+    12; (ii) and (iii) in a process of their own started after phase 11,
+    beside phases 12-15, and joined before phase 16, whose latencies they
+    would disturb): (i)
+    ``utils.trace_check``'s schema check and fleet check (journal
+    agreement, one component per trace, anchors, terminals) over phase 12
+    (i)'s ``trace fleet`` output and that fleet's worker journals as they
+    stood then: no problem, the ``fleet_summary`` printed; (ii)
+    ``utils.serve_soak --jobs 3 --seed 7 --kill-after 0.2`` on the card
+    (the supervised daemon traced): exit 0, the kill -9 landing while jobs
+    are in flight (at least one job replayed from the journal, a
+    ``journal-replay`` flight dump), every job's tree on the goldens; each
+    job's wall, the restart's seconds and the daemon's B1 launches before
+    the kill and after the restart, read over its socket (``--gang_size
+    1``: each job runs solo, B1 on the stream wire; the B1 row's
+    ``soak_launches``); (iii) the ``utils.chaos_conductor`` ``--smoke``
+    leg on the card (seed 7, 3 workers, 8 random events plus every
+    structural one: standby takeover by epoch bump, journal adoption and
+    its tombstone, the zombie dropping adopted jobs,
+    ``member_add``/``member_remove``, the poison key quarantined under the
+    fleet retry budget, the ENOSPC brownout), the kernel library of phase
+    2 shared by every worker spawn: exit 0 (every invariant after every
+    event, every acknowledged job byte-identical to the goldens), or exit
+    1 on the one violation that the reference's lost poison verdict makes
+    where the schedule kills the quarantine's holder for good (ROADMAP,
+    "Faults found in the reference"; its conditions read from the
+    journals and printed); at least one takeover, adoption, quarantine and
+    brownout, no orphaned span; the spawns, the kills, each event's wall,
+    each worker's B1 launches read before it dies (where it lives long
+    enough to be read; the B1 row's ``chaos_launches``), the most workers
+    alive at once (each holds a CUDA context) and the most compute apps
+    ``nvidia-smi --query-compute-apps`` saw on the card.
 
-Every JSON line carries ``t_s``, the seconds since the script started.
+Phase 17 (ii)-(iii) runs in a process of its own beside phases 12-15 (the
+smoke's time limit: 130-290 s, mostly process start-ups); their walls
+carry that load.  Every JSON line carries ``t_s``, the seconds since the
+script started (the background phases' own lines: since their process
+started; ``soaks_process`` gives its seconds and how long the script
+waited for it).
 
 The ``policies`` JSON comes next, then the ``fleet_obs`` JSON (the obs
 readers' exit codes and seconds, phase 12 (i)'s critical-path p50/p99 per
@@ -274,6 +311,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -331,9 +369,12 @@ from consensuscruncher_tpu_torch.stages.grouping import (  # noqa: E402
 )
 from consensuscruncher_tpu_torch.utils import (  # noqa: E402
     accuracy_harness,
+    chaos_conductor,
     loadgen,
     perf_gate,
     qc_gate,
+    serve_soak,
+    trace_check,
 )
 from consensuscruncher_tpu_torch.utils.digest import golden_mismatches, text_digest  # noqa: E402
 from consensuscruncher_tpu_torch.utils.phred import N, NUM_BASES, PAD  # noqa: E402
@@ -1355,9 +1396,10 @@ MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merg
 # phase 9; PERF.md section 4 lists the cuts).
 WALL_TURNS = (("staged", "True"), ("streaming", "True"))
 # the object-path samples (tagged input, --max_mismatch 1): phase 5's
-# settings at a quarter of its fragments (the walks decode every record in
-# Python, and each stage runs again on the CPU for its reference)
-OBJECT_FRAGMENTS = 50_000
+# settings at 30,000 fragments (the walks decode every record in Python,
+# and each stage runs again on the CPU for its reference; 50,000 until the
+# smoke outgrew its time limit on slower card hosts)
+OBJECT_FRAGMENTS = 30_000
 # the --max_mismatch 1 cell's sample, cut from OBJECT_FRAGMENTS to make
 # room for phase 9 (its rescue walk is host-bound, ~0.45 ms a fragment)
 MM1_FRAGMENTS = 20_000
@@ -3339,6 +3381,13 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
         emit("fleet_route", card=card, **cell)
         row["obs"] = _fleet_obs(router, obs_dirs, keys, subs[0]["key"], fdir)
         emit("fleet_obs_live", card=card, **row["obs"])
+        # phase 17 (i) checks this trace against the journals as they stand now
+        row["trace_snapshot"] = os.path.join(work, "fleet_trace")
+        os.makedirs(row["trace_snapshot"])
+        shutil.copy(os.path.join(fdir, "obs_trace"),
+                    os.path.join(row["trace_snapshot"], "trace.json"))
+        for name in FLEET_MEMBERS:
+            shutil.copy(os.path.join(fleet_work, f"{name}.journal"), row["trace_snapshot"])
 
         # (iii) the same question from another tenant: the router answers
         # it from the cache plane, and no worker launches
@@ -3487,7 +3536,7 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
 
 # ------------------------------------------- phase 13: the reference's flow from FASTQ
 
-FASTQ_FRAGMENTS = 80_000  # (ii): phase 5's widths; its 200,000 fragments cut for time
+FASTQ_FRAGMENTS = 40_000  # (ii): phase 5's widths; its fragments cut for time
 FASTQ_PARITY_FRAGMENTS = 20_000  # (iii)
 FASTQ_WORKERS = 4
 BPATTERN = "NNNNNNT"  # test/make_test_data.py's pattern: 6-base UMI + 'T' spacer
@@ -4285,10 +4334,312 @@ def phase_yardsticks(dev, work: str, card: str) -> dict:
     return {"quality": quality, "capacity": capacity, "seconds": seconds}
 
 
+# ------------------------------------------------------------ phase 17: the soaks
+
+# the soak's kill lands 0.1-0.3 s after the submits (seed 7 draws 0.82 of
+# the mean): before the first of three sample.bam jobs can finish
+SOAK_ARGS = ("--jobs", "3", "--seed", "7", "--kill-after", "0.2")
+# the conductor's --smoke leg: seed 7, 3 workers, 3 unique jobs, 8 random
+# events on top of the structural ones
+CHAOS_SEED, CHAOS_WORKERS, CHAOS_JOBS, CHAOS_EVENTS = 7, 3, 3, 8
+LAUNCH_KEYS = ("b1_launches", "qc_launches", "gangs", "gang_b1_launches")
+BACKGROUND_WAIT_S = 900
+STRUCTURAL = ("add_member", "poison_submit", "kill_active_router", "restart_router",
+              "perm_kill_worker", "disk_full", "decommission_member", "zombie_return")
+
+
+def _daemon_launches(client) -> dict:
+    """A live daemon's B1 launches (the wrapper's counts in its process: all,
+    and those with the QC rider) and its gangs' B1 dense launches (its
+    ``serve.gang_batches`` trace events), read over its socket.  The soak
+    and the conductor run ``--gang_size 1``: a gang of one runs its job
+    solo through ``_run_job``'s ``consensus`` (B1 on the stream wire), so
+    their gangs launch nothing."""
+    events = client.request({"op": "trace"})["trace"]["events"]
+    gangs = [e["args"] for e in events if e["name"] == "serve.gang_batches"]
+    launches = client.metrics()["kernel_launches"]
+    return {"b1_launches": launches["vote"], "qc_launches": launches["vote_qc"],
+            "gangs": len(gangs), "gang_b1_launches": sum(g["launches"] for g in gangs)}
+
+
+def phase_trace_check(snapshot: str, card: str) -> dict:
+    """(i) The port's trace checker over phase 12 (i)'s merged fleet trace
+    and its workers' journals."""
+    trace = os.path.join(snapshot, "trace.json")
+    journals = sorted(os.path.join(snapshot, f"{n}.journal") for n in FLEET_MEMBERS)
+    t = time.perf_counter()
+    schema = trace_check.check_trace(trace)
+    summary = trace_check.fleet_summary(trace, journals)
+    seconds = time.perf_counter() - t
+    if schema or summary["problems"] or not summary["spans"] or not summary["terminal_keys"]:
+        raise AssertionError(f"trace_check on phase 12's fleet trace: schema {schema[:10]}, "
+                             f"{summary}")
+    row = {"card": card, "schema_problems": 0, "seconds": seconds,
+           **{k: v for k, v in summary.items() if k != "problems"},
+           "fleet_problems": len(summary["problems"])}
+    emit("soak_trace_check", **row)
+    return row
+
+
+def phase_soak(dev, work: str, card: str) -> dict:
+    """(ii) ``serve_soak`` in this process against its supervised daemon on
+    the card, traced; what it saw just before the kill and once drained."""
+    root = os.path.join(work, "soak")
+    seen: dict = {}
+
+    def observe(stage, client, facts):
+        seen[stage] = {**facts, **_daemon_launches(client),
+                       "jobs_replayed": client.metrics()["cumulative"]["jobs_replayed"]}
+
+    argv = [*SOAK_ARGS, "--device", dev.type, "--workdir", root]
+    t = time.perf_counter()
+    # the shards and the daemon's flight dumps in the workdir, where the
+    # soak looks for its journal-replay dump
+    with mock.patch.dict(os.environ, CCT_TRACE="1", CCT_TRACE_DIR=root):
+        rc = _quiet(serve_soak.main, argv, observe)
+    seconds = time.perf_counter() - t
+    drained = seen.get("drained") or {}
+    if rc != 0 or drained.get("replayed", 0) < 1 or "journal-replay" not in drained["dumps"]:
+        raise AssertionError(f"serve_soak {argv}: rc {rc}, {seen}")
+    launches = seen["kill"]["b1_launches"] + drained["b1_launches"]
+    if dev.type == "cuda" and drained["b1_launches"] == 0:
+        raise AssertionError(f"the restarted daemon's replayed jobs launched no B1: {seen}")
+    row = {"card": card, "argv": " ".join(SOAK_ARGS), "seconds": seconds,
+           "kill_delay_s": seen["kill"]["delay_s"], "restart_s": drained["restart_s"],
+           "replayed": drained["replayed"], "dumps": drained["dumps"], "jobs": drained["jobs"],
+           "before_kill": {k: seen["kill"][k] for k in LAUNCH_KEYS},
+           "after_restart": {k: drained[k] for k in LAUNCH_KEYS}, "b1_launches": launches}
+    emit("soak", **row)
+    return row
+
+
+def _compute_apps() -> list:
+    """``(pid, used MiB)`` of every process holding a context on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30).stdout
+    return [tuple(int(x) for x in ln.split(",")) for ln in out.splitlines()
+            if ln.strip() and ln.split(",")[0].strip().isdigit()]
+
+
+def _quarantine_holder(c) -> str | None:
+    """The worker whose journal carries the poison key's ``quarantined``
+    marker."""
+    for name, w in c.workers.items():
+        if not os.path.exists(w["journal"]):
+            continue
+        with open(w["journal"], "rb") as fh:
+            for line in fh.read().split(b"\n"):
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(rec, dict) and rec.get("kind") == "quarantined" \
+                        and rec.get("key") == c.poison["key"]:
+                    return name
+    return None
+
+
+def _reference_poison_fault(c) -> str | None:
+    """The worker, when the run's one violation is the reference's lost
+    poison verdict (ROADMAP, "Faults found in the reference"): the key's
+    quarantine held by a worker that the schedule killed for good, whose
+    journal the router adopted and which came back as a zombie dropping
+    the adopted jobs; no node then answers for the key.  Which worker
+    ends the poison's lineage depends on the key, which hashes the
+    workdir, so a run trips it or not by its path."""
+    if c.poison is None or len(c.violations) != 1 or not re.fullmatch(
+            rf"acked key {c.poison['key']} unresolvable after 90s: .*unknown job_id",
+            c.violations[0]):
+        return None
+    holder = _quarantine_holder(c)
+    if holder is None or not chaos_conductor.journal_tombstoned(c.workers[holder]["journal"]) \
+            or c.workers[holder]["permanent"] or not c.workers[holder]["original"]:
+        return None
+    return holder
+
+
+def phase_chaos(dev, work: str, card: str) -> dict:
+    """(iii) The conductor's ``--smoke`` leg in this process, its fleet on
+    the card: each spawn, kill and event timed, each worker read before it
+    is killed and at the end, the card's compute apps sampled meanwhile."""
+    root = os.path.join(work, "chaos")
+    c = chaos_conductor.Conductor(root, CHAOS_SEED, workers=CHAOS_WORKERS,
+                                  max_unique_jobs=CHAOS_JOBS, device=dev.type)
+    rec: dict = {"spawns": [], "kills": [], "events": [], "reads": []}
+    real = {name: getattr(c, name) for name in
+            ("_spawn_worker", "_spawn_router", "_kill9", "teardown")}
+
+    def read(name: str, when: str) -> None:
+        w = c.workers[name]
+        try:
+            got = _daemon_launches(ServeClient(w["sock"], retries=2, retry_base_s=0.1))
+        except Exception as exc:  # a dying worker may no longer answer
+            got = {"unreadable": type(exc).__name__}
+        rec["reads"].append({"worker": name, "pid": w["proc"].pid, "when": when, **got})
+
+    def spawn_worker(name):
+        real["_spawn_worker"](name)
+        rec["spawns"].append({"tag": name, "t_s": time.perf_counter() - t0})
+
+    def spawn_router(rid, standby):
+        real["_spawn_router"](rid, standby)
+        rec["spawns"].append({"tag": rid, "t_s": time.perf_counter() - t0})
+
+    def kill9(proc, what):
+        name = next((n for n, w in c.workers.items() if w["proc"] is proc), None)
+        if name is not None and proc.poll() is None:
+            read(name, "before kill")
+        real["_kill9"](proc, what)
+        rec["kills"].append({"what": what, "t_s": time.perf_counter() - t0})
+
+    def teardown():
+        for name, w in c.workers.items():
+            if w["proc"] is not None and w["proc"].poll() is None:
+                read(name, "end")
+        real["teardown"]()
+
+    def timed(name, handler):
+        def run():
+            t = time.perf_counter()
+            try:
+                return handler()
+            finally:
+                rec["events"].append({"event": name, "seconds": time.perf_counter() - t})
+        return run
+
+    c._spawn_worker, c._spawn_router, c._kill9, c.teardown = (
+        spawn_worker, spawn_router, kill9, teardown)
+    for name in dir(c):
+        if name.startswith("ev_"):
+            setattr(c, name, timed(name[3:], getattr(c, name)))
+    samples: list = []
+    done = threading.Event()
+
+    def sample():
+        # nvidia-smi names host pids, which a container's do not match: the
+        # live workers come from the conductor, the card's total from it
+        while not done.wait(0.5):
+            live = sum(w["proc"] is not None and w["proc"].poll() is None
+                       for w in list(c.workers.values()))
+            try:
+                apps = _compute_apps()
+            except (OSError, subprocess.SubprocessError, ValueError):
+                apps = None
+            samples.append({"workers": live, "apps": None if apps is None else len(apps),
+                            "apps_mib": None if apps is None else sum(m for _, m in apps)})
+
+    sampler = threading.Thread(target=sample, name="compute-apps", daemon=True)
+    t0 = time.perf_counter()
+    sampler.start()
+    try:
+        rc = _quiet(c.run, CHAOS_EVENTS)
+    finally:
+        done.set()
+        sampler.join(timeout=30)
+    seconds = time.perf_counter() - t0
+    summary = getattr(c, "trace_summary", None) or {}
+    # the port keeps the reference's lost poison verdict (ROADMAP): a run
+    # whose schedule trips it holds every other invariant, and says so
+    tripped = _reference_poison_fault(c) if rc != 0 else None
+    if (rc != 0 and tripped is None) or c.takeovers_seen < 1 or c.adoptions_seen < 1 \
+            or c.quarantines_seen < 1 or c.brownouts_seen < 1 or summary.get("orphans") != 0:
+        raise AssertionError(f"chaos_conductor --smoke: rc {rc}, violations {c.violations}, "
+                             f"trace {summary}")
+    launches = sum(r.get("b1_launches", 0) for r in rec["reads"])
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError(f"no worker of the fleet launched B1: {rec['reads']}")
+    structural = {}
+    for ev in rec["events"]:
+        if ev["event"] in STRUCTURAL:
+            structural.setdefault(ev["event"], []).append(ev["seconds"])
+    row = {"card": card, "seed": CHAOS_SEED, "workers": CHAOS_WORKERS,
+           "random_events": CHAOS_EVENTS, "events": len(rec["events"]), "seconds": seconds,
+           "rc": rc, "reference_poison_fault": tripped and {
+               "holder": tripped, "violation": c.violations[0]},
+           "submits": len(c.acked), "unique_jobs": len({a["out"] for a in c.acked}),
+           "takeovers": c.takeovers_seen, "adoptions": c.adoptions_seen,
+           "quarantines": c.quarantines_seen, "brownouts": c.brownouts_seen,
+           "final_epoch": c.last_epoch, "trace": summary,
+           "spawns": len(rec["spawns"]),
+           "worker_spawns": sum(sp["tag"].startswith("w") for sp in rec["spawns"]),
+           "kills": len(rec["kills"]), "structural_event_s": structural,
+           "event_s": [[ev["event"], ev["seconds"]] for ev in rec["events"]],
+           "worker_reads": rec["reads"], "b1_launches": launches,
+           "samples": len(samples),
+           "most_live_workers": max((x["workers"] for x in samples), default=None),
+           "most_compute_apps": max((x["apps"] for x in samples if x["apps"] is not None),
+                                    default=None),
+           "most_compute_apps_mib": max((x["apps_mib"] for x in samples
+                                         if x["apps_mib"] is not None), default=None)}
+    emit("chaos", **row)
+    return row
+
+
+# ------------------------------------------------- phases in processes of their own
+
+# each process imports this script, runs its phases in order and writes
+# their rows; a phase's own JSON lines count ``t_s`` from its process's start
+_BACKGROUND = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+dev = torch.device(sys.argv[2])
+rows = {name: getattr(chip_smoke, fn)(dev, *args) for name, fn, args in json.loads(sys.argv[3])}
+with open(sys.argv[4], "w") as fh:
+    json.dump(rows, fh, default=str)
+"""
+
+
+class _Background:
+    """Phases ``[(name, function, args)]``, each called as ``function(dev,
+    *args)``, in a process of their own started now: :meth:`join` echoes
+    their JSON lines and returns their rows by name, or raises with the
+    process's log tail; :meth:`kill` stops it and every process it
+    started."""
+
+    def __init__(self, tag: str, dev, work: str, calls: list):
+        self.tag, self.names = tag, [name for name, _fn, _args in calls]
+        self.out = os.path.join(work, f"{tag}.json")
+        self.log = os.path.join(work, f"{tag}.log")
+        with open(self.log, "w") as log:
+            # a process group of its own: a failed smoke stops its fleets with it
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", _BACKGROUND, REPO, dev.type, json.dumps(calls), self.out],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        self.started = time.perf_counter()
+
+    def join(self) -> dict:
+        waited = time.perf_counter()
+        rc = self.proc.wait(timeout=BACKGROUND_WAIT_S)
+        with open(self.log) as fh:
+            text = fh.read()
+        if rc != 0:
+            raise AssertionError(f"{self.tag} ({', '.join(self.names)}) exited {rc}:\n"
+                                 f"{text[-6000:]}")
+        for line in text.splitlines():
+            if line.startswith('{"phase"'):
+                print(line, flush=True)
+        with open(self.out) as fh:
+            rows = json.load(fh)
+        now = time.perf_counter()
+        emit(f"{self.tag}_process", phases=self.names, seconds=now - self.started,
+             waited_s=now - waited)
+        return rows
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--fragments", type=int, default=200_000,
-                   help="simulated duplex fragments for phase 5 (default 200000)")
+    # 100,000 fragments (1.1M reads); 200,000 until the smoke outgrew its
+    # time limit on slower card hosts
+    p.add_argument("--fragments", type=int, default=100_000,
+                   help="simulated duplex fragments for phase 5 (default 100000)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4302,6 +4653,7 @@ def main() -> None:
 
     os.makedirs(os.path.join(REPO, ".scratch"), exist_ok=True)
     work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
+    backgrounds: list = []
     try:
         sim_bam = os.path.join(work, "sim.bam")
         t = time.perf_counter()
@@ -4344,13 +4696,24 @@ def main() -> None:
                   "launches": policy_runs["degraded/majority"]["b1_launches"]}},
             rates["card"])
         emit("serve", seconds=serve["seconds"])
+        # phase 17 (ii)-(iii) beside phases 12-15: their fleets' process
+        # starts (~9 s each, 130-290 s in all) stay off phase 16's latencies
+        # and phase 11's gangs, which they slowed by ~40% beside them
+        torch.cuda.empty_cache()  # this process's cached card memory
+        soaks_bg = _Background("soaks", dev, work, [("soak", "phase_soak", [work, rates["card"]]),
+                                                 ("chaos", "phase_chaos", [work, rates["card"]])])
+        backgrounds.append(soaks_bg)
         fleet = phase_fleet(dev, work, serve["one_shot"], rates["card"])
         emit("fleet", seconds=fleet["seconds"])
+        checked = phase_trace_check(fleet["trace_snapshot"], rates["card"])
         fastq = phase_fastq(dev, work, tagged, rates["card"])
         library = phase_library_host(dev, work, rates["card"])
         training = phase_training(dev, sim_bam, dense_batch, work, rates["card"])
+        soaks = {"trace_check": checked, **soaks_bg.join()}
         yardsticks = phase_yardsticks(dev, work, rates["card"])
     finally:
+        for bg in backgrounds:
+            bg.kill()
         shutil.rmtree(work, ignore_errors=True)
     smoke_s = time.perf_counter() - started
     emit("smoke", seconds=smoke_s)
@@ -4369,7 +4732,9 @@ def main() -> None:
          "rider_bound_ms": vote["qc"]["rider_bound_ms"],
          "library_families_stream_launches": library["entries"]["families_stream"]["b1_launches"],
          "library_blocks_stream_launches": library["entries"]["blocks_stream"]["b1_launches"],
-         "accuracy_harness_launches": sum(yardsticks["quality"]["b1_launches"].values())},
+         "accuracy_harness_launches": sum(yardsticks["quality"]["b1_launches"].values()),
+         "soak_launches": soaks["soak"]["b1_launches"],
+         "chaos_launches": soaks["chaos"]["b1_launches"]},
         {**DENSE_VOTE, "launches": dense["launches"], "max_abs_err": dense["max_abs_err"],
          "ms": dense["ms"], "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,

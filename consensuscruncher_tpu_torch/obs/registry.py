@@ -89,6 +89,8 @@ COUNTERS = {
                    "that adopted an inbound wire trace context (router "
                    "forward, failover resubmit, steal, adoption) instead "
                    "of rooting a fresh trace",
+    # the help text is the reference's word for word (the exposition is
+    # compared); the checker it names is utils/trace_check.py here
     "trace_orphans": "HA continuation points (failover resubmit, journal "
                      "resubmit, adoption) that found NO stored trace "
                      "context to link from — each is a causal chain "

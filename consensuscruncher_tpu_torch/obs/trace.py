@@ -435,7 +435,8 @@ def _flow_events(events: list[dict]) -> list[dict]:
     """Synthesize Chrome-trace flow arrows (``ph: s``/``f``) from the
     ``follows_from`` edges recorded by linked spans.  An edge whose
     source span never made it to disk (killed before flush) simply draws
-    no arrow — the span args still carry the link for trace_check."""
+    no arrow — the span args still carry the link for
+    ``utils/trace_check.py --fleet``."""
     by_span = {(ev.get("pid"), ev.get("id")): ev
                for ev in events if ev.get("ph") == "X"}
     flows: list[dict] = []

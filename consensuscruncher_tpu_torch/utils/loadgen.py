@@ -59,16 +59,13 @@ from consensuscruncher_tpu_torch.serve.client import (
     ServeClient,
     ServeClientError,
 )
+from consensuscruncher_tpu_torch.utils.serve_soak import BOOT, child_env
 from consensuscruncher_tpu_torch.utils.simulate import (
     SimConfig,
     simulate_bam,
 )
 from consensuscruncher_tpu_torch.utils.stats import FamilySizeHistogram
 
-# the spawned child: the port's CLI, as a user would start it, with the
-# package's root first on its import path (whatever the cwd)
-_CLI = ("-m", "consensuscruncher_tpu_torch.cli")
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # seconds a spawned child may take to bind its socket (a card process
 # imports torch and loads the kernel library first)
 _READY_S = 300.0
@@ -605,11 +602,6 @@ def _sweep_workers(args) -> int:
 
 # ------------------------------------------------------------------ main
 
-def _child_env() -> dict:
-    path = os.environ.get("PYTHONPATH")
-    return dict(os.environ, PYTHONPATH=_ROOT + (os.pathsep + path if path else ""))
-
-
 def _await_socket(daemon: subprocess.Popen, address: str,
                   log_path: str) -> None:
     """Wait for the spawned child's socket; a child that exits first (no
@@ -741,7 +733,7 @@ def main(argv=None) -> int:
         # fleet mode: the route CLI spawns the workers (per-worker
         # journal + compile cache under workdir/fleet) and fronts them
         address = os.path.join(args.workdir, "route.sock")
-        daemon_cmd = [sys.executable, *_CLI,
+        daemon_cmd = [sys.executable, *BOOT,
             "route", "--spawn", str(args.workers),
             "--workdir", os.path.join(args.workdir, "fleet"),
             "--socket", address,
@@ -758,12 +750,12 @@ def main(argv=None) -> int:
         log_path = os.path.join(args.workdir, "router.log")
         log_fh = open(log_path, "ab")
         daemon = subprocess.Popen(daemon_cmd, stdout=log_fh, stderr=log_fh,
-                                  env=_child_env())
+                                  env=child_env())
         print(f"loadgen: spawned router pid {daemon.pid} on {address} "
               f"({args.workers} workers; log: {log_path})", flush=True)
     else:
         address = os.path.join(args.workdir, "loadgen.sock")
-        daemon_cmd = [sys.executable, *_CLI,
+        daemon_cmd = [sys.executable, *BOOT,
             "serve", "--socket", address,
             "--gang_size", str(args.gang_size),
             "--queue_bound", str(args.queue_bound),
@@ -780,7 +772,7 @@ def main(argv=None) -> int:
         log_path = os.path.join(args.workdir, "daemon.log")
         log_fh = open(log_path, "ab")
         daemon = subprocess.Popen(daemon_cmd, stdout=log_fh, stderr=log_fh,
-                                  env=_child_env())
+                                  env=child_env())
         print(f"loadgen: spawned daemon pid {daemon.pid} on {address} "
               f"(log: {log_path})", flush=True)
 

@@ -849,3 +849,29 @@ def test_accuracy_harness_on_card_matches_cpu(card, tmp_path, monkeypatch):
     assert set(docs["cuda"]["accuracy"]["policies"]) == {"majority", "delegation", "distilled"}
     for key in ("accuracy", "qc"):
         assert docs["cuda"][key] == docs["cpu"][key]
+
+
+def test_serve_soak_on_card(card, tmp_path, monkeypatch):
+    """The soak on the card: the kill -9 lands while the jobs are in flight,
+    the supervised daemon restarts, replays them from its journal (a
+    ``journal-replay`` flight dump) and finishes each to the goldens, its
+    B1 launches on the card."""
+    import contextlib
+    import io
+
+    from consensuscruncher_tpu_torch.utils import serve_soak
+
+    seen = {}
+    for var in [k for k in os.environ if k.startswith("CCT_")]:
+        monkeypatch.delenv(var)  # the daemon inherits them (CCT_TRACE_DIR moves its dumps)
+
+    def observe(stage, client, facts):
+        seen[stage] = dict(facts, launches=client.metrics()["kernel_launches"]["vote"])
+
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rc = serve_soak.main(["--jobs", "3", "--seed", "7", "--kill-after", "0.2",
+                              "--workdir", str(tmp_path)], observe=observe)
+    assert rc == 0, (tmp_path / "daemon.log").read_text()[-3000:]
+    assert seen["drained"]["replayed"] >= 1
+    assert "journal-replay" in seen["drained"]["dumps"]
+    assert seen["drained"]["launches"] > 0

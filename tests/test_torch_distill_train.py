@@ -130,6 +130,21 @@ def _run(main, argv, steps_ctx, record) -> tuple[dict, list]:
     return doc, err.getvalue().splitlines()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch's intra-op pool held to one thread for this module, then
+    restored.  The port's trainer at the defaults takes ~18 s on 8 CPU
+    cores and ~97 s on one, but beside five busy test processes
+    (the suite's parallel run) its parallel regions stall on descheduled
+    threads: 298 s on 2 threads, 418 s for the fixture on 8, against 250 s
+    on one.  Module-wide, since the loss's float32 sums follow the thread
+    count and the tests recompute it against ``default_runs``."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def default_runs(tmp_path_factory):
     """Both tools at the committed defaults (the port on the CPU)."""

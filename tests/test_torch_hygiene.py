@@ -446,7 +446,8 @@ def test_every_module_imports_no_jax():
     """Every module of the port — the serve daemon, the obs core and its
     readers, the sanitizers, the model checker, the card probe, the
     quality and capacity tools (the gates, the accuracy harness, the load
-    generator) included —
+    generator) and the soak tools (the soak, the trace checker, the chaos
+    conductor) included —
     imports, in a fresh interpreter, without JAX, the JAX package or the
     reference's ``tools``."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -461,7 +462,8 @@ def test_every_module_imports_no_jax():
                  "obs.slo", "obs.history", "obs.prof", "utils.sanitize",
                  "utils.backend_probe", "utils.netchaos", "utils.faults", "obs.critpath",
                  "obs.top", "utils.interleave", "utils.model_check", "utils.qc_gate",
-                 "utils.accuracy_harness", "utils.perf_gate", "utils.loadgen"):
+                 "utils.accuracy_harness", "utils.perf_gate", "utils.loadgen",
+                 "utils.serve_soak", "utils.trace_check", "utils.chaos_conductor"):
         assert f"consensuscruncher_tpu_torch.{name}" in doc["modules"]
 
 
