@@ -40,6 +40,22 @@ from consensuscruncher_tpu_torch.utils import faults
 _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
+# a spawned child of the port's CLI, as a user would start it: ``python
+# -m`` with the package's root first on its import path (see child_env);
+# the soak, the chaos conductor and the load generator start their
+# daemons, routers and workers so
+BOOT = ("-m", "consensuscruncher_tpu_torch.cli")
+
+
+def child_env(env: dict | None = None) -> dict:
+    """``env`` (default: this process's environment) with the package's
+    root prepended to ``PYTHONPATH``, so a :data:`BOOT` child imports this
+    checkout's package whatever its cwd."""
+    env = dict(os.environ if env is None else env)
+    path = env.get("PYTHONPATH")
+    env["PYTHONPATH"] = _REPO_ROOT + (os.pathsep + path if path else "")
+    return env
+
 
 def child_command(serve_argv: list[str]) -> list[str]:
     """The daemon child's command line: this interpreter running the CLI

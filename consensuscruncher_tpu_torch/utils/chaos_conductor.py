@@ -108,6 +108,7 @@ import argparse
 import json
 import os
 import random
+import re
 import signal
 import subprocess
 import sys
@@ -1103,6 +1104,52 @@ class Conductor:
                 print(f"chaos: {tag} ignored SIGTERM; killing",
                       file=sys.stderr, flush=True)
                 proc.kill()
+
+
+# the finish's verdict on the poison key when the reference's fault trips
+POISON_LOST = r"acked key {key} unresolvable after 90s: .*unknown job_id"
+
+
+def _quarantine_holder(c: Conductor) -> str | None:
+    """The worker whose journal carries the poison key's ``quarantined``
+    marker."""
+    for name, w in c.workers.items():
+        try:
+            raw = open(w["journal"], "rb").read()
+        except OSError:
+            continue
+        for line in raw.split(b"\n"):
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and rec.get("kind") == "quarantined" \
+                    and rec.get("key") == c.poison["key"]:
+                return name
+    return None
+
+
+def reference_poison_fault(c: Conductor, rc: int) -> str | None:
+    """A finished run judged against the reference's lost poison verdict,
+    which the port keeps (ROADMAP, "Faults found in the reference"): once
+    the poison key's quarantine lands on a worker that the schedule kills
+    for good, whose journal a router adopts and which returns as a zombie
+    dropping the adopted jobs, no node answers for the key.  Where the
+    quarantine lands follows the key, which hashes the workdir, so a run
+    meets these conditions or not by its path.  Returns that worker when
+    the run met them and ended rc 1 with that one violation, None when it
+    did not and ended rc 0 with none; raises ``AssertionError`` on any
+    other outcome."""
+    holder = _quarantine_holder(c) if c.poison is not None else None
+    tripped = holder is not None and not c.workers[holder]["permanent"] \
+        and journal_tombstoned(c.workers[holder]["journal"])
+    lost = tripped and len(c.violations) == 1 and re.fullmatch(
+        POISON_LOST.format(key=re.escape(c.poison["key"])), c.violations[0])
+    if rc != (1 if tripped else 0) or not (lost if tripped else not c.violations):
+        raise AssertionError(
+            f"chaos: rc {rc}, violations {c.violations}; the reference's poison "
+            f"fault {'met' if tripped else 'not met'} (quarantine on {holder})")
+    return holder if tripped else None
 
 
 def main(argv=None) -> int:

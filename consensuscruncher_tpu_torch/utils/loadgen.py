@@ -59,7 +59,7 @@ from consensuscruncher_tpu_torch.serve.client import (
     ServeClient,
     ServeClientError,
 )
-from consensuscruncher_tpu_torch.utils.serve_soak import BOOT, child_env
+from consensuscruncher_tpu_torch.serve.supervisor import BOOT, child_env
 from consensuscruncher_tpu_torch.utils.simulate import (
     SimConfig,
     simulate_bam,

@@ -17,8 +17,9 @@ harness drives the REAL crash-recovery stack end to end:
 
 Exit status 0 means every accepted job completed byte-identical to an
 uninterrupted run.  The daemon child is the port's CLI (``python -m
-consensuscruncher_tpu_torch.cli serve ... --device D``, :data:`BOOT`, with
-the package's root first on its import path); ``--device`` is ``cuda``
+consensuscruncher_tpu_torch.cli serve ... --device D``: :data:`BOOT` and
+:func:`child_env` of ``serve/supervisor.py``, with the package's root first
+on its import path); ``--device`` is ``cuda``
 (the card) by default and ``cpu`` only when asked.  The child's output
 goes to ``<workdir>/daemon.log``.  A child that cannot serve (no card for
 ``--device cuda``) exits before its socket appears, and the soak then
@@ -57,26 +58,13 @@ import time
 
 from consensuscruncher_tpu_torch.serve import supervisor
 from consensuscruncher_tpu_torch.serve.client import ServeClient
+from consensuscruncher_tpu_torch.serve.supervisor import BOOT, child_env
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# the daemon child: the port's CLI, as a user would start it, with the
-# package's root first on its import path (whatever the cwd; see child_env)
-BOOT = ("-m", "consensuscruncher_tpu_torch.cli")
 
 # seconds a spawned child may take to bind its socket (a card process
 # imports torch and loads the kernel library first)
 _READY_S = 300.0
-
-
-def child_env(env: dict | None = None) -> dict:
-    """``env`` (default: this process's environment) with the package's
-    root prepended to ``PYTHONPATH``, so a :data:`BOOT` child imports this
-    checkout's package."""
-    env = dict(os.environ if env is None else env)
-    path = env.get("PYTHONPATH")
-    env["PYTHONPATH"] = _ROOT + (os.pathsep + path if path else "")
-    return env
 
 
 def job_spec(output: str) -> dict:
@@ -113,15 +101,7 @@ def _log_tail(path: str) -> str:
         return fh.read()[-2000:].decode("utf-8", "replace")
 
 
-def main(argv=None, observe=None) -> int:
-    """The soak (see the module docstring).  ``observe``, when given, is
-    called as ``observe(stage, client, facts)`` with the live daemon's
-    client: at ``"kill"`` just before the kill -9 (``facts``: the pid and
-    the delay), and at ``"drained"`` once every job is checked, just
-    before the SIGTERM (``facts``: each job's state, submit-to-result
-    seconds and daemon-side wall, the seconds from the kill until the
-    restarted daemon answered, the replayed count and the flight dumps'
-    reasons)."""
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--workdir", required=True,
@@ -200,35 +180,26 @@ def main(argv=None, observe=None) -> int:
         subs = []
         for i in range(args.jobs):
             out = os.path.join(args.workdir, f"job{i}")
-            subs.append((i, out, client.submit_full(job_spec(out)),
-                         time.monotonic()))
+            subs.append((i, out, client.submit_full(job_spec(out))))
 
         rng = random.Random(args.seed)
         delay = args.kill_after * rng.uniform(0.5, 1.5)
         print(f"soak: kill -9 in {delay:.1f}s (seed {args.seed})", flush=True)
         time.sleep(delay)
         pid = client.healthz()["pid"]
-        if observe is not None:
-            observe("kill", client, {"pid": pid, "delay_s": delay})
         os.kill(pid, signal.SIGKILL)
-        killed_at = time.monotonic()
         print(f"soak: killed daemon pid {pid}; supervisor restarts, "
               "journal replays", flush=True)
 
         failures = []
-        jobs = []
-        for i, out, sub, submitted in subs:
+        for i, out, sub in subs:
             job = client.result(key=sub["key"], timeout=args.timeout)
-            jobs.append({"job": i, "state": job["state"],
-                         "submit_to_result_s": time.monotonic() - submitted,
-                         "wall_s": job.get("wall_s")})
             if job["state"] != "done":
                 failures.append(f"job{i}: {job['state']} ({job.get('error')})")
                 continue
             failures += [f"job{i}: {p}"
                          for p in check_golden(os.path.join(out, "golden"),
                                                 golden)]
-        health = client.healthz()
         replayed = client.metrics()["cumulative"]["jobs_replayed"]
         print(f"soak: {args.jobs} job(s) finished, {replayed} replayed "
               "from the journal", flush=True)
@@ -255,13 +226,6 @@ def main(argv=None, observe=None) -> int:
                 f"{replayed} job(s) replayed but no journal-replay flight "
                 f"dump under {args.workdir} (found: {reasons or 'none'})")
         print(f"soak: {len(dumps)} flight dump(s): {reasons}", flush=True)
-        if observe is not None:
-            # the restarted daemon's start-up is in its uptime: the kill to
-            # its first answer less the time it has been up since
-            observe("drained", client, {
-                "jobs": jobs, "replayed": replayed, "dumps": reasons,
-                "restart_s": time.monotonic() - killed_at - health["uptime_s"],
-                "pid": health["pid"]})
 
         # clean shutdown: the daemon drains, exits 0, supervisor follows
         os.kill(client.healthz()["pid"], signal.SIGTERM)

@@ -855,23 +855,34 @@ def test_serve_soak_on_card(card, tmp_path, monkeypatch):
     """The soak on the card: the kill -9 lands while the jobs are in flight,
     the supervised daemon restarts, replays them from its journal (a
     ``journal-replay`` flight dump) and finishes each to the goldens, its
-    B1 launches on the card."""
+    B1 launches on the card (its metrics read as the soak signals it)."""
     import contextlib
+    import glob
     import io
+    import signal
 
+    from consensuscruncher_tpu_torch.serve.client import ServeClient
     from consensuscruncher_tpu_torch.utils import serve_soak
 
-    seen = {}
+    sent = []
+    real_kill = os.kill
+
+    def kill(pid, sig):
+        try:
+            if sig in (signal.SIGKILL, signal.SIGTERM):
+                sent.append(ServeClient(str(tmp_path / "soak.sock"), retries=2).metrics())
+        finally:
+            real_kill(pid, sig)
+
     for var in [k for k in os.environ if k.startswith("CCT_")]:
         monkeypatch.delenv(var)  # the daemon inherits them (CCT_TRACE_DIR moves its dumps)
-
-    def observe(stage, client, facts):
-        seen[stage] = dict(facts, launches=client.metrics()["kernel_launches"]["vote"])
-
+    monkeypatch.setattr(serve_soak.os, "kill", kill)
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         rc = serve_soak.main(["--jobs", "3", "--seed", "7", "--kill-after", "0.2",
-                              "--workdir", str(tmp_path)], observe=observe)
+                              "--workdir", str(tmp_path)])
     assert rc == 0, (tmp_path / "daemon.log").read_text()[-3000:]
-    assert seen["drained"]["replayed"] >= 1
-    assert "journal-replay" in seen["drained"]["dumps"]
-    assert seen["drained"]["launches"] > 0
+    (_, drained) = sent
+    assert drained["cumulative"]["jobs_replayed"] >= 1
+    reasons = [json.load(open(p))["reason"] for p in glob.glob(str(tmp_path / "flight-*.json"))]
+    assert "journal-replay" in reasons
+    assert drained["kernel_launches"]["vote"] > 0

@@ -257,42 +257,47 @@ def _live(tmp_path, *argv) -> tuple[int, str, conductor.Conductor]:
     return rc, out.getvalue(), built[0]
 
 
-def _quarantine_holder(c) -> str | None:
-    """The worker whose journal carries the poison key's ``quarantined``
-    marker."""
-    for name, w in c.workers.items():
-        if not os.path.exists(w["journal"]):
-            continue
-        for line in open(w["journal"], "rb").read().split(b"\n"):
-            try:
-                rec = json.loads(line)
-            except ValueError:
-                continue
-            if isinstance(rec, dict) and rec.get("kind") == "quarantined" \
-                    and rec.get("key") == c.poison["key"]:
-                return name
-    return None
+def _marker(path, kind, **fields) -> None:
+    with open(path, "a") as fh:
+        fh.write(json.dumps({"rec": "marker", "kind": kind, **fields}) + "\n")
 
 
-POISON_LOST = r"acked key {key} unresolvable after 90s: .*unknown job_id"
-
-
-def _trips_reference_fault(c) -> bool:
-    """Whether the run met the reference's lost poison verdict: the key's
-    quarantine held by a worker that the schedule killed for good, whose
-    journal was adopted and which came back (the key hashes the workdir,
-    so where the poison's lineage ends varies from run to run)."""
-    holder = _quarantine_holder(c)
-    return holder is not None and conductor.journal_tombstoned(c.workers[holder]["journal"]) \
-        and not c.workers[holder]["permanent"]
-
-
-def _holds_all_but_the_reference_fault(rc, c) -> None:
-    lost = _trips_reference_fault(c)
-    assert rc == (1 if lost else 0), c.violations
-    assert len(c.violations) == (1 if lost else 0), c.violations
-    if lost:
-        assert re.fullmatch(POISON_LOST.format(key=c.poison["key"]), c.violations[0])
+@pytest.mark.parametrize("case", ["clean", "tripped", "violation_without_the_conditions",
+                                  "conditions_without_the_violation", "one_more_violation",
+                                  "holder_still_dead"])
+def test_reference_poison_fault_judges_a_finished_run(tmp_path, case):
+    """The one judgement of a run against the reference's lost poison
+    verdict, which the live legs and the card's smoke share: the fault
+    kept only under its conditions (the quarantine's holder adopted and
+    back) and only as the poison key's ``unknown job_id``."""
+    c = conductor.Conductor(str(tmp_path / "chaos"), 7, workers=3, device="cpu")
+    key = "k" * 16
+    c.poison = {"key": key, "out": str(tmp_path / "poison")}
+    lost = f"acked key {key} unresolvable after 90s: unknown job_id"
+    holder = c.workers["w1"]
+    os.makedirs(os.path.dirname(holder["journal"]), exist_ok=True)
+    _marker(c.workers["w0"]["journal"], "suspect", key=key, attempt=1)
+    _marker(holder["journal"], "quarantined", key=key)
+    if case != "clean":
+        _marker(holder["journal"], "adopted", by="r0")
+    holder["permanent"] = case == "holder_still_dead"
+    c.violations = {"clean": [], "tripped": [lost], "violation_without_the_conditions": [lost],
+                    "conditions_without_the_violation": [],
+                    "one_more_violation": [lost, "job0 digest differs"],
+                    "holder_still_dead": [lost]}[case]
+    rc = 1 if c.violations else 0
+    if case == "clean":
+        assert conductor.reference_poison_fault(c, rc) is None
+    elif case == "tripped":
+        assert conductor.reference_poison_fault(c, rc) == "w1"
+        with pytest.raises(AssertionError):
+            conductor.reference_poison_fault(c, 0)
+    else:
+        if case == "violation_without_the_conditions":
+            os.unlink(holder["journal"])
+            _marker(holder["journal"], "quarantined", key=key)
+        with pytest.raises(AssertionError, match="poison fault"):
+            conductor.reference_poison_fault(c, rc)
 
 
 @pytest.mark.slow
@@ -300,7 +305,7 @@ def test_smoke_on_the_cpu_holds_every_invariant(tmp_path):
     """The ``--smoke`` leg holds every invariant, but for the reference's
     lost poison verdict where its schedule trips it."""
     rc, out, c = _live(tmp_path)
-    _holds_all_but_the_reference_fault(rc, c)
+    conductor.reference_poison_fault(c, rc)
     assert c.takeovers_seen >= 1 and c.adoptions_seen >= 1
     assert c.quarantines_seen >= 1 and c.brownouts_seen >= 1
     assert c.trace_summary["orphans"] == 0 and c.trace_summary["spans"] > 0
@@ -315,7 +320,7 @@ def test_netchaos_smoke_keeps_the_reference_poison_fault(tmp_path):
     lineage ends varies between checkouts): no node answers for the key
     after the adoption and the zombie's drop, as in the reference."""
     rc, out, c = _live(tmp_path, "--netchaos", "--workers", "2")
-    _holds_all_but_the_reference_fault(rc, c)
+    conductor.reference_poison_fault(c, rc)
     assert re.search(r"zombie w\d rejoined; dropped [1-9]\d* adopted job\(s\)", out)
     assert c.takeovers_seen >= 1 and c.adoptions_seen >= 1
     assert c.quarantines_seen >= 1 and c.brownouts_seen >= 1
@@ -334,7 +339,7 @@ def _quarantined_then_adopted(c) -> tuple[str, list]:
         try:
             c.ev_submit()
             c.ev_poison_submit()
-            holder = _quarantine_holder(c)
+            holder = conductor._quarantine_holder(c)
             w = c.workers[holder]
             w["alive"], w["permanent"] = False, True
             c._kill9(w["proc"], f"worker {holder} (PERMANENT)")
@@ -366,7 +371,7 @@ def test_poison_quarantined_on_an_adopted_worker_is_lost_in_both(tmp_path):
         assert c.quarantines_seen == 1, out[-3000:]
         assert re.search(r"dropped [1-9]\d* adopted job\(s\)", out), out[-3000:]
         assert len(violations) == 1, violations
-        assert re.fullmatch(POISON_LOST.format(key=c.poison["key"]).replace("90s", "20s"),
-                            violations[0]), violations
+        lost = conductor.POISON_LOST.format(key=c.poison["key"]).replace("90s", "20s")
+        assert re.fullmatch(lost, violations[0]), violations
         got[name] = violations[0].split(": ", 1)[1]
     assert got["port"] == got["ref"]

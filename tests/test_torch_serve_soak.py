@@ -6,7 +6,8 @@ equals the JAX tool's; ``check_golden`` gives the JAX tool's strings on a
 whole served tree, on the tree with a text file and a BAM changed, and
 with a file missing.  Live: ``--jobs 3 --seed 7 --kill-after 0.3 --device
 cpu`` kills the supervised daemon while its jobs are in flight, and exits
-0 with at least one job replayed from the journal, a ``journal-replay``
+0 with at least one job replayed from the journal (the restarted daemon's
+metrics, read as the soak signals it to drain), a ``journal-replay``
 flight dump beside it and every job's tree on the goldens; without a card
 the default ``--device cuda`` daemon exits before its socket appears and
 the soak fails naming the log's tail, no daemon serving.
@@ -19,10 +20,12 @@ import io
 import json
 import os
 import shutil
+import signal
 
 import pytest
 import torch
 
+from consensuscruncher_tpu_torch.serve.client import ServeClient
 from consensuscruncher_tpu_torch.utils import serve_soak
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,33 +37,41 @@ jax_soak = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(jax_soak)
 
 
-def _soak(argv, observe=None) -> tuple[int, str, str]:
-    """``serve_soak.main(argv)`` with its output captured and no ``CCT_*``
+def _soak(argv) -> tuple[int, str, str, list]:
+    """``serve_soak.main(argv)`` with its output captured, no ``CCT_*``
     variable an earlier test of this process left behind (the daemon
     inherits them: ``CCT_TRACE_DIR`` alone moves its flight dumps out of
-    the workdir)."""
+    the workdir), and each signal it sends: ``(signal, pid, the daemon's
+    metrics read over its socket just before)``."""
     out, err = io.StringIO(), io.StringIO()
+    sock = os.path.join(argv[argv.index("--workdir") + 1], "soak.sock")
+    sent = []
+    real_kill = os.kill
+
+    def kill(pid, sig):
+        try:
+            if sig in (signal.SIGKILL, signal.SIGTERM):
+                sent.append((sig, pid, ServeClient(sock, retries=2).metrics()))
+        finally:
+            real_kill(pid, sig)
+
     with pytest.MonkeyPatch.context() as mp:
         for var in [k for k in os.environ if k.startswith("CCT_")]:
             mp.delenv(var)
+        mp.setattr(serve_soak.os, "kill", kill)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = serve_soak.main(argv, observe=observe)
-    return rc, out.getvalue(), err.getvalue()
+            rc = serve_soak.main(argv)
+    return rc, out.getvalue(), err.getvalue(), sent
 
 
 @pytest.fixture(scope="module")
 def live(tmp_path_factory):
     """One live soak on the CPU, the kill landing while jobs are in
-    flight; the facts the soak hands its observer."""
+    flight."""
     workdir = str(tmp_path_factory.mktemp("soak"))
-    facts = {}
-
-    def observe(stage, client, info):
-        facts[stage] = dict(info, metrics=client.metrics())
-
-    rc, out, err = _soak(["--jobs", "3", "--seed", "7", "--kill-after", "0.3",
-                          "--device", "cpu", "--workdir", workdir], observe)
-    return {"rc": rc, "out": out, "err": err, "workdir": workdir, "facts": facts}
+    rc, out, err, sent = _soak(["--jobs", "3", "--seed", "7", "--kill-after", "0.3",
+                                "--device", "cpu", "--workdir", workdir])
+    return {"rc": rc, "out": out, "err": err, "workdir": workdir, "sent": sent}
 
 
 def test_job_spec_equals_jax(tmp_path):
@@ -72,16 +83,16 @@ def test_job_spec_equals_jax(tmp_path):
 def test_live_soak_replays_in_flight_jobs_to_the_goldens(live):
     assert live["rc"] == 0, live["err"][-3000:]
     assert "soak: OK — every accepted job byte-identical to golden" in live["out"]
-    drained = live["facts"]["drained"]
-    assert drained["replayed"] >= 1
-    assert drained["metrics"]["cumulative"]["jobs_replayed"] == drained["replayed"]
-    assert f"{drained['replayed']} replayed from the journal" in live["out"]
-    assert "journal-replay" in drained["dumps"]
+    # one kill -9 of the first daemon, one SIGTERM of the restarted one
+    (kill, killed, _), (term, drained, metrics) = live["sent"]
+    assert (kill, term) == (signal.SIGKILL, signal.SIGTERM) and killed != drained
+    replayed = metrics["cumulative"]["jobs_replayed"]
+    assert replayed >= 1
+    assert f"3 job(s) finished, {replayed} replayed from the journal" in live["out"]
     reasons = [json.load(open(p))["reason"]
                for p in glob.glob(os.path.join(live["workdir"], "flight-*.json"))]
     assert "journal-replay" in reasons
-    assert [j["state"] for j in drained["jobs"]] == ["done"] * 3
-    assert drained["pid"] != live["facts"]["kill"]["pid"] and drained["restart_s"] > 0
+    assert f"soak: {len(reasons)} flight dump(s): " in live["out"]
     for i in range(3):
         base = os.path.join(live["workdir"], f"job{i}", "golden")
         assert serve_soak.check_golden(base, GOLDEN) == []
@@ -108,10 +119,10 @@ def test_check_golden_strings_equal_jax(live, tmp_path):
 def test_soak_without_a_card_fails_before_serving(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("holds the refusal on a host without a card")
-    rc, out, err = _soak(["--jobs", "3", "--seed", "7", "--workdir", str(tmp_path)])
+    rc, out, err, sent = _soak(["--jobs", "3", "--seed", "7", "--workdir", str(tmp_path)])
     assert rc == 1
     assert "soak: FAIL the daemon exited 1 before serving" in err
     assert "CUDA is not available" in err
-    assert "daemon serving" not in out
+    assert "daemon serving" not in out and sent == []
     assert not os.path.exists(tmp_path / "soak.sock")
     assert not os.path.exists(tmp_path / "soak.journal")
