@@ -166,8 +166,8 @@ failure; no phase's failure is caught.  Phases:
     with the job dispatched (``serve.worker=kill:SIGKILL``), the router
     resubmits it by key to the other daemon, whose tree equals the
     one-shot run (the seconds from the kill to the result); (iii) (i)'s
-    50,000-fragment spec again under another tenant and output: answered
-    ``cached`` by the router, no worker launching, every file the first
+    ``OBJECT_FRAGMENTS``-fragment spec again under another tenant and
+    output: answered ``cached`` by the router, no worker launching, every file the first
     tree's bytes (hit latency beside the miss's); (iv) a third daemon
     ``serve --warm_from V`` joins with ``member_add``: no kernel build
     (``cct_recompiles_total`` 0) and the job routed to it equals its
@@ -1405,9 +1405,11 @@ MANIFEST_STAGES = ("sscs", "singleton_correction", "merge_rescued", "dcs", "merg
 # phase 9; PERF.md section 4 lists the cuts).
 WALL_TURNS = (("staged", "True"), ("streaming", "True"))
 # the object-path samples (tagged input, --max_mismatch 1): phase 5's
-# settings at a quarter of its fragments (the walks decode every record in
-# Python, and each stage runs again on the CPU for its reference)
-OBJECT_FRAGMENTS = 50_000
+# settings at 30,000 fragments (the walks decode every record in Python,
+# and each stage runs again on the CPU for its reference; with phase 17 the
+# smoke fits its time limit on slower card hosts only at this depth,
+# PERF.md section 4)
+OBJECT_FRAGMENTS = 30_000
 # the --max_mismatch 1 cell's sample, cut from OBJECT_FRAGMENTS to make
 # room for phase 9 (its rescue walk is host-bound, ~0.45 ms a fragment)
 MM1_FRAGMENTS = 20_000
@@ -3544,7 +3546,7 @@ def phase_fleet(dev, work: str, one_shot: dict, card: str) -> dict:
 
 # ------------------------------------------- phase 13: the reference's flow from FASTQ
 
-FASTQ_FRAGMENTS = 80_000  # (ii): phase 5's widths; its 200,000 fragments cut for time
+FASTQ_FRAGMENTS = 80_000  # (ii): phase 5's widths
 FASTQ_PARITY_FRAGMENTS = 20_000  # (iii)
 FASTQ_WORKERS = 4
 BPATTERN = "NNNNNNT"  # test/make_test_data.py's pattern: 6-base UMI + 'T' spacer
@@ -4618,15 +4620,65 @@ class _Background:
         return rows
 
     def kill(self) -> None:
-        if self.proc.poll() is None:
+        # the group outlives its leader while a process it started runs on
+        try:
             os.killpg(self.proc.pid, signal.SIGKILL)
-            self.proc.wait()
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
+# every process this run starts inherits it through its environment,
+# whatever process group or parent it ends up with
+RUN_MARK = "CHIP_SMOKE_RUN"
+
+
+def _marked_processes() -> dict:
+    """``{pid: command line}`` of every other process whose environment
+    carries this run's :data:`RUN_MARK`."""
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    found = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as fh:
+                if mark not in fh.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            with open(f"/proc/{entry}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+        except OSError:  # gone meanwhile, or not ours to read
+            continue
+        if state != "Z":  # a zombie has ended; its parent's exit reaps it
+            found[int(entry)] = cmd[:300]
+    return found
+
+
+def stop_leftovers() -> None:
+    """SIGKILL every process of this run still running once its phases
+    have ended, and name each in a ``leftovers`` line."""
+    found = _marked_processes()
+    for pid in found:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    deadline = time.monotonic() + 30
+    while _marked_processes() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    emit("leftovers", count=len(found), processes=[{"pid": pid, "cmd": cmd}
+                                                   for pid, cmd in sorted(found.items())],
+         still_running=sorted(_marked_processes()))
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--fragments", type=int, default=200_000,
-                   help="simulated duplex fragments for phase 5 (default 200000)")
+    # 100,000 fragments (1.1M reads): with phase 17 the smoke fits its time
+    # limit on slower card hosts only at this depth (PERF.md section 4)
+    p.add_argument("--fragments", type=int, default=100_000,
+                   help="simulated duplex fragments for phase 5 (default 100000)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4638,6 +4690,7 @@ def main() -> None:
     rates = phase_card()
     phase_build()
 
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
     os.makedirs(os.path.join(REPO, ".scratch"), exist_ok=True)
     work = tempfile.mkdtemp(dir=os.path.join(REPO, ".scratch"))
     backgrounds: list = []
@@ -4704,6 +4757,7 @@ def main() -> None:
     finally:
         for bg in backgrounds:
             bg.kill()
+        stop_leftovers()
         shutil.rmtree(work, ignore_errors=True)
     smoke_s = time.perf_counter() - started
     emit("smoke", seconds=smoke_s)

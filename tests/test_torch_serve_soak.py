@@ -42,7 +42,8 @@ def _soak(argv) -> tuple[int, str, str, list]:
     variable an earlier test of this process left behind (the daemon
     inherits them: ``CCT_TRACE_DIR`` alone moves its flight dumps out of
     the workdir), and each signal it sends: ``(signal, pid, the daemon's
-    metrics read over its socket just before)``."""
+    metrics read over its socket just before)``.  The daemons run torch on
+    one thread, so the soak leaves the cores to the tests beside it."""
     out, err = io.StringIO(), io.StringIO()
     sock = os.path.join(argv[argv.index("--workdir") + 1], "soak.sock")
     sent = []
@@ -58,6 +59,7 @@ def _soak(argv) -> tuple[int, str, str, list]:
     with pytest.MonkeyPatch.context() as mp:
         for var in [k for k in os.environ if k.startswith("CCT_")]:
             mp.delenv(var)
+        mp.setenv("OMP_NUM_THREADS", "1")
         mp.setattr(serve_soak.os, "kill", kill)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = serve_soak.main(argv)
