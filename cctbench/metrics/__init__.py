@@ -1,0 +1,1 @@
+"""One reader per per-layer metric, found by the metric's name."""
