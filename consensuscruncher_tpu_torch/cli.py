@@ -143,7 +143,7 @@ from consensuscruncher_tpu_torch.stages.sscs_maker import SscsResult, run_sscs
 from consensuscruncher_tpu_torch.utils.backend_probe import device_of_backend
 from consensuscruncher_tpu_torch.utils.faults import FaultError, retrying
 from consensuscruncher_tpu_torch.utils.manifest import RunManifest
-from consensuscruncher_tpu_torch.utils.profiling import maybe_profile
+from consensuscruncher_tpu_torch.utils.profiling import counter_marks, maybe_profile
 from consensuscruncher_tpu_torch.utils.stats import TimeTracker
 
 
@@ -235,7 +235,8 @@ class _Run:
     manifest: RunManifest
     ilevel: int           # deflate level of the per-stage BAMs
     t0: float             # perf_counter at the start of the run
-    io_before: dict       # bgzf.write_stats() at the start of the run
+    marks: dict           # counter_marks() at the start of the run
+    deflate_before: int   # bgzf.caller_wall_us() of the run's thread at its start
 
 
 class _Walls:
@@ -702,7 +703,7 @@ def _materialize_negative_ranges(args, ranges, ranges_dir: str) -> set[int]:
 def _consensus_one(args) -> dict:
     """One sample, one process: the staged or the streaming pipeline."""
     t0 = time.perf_counter()
-    io_before = bgzf.write_stats()
+    marks, deflate_before = counter_marks(), bgzf.caller_wall_us()
     # a host backend (--backend cpu|reference) names no device and opens none
     device = None if args.host_backend else resolve_device(args.device)
     # the vote policy (and the distilled checkpoint) is resolved before any
@@ -716,7 +717,7 @@ def _consensus_one(args) -> dict:
     # --intermediate_level while the finals keep --compress_level (default:
     # follow --compress_level).
     ilevel = args.compress_level if args.intermediate_level is None else args.intermediate_level
-    run = _Run(args, device, name, base, dirs, manifest, ilevel, t0, io_before)
+    run = _Run(args, device, name, base, dirs, manifest, ilevel, t0, marks, deflate_before)
 
     # Device-resident SSCS planes (on by default on the single-device
     # stream wire, as in the JAX package): rescue and DCS vote by gather on
@@ -968,7 +969,7 @@ def _finish(run: _Run, pipeline: str, index_parts, doomed, qc_acc) -> None:
         for path in doomed:
             if os.path.exists(path):
                 os.unlink(path)
-    _write_run_metrics(base, name, run.dirs, pipeline, run.t0, run.io_before)
+    _write_run_metrics(run, pipeline)
     # Unlike the JAX package, no best-effort catch around the QC doc: the
     # accumulator copies the card's sums here, and a device fault must raise.
     if qc_acc is not None:
@@ -1001,28 +1002,46 @@ def _draw_plots(dirs: dict, name: str, scorrect: bool, metrics_jsons: list[str])
     plot_stage_times(metrics_jsons, os.path.join(dirs["plots"], f"{name}.stage_times.png"))
 
 
-def _write_run_metrics(base, name, dirs, pipeline, t0, io_before) -> None:
+_last_run_metrics: dict | None = None
+
+
+def last_run_metrics() -> dict | None:
+    """The document of the last ``run.metrics.json`` this process wrote
+    (None before the first), for in-process callers."""
+    return None if _last_run_metrics is None else dict(_last_run_metrics)
+
+
+def _write_run_metrics(run: _Run, pipeline: str) -> None:
     """``<base>/run.metrics.json``: the end-to-end numbers of a run — total
-    wall, deflate wall, BGZF bytes written, and how many of those bytes
-    were stage-to-stage intermediates (0 in streaming mode with taps off)."""
-    now = bgzf.write_stats()
+    wall, deflate wall (the run's own thread's time in ``io.deflate``
+    spans), how many of the BGZF bytes written were stage-to-stage
+    intermediates (0 in streaming mode with taps off), and the run's change
+    of every ``utils.profiling.counter_marks`` counter (BGZF bytes written,
+    bytes to and from the card, kernel builds, the SSCS vote calls'
+    member-positions and output positions, the writers' summed deflate
+    time).  The same
+    document stays in memory for :func:`last_run_metrics`."""
+    global _last_run_metrics
+    now = counter_marks()
+    base, name, dirs = run.base, run.name, run.dirs
     intermediates = [
         os.path.join(dirs["sscs"], f"{name}.singleton.sorted.bam"),
         os.path.join(dirs["singleton"], f"{name}.sscs.rescue.sorted.bam"),
         os.path.join(dirs["singleton"], f"{name}.singleton.rescue.sorted.bam"),
         os.path.join(dirs["dcs"], f"{name}.sscs.rescued.bam"),
     ]
-    payload = {
+    payload = {key: now[key] - run.marks[key] for key in now}
+    payload.update({
         "pipeline": pipeline,
-        "wall_s": round(time.perf_counter() - t0, 6),
-        "deflate_wall_s": round((now["deflate_wall_us"] - io_before["deflate_wall_us"]) / 1e6, 6),
-        "bytes_bam_written": now["bytes_written"] - io_before["bytes_written"],
+        "wall_s": round(time.perf_counter() - run.t0, 6),
+        "deflate_wall_s": round((bgzf.caller_wall_us() - run.deflate_before) / 1e6, 6),
         "intermediate_bam_bytes": sum(
             os.path.getsize(p) for p in intermediates if os.path.exists(p)),
-    }
+    })
     with open(os.path.join(base, "run.metrics.json"), "w") as fh:
         json.dump(payload, fh, indent=2, sort_keys=True)
         fh.write("\n")
+    _last_run_metrics = payload
 
 
 # ---------------------------------------------------------------------- serve

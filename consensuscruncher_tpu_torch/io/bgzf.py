@@ -224,14 +224,30 @@ _cfg: dict[str, object] = {"threads": None, "async_write": None}
 # and publishes the difference (``run.metrics.json``) without threading a
 # stats object through every writer construction site.  Lock-protected
 # because async writers deflate on worker threads.
+# ``_caller`` is the other side: the wall a CALLING thread spent in
+# ``io.deflate`` spans (a sorted BGZF write with its wait on the
+# write-behind worker), kept per thread, so a run reports its own thread's
+# deflate wall (``run.metrics.json``'s ``deflate_wall_s``).
 _stats_lock = threading.Lock()
 _stats = {"deflate_wall_us": 0, "bytes_written": 0}
+_caller = threading.local()
 
 
 def _stats_add(wall_us: int, nbytes: int) -> None:
     with _stats_lock:
         _stats["deflate_wall_us"] += int(wall_us)
         _stats["bytes_written"] += int(nbytes)
+
+
+def add_caller_wall(wall_us: int) -> None:
+    """Count ``wall_us`` microseconds this thread spent in an ``io.deflate``
+    span."""
+    _caller.us = getattr(_caller, "us", 0) + int(wall_us)
+
+
+def caller_wall_us() -> int:
+    """Microseconds this thread has spent in ``io.deflate`` spans."""
+    return getattr(_caller, "us", 0)
 
 
 def write_stats() -> dict[str, int]:

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import os
 import struct
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import cached_property
 from typing import NamedTuple
@@ -37,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 
 from consensuscruncher_tpu_torch.io import bgzf
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.io.bam import (
     BAM_MAGIC,
     BamHeader,
@@ -339,9 +342,21 @@ class ColumnarReader:
 
     def batches(self):
         while True:
+            # the io.decode span closes before the batch is handed on
+            with obs_trace.span("io.decode"):
+                batch, done = self._next_batch()
+            if batch is not None:
+                yield batch
+            if done:
+                return
+
+    def _next_batch(self):
+        """Read, inflate and scan the next batch: ``(batch or None,
+        done)``; None when a range trim left nothing of it."""
+        while True:
             chunk = self._carry + self._bgzf.read(self._batch_bytes)
             if not chunk:
-                return
+                return None, True
             offs = _scan_offsets(chunk, len(chunk))
             end = int(offs[-1])
             if end == 0:
@@ -355,14 +370,10 @@ class ColumnarReader:
             self._carry = chunk[end:]
             buf = np.frombuffer(chunk, dtype=np.uint8, count=end)
             batch = _make_batch(self.header, buf, offs)
-            if self._range is not None:
-                batch, done = self._trim(batch)
-                if batch is not None and batch.n:
-                    yield batch
-                if done:
-                    return
-                continue
-            yield batch
+            if self._range is None:
+                return batch, False
+            batch, done = self._trim(batch)
+            return (batch if batch is not None and batch.n else None), done
 
     def _trim(self, batch):
         """Apply the range's start/end key bounds to one batch.  Returns
@@ -435,20 +446,21 @@ def sort_bam_columnar(
         reader.close()
 
     # key columns across batches
-    if n_total:
-        rid = np.concatenate([b.ref_id for b in batches])
-        pos = np.concatenate([b.pos for b in batches])
-        flag = np.concatenate([b.flag for b in batches])
-        w = max(b.qname_matrix.shape[1] for b in batches)
-        qm = np.zeros((n_total, w), dtype=np.uint8)
-        row = 0
-        for b in batches:
-            m = b.qname_matrix
-            qm[row : row + b.n, : m.shape[1]] = m
-            row += b.n
-        perm = coord_sort_perm(rid, pos, qm, flag)
-    else:
-        perm = np.empty(0, dtype=np.int64)
+    with obs_trace.span("io.sort"):
+        if n_total:
+            rid = np.concatenate([b.ref_id for b in batches])
+            pos = np.concatenate([b.pos for b in batches])
+            flag = np.concatenate([b.flag for b in batches])
+            w = max(b.qname_matrix.shape[1] for b in batches)
+            qm = np.zeros((n_total, w), dtype=np.uint8)
+            row = 0
+            for b in batches:
+                m = b.qname_matrix
+                qm[row : row + b.n, : m.shape[1]] = m
+                row += b.n
+            perm = coord_sort_perm(rid, pos, qm, flag)
+        else:
+            perm = np.empty(0, dtype=np.int64)
 
     if n_total:
         starts = np.concatenate([b.rec_off[:-1] for b in batches])
@@ -639,7 +651,8 @@ def merge_sorted_columnar(paths: list, out_path, header: BamHeader,
         for name, length in out_header.refs:
             bname = name.encode("ascii") + b"\x00"
             head += struct.pack("<i", len(bname)) + bname + struct.pack("<i", length)
-        writer.write(bytes(head))
+        with _deflating():
+            writer.write(bytes(head))
 
         if n_total:
             rid = np.concatenate(rid_l)
@@ -653,7 +666,8 @@ def merge_sorted_columnar(paths: list, out_path, header: BamHeader,
                 qm[row : row + len(m), : m.shape[1]] = m
                 row += len(m)
             del qm_l
-            perm = coord_sort_perm(rid, pos, qm, flag)
+            with obs_trace.span("io.sort"):
+                perm = coord_sort_perm(rid, pos, qm, flag)
             del qm
             chunk_of = np.repeat(np.arange(n_chunks), counts).astype(np.int32)
             src = chunk_of[perm]
@@ -675,9 +689,12 @@ def merge_sorted_columnar(paths: list, out_path, header: BamHeader,
                     # sort preserves each sorted input's internal order)
                     data, dlens = streams[ci].fetch(len(slots))
                     scatter_runs(out_buf, starts_b[slots], data, dlens)
-                writer.write(out_buf.tobytes())
-        writer.close()
-        commit_file(tmp, out_path)
+                # the chunks' reads stay outside: io.decode spans of their own
+                with _deflating():
+                    writer.write(out_buf.tobytes())
+        with _deflating():
+            writer.close()
+            commit_file(tmp, out_path)
     except BaseException:
         # cleanup must not mask the root cause: an async writer close()
         # re-raises its deferred worker error — suppress it here, the
@@ -744,11 +761,26 @@ def _record_spans_columnar(big: np.ndarray, starts: np.ndarray):
     return rid, pos, end, mapped
 
 
+@contextmanager
+def _deflating():
+    """The ``io.deflate`` span: a BGZF write of sorted records, with the
+    wait on the write-behind worker; its wall goes to
+    ``bgzf.add_caller_wall``.  Opened only where no reader is pulled from
+    inside it."""
+    t0 = time.perf_counter_ns()
+    try:
+        with obs_trace.span("io.deflate"):
+            yield
+    finally:
+        bgzf.add_caller_wall((time.perf_counter_ns() - t0) // 1000)
+
+
+@_deflating()
 def _write_bam_records(out_path, header: BamHeader, big: np.ndarray,
                        starts: np.ndarray, lengths: np.ndarray, level: int,
                        index: bool = True) -> None:
     """Atomically write header + the records ``big[starts[i]:+lengths[i]]``
-    (already in final order) as a BGZF BAM.
+    (already in final order) as a BGZF BAM, in the ``io.deflate`` span.
 
     With ``index=True`` (default) the ``.bai`` sidecar is built inline from
     the same in-memory columns and the writer's block layout, so no
@@ -921,8 +953,9 @@ class SortingBamWriter:
         from consensuscruncher_tpu_torch.io.bam import BamWriter
 
         self._spill = BamWriter(self._spill_path, self.header, level=1)
-        for c in self._chunks:
-            self._spill.write_encoded(c)
+        with _deflating():
+            for c in self._chunks:
+                self._spill.write_encoded(c)
         self._chunks = []
         self._raw = 0
 
@@ -961,14 +994,17 @@ class SortingBamWriter:
         if self._spill is not None:
             from consensuscruncher_tpu_torch.io.bam import sort_bam
 
-            self._spill.close()
+            with _deflating():
+                self._spill.close()
             try:
+                # its decode, sort and deflate open their own spans
                 sort_bam(self._spill_path, self._path, level=self._level)
             finally:
                 if os.path.exists(self._spill_path):
                     os.unlink(self._spill_path)
             return
-        big, starts, lengths = self._sorted_columns()
+        with obs_trace.span("io.sort"):
+            big, starts, lengths = self._sorted_columns()
         _write_bam_records(self._path, self.header, big, starts, lengths,
                            self._level, index=self._index)
 
@@ -992,7 +1028,8 @@ class SortingBamWriter:
                 "sort buffer spilled to disk; in-memory stage hand-off "
                 "unavailable (falling back to the staged pipeline)")
         self._closed = True
-        big, starts, lengths = self._sorted_columns()
+        with obs_trace.span("io.sort"):
+            big, starts, lengths = self._sorted_columns()
         return MemoryBam(self.header, big, starts, lengths)
 
     def abort(self) -> None:

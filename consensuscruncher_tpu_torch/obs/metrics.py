@@ -251,6 +251,25 @@ def transfer_bytes() -> dict:
         return dict(_transfer_bytes)
 
 
+# the SSCS vote calls' work, counted from each batch's live families
+_vote_work = {"member_positions": 0, "output_positions": 0}
+
+
+def note_vote_work(member_positions: int, output_positions: int) -> None:
+    """Record one vote call's live member-positions (size x true length
+    summed over its voted families) and output positions (true lengths
+    summed), on any device."""
+    with _lock:
+        _vote_work["member_positions"] += int(member_positions)
+        _vote_work["output_positions"] += int(output_positions)
+
+
+def vote_work() -> dict:
+    """Snapshot ``{"member_positions", "output_positions"}``."""
+    with _lock:
+        return dict(_vote_work)
+
+
 def note_compile(signature) -> bool:
     """Record one kernel-library build signature (the library's content-
     keyed path); True on first sighting in this process, which is what
@@ -290,6 +309,8 @@ def reset_for_tests() -> None:
         _seen_tenants.clear()
         _transfer_bytes["h2d"] = 0
         _transfer_bytes["d2h"] = 0
+        _vote_work["member_positions"] = 0
+        _vote_work["output_positions"] = 0
 
 
 # ------------------------------------------------------- Prometheus text

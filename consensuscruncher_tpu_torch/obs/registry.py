@@ -2,12 +2,13 @@
 labeled series and gauges.
 
 Port of ``consensuscruncher_tpu/obs/registry.py``: the same key names in
-the same order (``CUMULATIVE_KEYS`` equals the reference's), so the
+the same order (``CUMULATIVE_KEYS`` starts with the reference's), so the
 port's metrics sidecars and its serve ``metrics`` endpoint carry the JAX
-package's schema.  Where a help text of the reference describes JAX (XLA
-compiles, ``jnp.asarray`` uploads), the port's says what the port counts:
-kernel-library builds (``ops.cuda_lib.build``) and the bytes that cross
-to or from a CUDA card.
+package's schema; the port's own counters (the SSCS vote calls' work)
+follow the reference's keys.  Where a help text of the reference
+describes JAX (XLA compiles, ``jnp.asarray`` uploads), the port's says
+what the port counts: kernel-library builds (``ops.cuda_lib.build``) and
+the bytes that cross to or from a CUDA card.
 
 Pure data with zero imports:
 
@@ -45,10 +46,10 @@ COUNTERS = {
                            "SSCS plane store (no plane re-upload)",
     "staged_pair_votes": "duplex votes that re-uploaded planes from host "
                          "BAM bytes (store miss, empty, or broken)",
-    "deflate_wall_us": "wall microseconds spent in BGZF deflate (block "
+    "deflate_wall_us": "microseconds spent in BGZF deflate (block "
                        "compression + compressed write), measured at the "
-                       "writer layer — the quantity the streaming pipeline "
-                       "exists to collapse",
+                       "writer layer and summed over writers and threads "
+                       "(write-behind workers included), so not a wall",
     "bytes_bam_written": "compressed BGZF bytes written to BAM outputs "
                          "(headers, blocks and EOF markers included)",
     "jobs_routed": "submits the fleet router forwarded onto a worker "
@@ -211,6 +212,13 @@ COUNTERS = {
                           "spent parked in cond.wait with no runnable "
                           "work (admission idle, from critpath's "
                           "antagonist view)",
+    "vote_member_positions": "live member-positions the SSCS vote calls "
+                             "voted: the sum of size x true length over "
+                             "each batch's voted families (the input count "
+                             "of kernel B1's work, not its padded wire)",
+    "vote_output_positions": "consensus positions the SSCS vote calls "
+                             "produced: the sum of true lengths over each "
+                             "batch's voted families",
 }
 
 CUMULATIVE_KEYS = tuple(COUNTERS)

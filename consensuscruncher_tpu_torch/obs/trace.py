@@ -3,7 +3,8 @@
 Design constraints, in priority order:
 
 1. **Zero-cost when off.**  ``span()`` returns one shared no-op context
-   manager when ``CCT_TRACE`` is unset — no allocation, no clock read.
+   manager when ``CCT_TRACE`` is unset and no torch profiler records — no
+   allocation, no clock read, one read of torch's profiler flag.
    The enabled flag is cached against the raw env string and re-checked
    only when the string changes (same trick as ``faults.get``), so tests
    can flip it with ``monkeypatch.setenv``.
@@ -36,9 +37,21 @@ outbound NDJSON requests, and the receiver opens its span with
 arrows (``ph: s``/``f``) so Perfetto draws the hop.
 
 Wall/monotonic split: ``ts`` is epoch microseconds at span start (what
-Perfetto aligns across processes and against ``maybe_profile``'s torch.profiler
-timeline) while ``dur`` is measured with ``perf_counter`` so NTP steps
-cannot produce negative spans.
+Perfetto aligns across processes) while ``dur`` is measured with
+``perf_counter`` so NTP steps cannot produce negative spans.  The NDJSON
+``ts`` is not on the torch profiler's clock.
+
+**Mirrored into the profiler.**  While a ``torch.profiler`` records
+(``--profile DIR``, or any caller's ``profile``), a span opened on the
+main thread also opens ``record_function("cct." + name)``, whether or not
+``CCT_TRACE`` is set: the span is then a host annotation on the
+profiler's own timeline, beside the card's kernels and copies, so a trace
+reduction can name each idle stretch of the card by the innermost
+program span open over it.  Only the main thread's spans are mirrored
+(the reductions keep one stack for the whole process, so a worker
+thread's span would take the main thread's attribution), and no span is
+left open across a ``yield``: each wraps only the code that does its
+work.  Mirroring alone records nothing into the rings and mints no ids.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import binascii
 import glob
 import json
 import os
+import sys
 import threading
 import time
 
@@ -73,6 +87,25 @@ def _ring_cap() -> int:
         return max(64, int(os.environ.get("CCT_TRACE_RING", "4096")))
     except ValueError:
         return 4096
+
+
+def _profiling() -> bool:
+    """True while a torch profiler records (False before torch is imported).
+
+    Once torch is imported, the name is rebound to torch's own
+    profiler-enabled flag (a C function), so the check is one C call."""
+    global _profiling
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False  # no profiler can record before torch is imported
+    _profiling = torch.autograd._profiler_enabled
+    return _profiling()
+
+
+def _mirrored() -> bool:
+    """Does a span opened here go onto the profiler's timeline: a profiler
+    records and this is the main thread."""
+    return _profiling() and threading.current_thread() is threading.main_thread()
 
 
 def mint_trace_id() -> str:
@@ -221,7 +254,7 @@ _NOOP = _Noop()
 class _Span:
     __slots__ = ("name", "trace_id", "histogram", "args", "link",
                  "_recording", "_span_id", "_parent_id", "_hop",
-                 "_t0", "_w0", "_prof")
+                 "_t0", "_w0", "_prof", "_mirror")
 
     def __init__(self, name, trace_id, histogram, args, link=None):
         self.name = name
@@ -262,9 +295,17 @@ class _Span:
                 pass  # the profiler must never take down a job
         self._w0 = time.time()
         self._t0 = time.perf_counter()
+        self._mirror = None
+        if _mirrored():
+            from torch.profiler import record_function
+
+            self._mirror = record_function("cct." + self.name)
+            self._mirror.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._mirror is not None:
+            self._mirror.__exit__(None, None, None)
         dur = time.perf_counter() - self._t0
         if self.histogram is not None:
             _metrics.observe(self.histogram, dur)
@@ -308,15 +349,19 @@ def span(name: str, trace_id: str | None = None,
 
     ``histogram`` names a registered histogram that the duration is
     always observed into, even with tracing disabled (histograms are
-    part of the metrics endpoint, not the trace).  Without one, the
-    disabled path returns a shared no-op object.
+    part of the metrics endpoint, not the trace).  Without one, with no
+    observer and no profiler recording on this thread, the disabled path
+    returns a shared no-op object.  While a torch profiler records, a
+    span on the main thread is mirrored onto its timeline as ``cct.<name>``
+    (see the module docstring).
 
     ``link`` is an inbound wire trace context (see :func:`wire_context`):
     the span adopts its trace id (unless ``trace_id`` overrides) and hop
     count and records a ``follows_from`` edge back to the sender's span —
     the cross-process continuation primitive every HA hand-off uses.
     """
-    if not enabled() and histogram is None and _observer is None:
+    if (not enabled() and histogram is None and _observer is None
+            and not _mirrored()):
         return _NOOP
     return _Span(name, trace_id, histogram, args, link=link)
 

@@ -32,6 +32,7 @@ import torch
 from consensuscruncher_tpu_torch.device import resolve_device
 from consensuscruncher_tpu_torch.io import native
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.packing import (
@@ -211,6 +212,12 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
 
     ``policy``: the vote policy of every batch (see :func:`stream_vote`).
 
+    Every batch's live member-positions and output positions (its voted
+    families' sizes times true lengths, and their true lengths) are
+    counted (``obs_metrics.note_vote_work``).  The ``vote.encode`` span
+    covers the encode, ``vote.call`` the upload, the vote and the
+    download; both close before the batch's result is handed on.
+
     ``mesh``: a ``parallel.mesh.Mesh`` to family-shard each batch over
     (``parallel.mesh.stream_vote_sharded``: the batch's live families
     planned into contiguous runs, one launch per device; rows return to
@@ -228,39 +235,44 @@ def _run_member_batch_stream(batches, config: ConsensusConfig, device: torch.dev
     qc_total = torch.zeros((2, 0), dtype=torch.int64, device=device)
     try:
         for batch in batches:
-            wire, a, b = encode_member_batch(batch)
+            with obs_trace.span("vote.encode"):
+                wire, a, b = encode_member_batch(batch)
             n = batch.n_real
+            true_lengths = batch.lengths[:n].astype(np.int64)
+            obs_metrics.note_vote_work(int(batch.sizes[:n] @ true_lengths),
+                                       int(true_lengths.sum()))
             # under CCT_SANITIZE (utils.sanitize.guarded_stage) the batch's
             # upload with its launch, and the planes' download, are the
             # stage's sanctioned transfers; the encode, the residency hook
             # and the QC sums run guarded
-            if mesh is not None:  # each shard's upload is counted where it is made
-                sizes = batch.sizes[:n]
-                order = mesh_mod.plan_member_shards(sizes, mesh.size).order()
-                with sanitize.allow_transfer("sharded stream batch upload and vote"):
-                    planes = mesh_mod.stream_vote_sharded(mesh, wire, a, b, sizes, config,
-                                                          _out_len(batch))
-                    planes = planes[:, torch.from_numpy(order).to(planes.device)]
-            else:
-                obs_metrics.note_transfer("h2d", a.nbytes + (b.nbytes if wire == "raw" else 0),
-                                          device)
-                # the codebook of a packed wire rides in the kernel's arguments
-                b = torch.from_numpy(b)
-                lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
-                with sanitize.allow_transfer("stream batch upload and vote"):
-                    planes = stream_vote(wire, torch.from_numpy(a).to(device),
-                                         b.to(device) if wire == "raw" else b,
-                                         torch.from_numpy(batch.sizes[:n]), config,
-                                         _out_len(batch), lengths, policy)
-                if qc_sink is not None:
-                    planes, qc = planes
-                    qc_total = _add_qc(qc_total, qc)
-                if on_device_batch is not None:
-                    on_device_batch(batch, planes)
-            with sanitize.allow_transfer("stream batch download"):
-                out = planes.cpu().numpy()
-            obs_metrics.note_transfer("d2h", out.nbytes, device)
-            yield batch.keys, batch.lengths[:n].astype(np.int64), out[0], out[1]
+            with obs_trace.span("vote.call"):
+                if mesh is not None:  # each shard's upload is counted where it is made
+                    sizes = batch.sizes[:n]
+                    order = mesh_mod.plan_member_shards(sizes, mesh.size).order()
+                    with sanitize.allow_transfer("sharded stream batch upload and vote"):
+                        planes = mesh_mod.stream_vote_sharded(mesh, wire, a, b, sizes, config,
+                                                              _out_len(batch))
+                        planes = planes[:, torch.from_numpy(order).to(planes.device)]
+                else:
+                    obs_metrics.note_transfer(
+                        "h2d", a.nbytes + (b.nbytes if wire == "raw" else 0), device)
+                    # the codebook of a packed wire rides in the kernel's arguments
+                    b = torch.from_numpy(b)
+                    lengths = None if qc_sink is None else torch.from_numpy(batch.lengths[:n])
+                    with sanitize.allow_transfer("stream batch upload and vote"):
+                        planes = stream_vote(wire, torch.from_numpy(a).to(device),
+                                             b.to(device) if wire == "raw" else b,
+                                             torch.from_numpy(batch.sizes[:n]), config,
+                                             _out_len(batch), lengths, policy)
+                    if qc_sink is not None:
+                        planes, qc = planes
+                        qc_total = _add_qc(qc_total, qc)
+                    if on_device_batch is not None:
+                        on_device_batch(batch, planes)
+                with sanitize.allow_transfer("stream batch download"):
+                    out = planes.cpu().numpy()
+                obs_metrics.note_transfer("d2h", out.nbytes, device)
+            yield batch.keys, true_lengths, out[0], out[1]
     finally:
         if qc_sink is not None and qc_total.shape[1]:
             qc_sink.add_plane_handle(qc_total)

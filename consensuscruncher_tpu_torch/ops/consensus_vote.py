@@ -59,6 +59,7 @@ from consensuscruncher_tpu_torch.core.consensus_cpu import (
     cutoff_fraction,
 )
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.ops import tiles
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote
 from consensuscruncher_tpu_torch.ops.packing import WIRES, unpack_wire, wire_width
@@ -240,9 +241,10 @@ def prepare_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusConfig(),
     """The checked, planned and uploaded launch of :func:`vote_wire` on
     CUDA tensors; calling it launches the kernel once (its QC sums, with
     ``qc_lengths``, in ``.qc``)."""
-    sizes, starts, length, qc_lengths = _wire_checks(wire, a, b, sizes, config, length,
-                                                     starts, qc_lengths)
-    strand = _card_wire(wire, a, b, sizes, starts)
+    with obs_trace.span("vote.checks"):
+        sizes, starts, length, qc_lengths = _wire_checks(wire, a, b, sizes, config, length,
+                                                         starts, qc_lengths)
+        strand = _card_wire(wire, a, b, sizes, starts)
     return _prepare(wire, [strand], _book(wire, b), config, length, duplex=False,
                     qc_lengths=qc_lengths)
 
@@ -276,12 +278,13 @@ def prepare_duplex_wire(wire, a, b, sizes, config: ConsensusConfig = ConsensusCo
                         length=None, starts=None, packed_out=False) -> "TileLaunch":
     """The checked, planned and uploaded launch of :func:`duplex_wire` on
     CUDA tensors; calling it launches the kernel once."""
-    sizes, starts, length, _qc = _wire_checks(wire, a, b, sizes, config, length, starts)
-    n = _pairs(sizes)
-    contiguous = starts is None  # each strand's slots are then contiguous rows
-    starts = _default_starts(sizes, starts)
-    strands = [_card_wire(wire, a, b, sizes[:n], starts[:n], contiguous),
-               _card_wire(wire, a, b, sizes[n:], starts[n:], contiguous)]
+    with obs_trace.span("vote.checks"):
+        sizes, starts, length, _qc = _wire_checks(wire, a, b, sizes, config, length, starts)
+        n = _pairs(sizes)
+        contiguous = starts is None  # each strand's slots are then contiguous rows
+        starts = _default_starts(sizes, starts)
+        strands = [_card_wire(wire, a, b, sizes[:n], starts[:n], contiguous),
+                   _card_wire(wire, a, b, sizes[n:], starts[n:], contiguous)]
     return _prepare(wire, strands, _book(wire, b), config, length, duplex=True,
                     packed_out=packed_out)
 
@@ -659,73 +662,77 @@ class TileLaunch:
 
     def __init__(self, wire, strands, book, config, length, duplex, packed_out,
                  qc_lengths=None):
-        planes = [p for _strand, pl in strands for p in pl]
-        if len(strands) == 1:
-            planes += planes[:2]
-        dev = planes[0].device  # a tensor's device names its card's index
-        self.duplex = duplex
-        self.wire = WIRES.index(wire)
-        n = int(strands[0][0].sizes.shape[0])
-        nplanes = (3 if packed_out else 6) if duplex else 2
-        self.out = torch.empty((nplanes, n, length), dtype=torch.uint8, device=dev)
-        self.with_qc = qc_lengths is not None
-        grid = _grid(self.wire, duplex, self.with_qc, dev)  # loads the library and its layout
-        # one pinned buffer, one copy to the card: the stats (zeros, which the
-        # kernel adds into), with the QC rider its (2, length) int32 sums
-        # (zeros), the family records (at an even word: their bulk copies
-        # want 16-byte addresses; with the rider each family's length in the
-        # high 32 bits of its size), an explicit tile table
-        records = n * 2 * len(strands)
-        qc_words = length if self.with_qc else 0
-        head = 2 + qc_words + qc_words % 2
-        pinned = []
+        # vote.plan: the outputs, the grid, the tile plan with its pinned
+        # buffer; vote.launch: the records and their copy, the arguments
+        with obs_trace.span("vote.plan"):
+            planes = [p for _strand, pl in strands for p in pl]
+            if len(strands) == 1:
+                planes += planes[:2]
+            dev = planes[0].device  # a tensor's device names its card's index
+            self.duplex = duplex
+            self.wire = WIRES.index(wire)
+            n = int(strands[0][0].sizes.shape[0])
+            nplanes = (3 if packed_out else 6) if duplex else 2
+            self.out = torch.empty((nplanes, n, length), dtype=torch.uint8, device=dev)
+            self.with_qc = qc_lengths is not None
+            grid = _grid(self.wire, duplex, self.with_qc, dev)  # loads the library and its layout
+            # one pinned buffer, one copy to the card: the stats (zeros, which the
+            # kernel adds into), with the QC rider its (2, length) int32 sums
+            # (zeros), the family records (at an even word: their bulk copies
+            # want 16-byte addresses; with the rider each family's length in the
+            # high 32 bits of its size), an explicit tile table
+            records = n * 2 * len(strands)
+            qc_words = length if self.with_qc else 0
+            head = 2 + qc_words + qc_words % 2
+            pinned = []
 
-        def alloc(k):
-            pinned.append(torch.empty(head + k, dtype=torch.int64, pin_memory=True))
-            pinned[0][:2 + (length if self.with_qc else 0)] = 0
-            return pinned[0][head:].numpy()
+            def alloc(k):
+                pinned.append(torch.empty(head + k, dtype=torch.int64, pin_memory=True))
+                pinned[0][:2 + (length if self.with_qc else 0)] = 0
+                return pinned[0][head:].numpy()
 
-        self.plan = tiles.plan_tiles([s for s, _p in strands], length, grid,
-                                     _layouts[duplex], alloc)
-        host = pinned[0]
-        self.n_tiles = self.plan.n_tiles
-        self.dev = dev
-        if self.n_tiles == 0:
-            self.stats = torch.zeros(4, dtype=torch.int32, device=dev)
-            self.qc = (torch.zeros((2, length), dtype=torch.int32, device=dev)
-                       if self.with_qc else None)
-            return
-        if self.with_qc:
-            self.plan.records[:, 1] |= qc_lengths.numpy().astype(np.int64) << 32
-        explicit = self.plan.explicit
-        used = head + records + (0 if explicit is None else explicit.size)
-        meta = host[:used].to(dev, non_blocking=True)
-        obs_metrics.note_transfer("h2d", 8 * used, dev)
-        self.stats = meta[:2].view(torch.int32)
-        self.qc = meta[2:2 + length].view(torch.int32).view(2, length) if self.with_qc else None
-        self._keep = planes
-        geometry = [[s.row_bytes, s.width, s.extent] for s, _p in strands]
-        geometry *= 3 - len(strands)
-        vec = 0
-        for i, (s, pl) in enumerate(strands * (3 - len(strands))):
-            if (s.width % 4 == 0 and s.row_bytes % 4 == 0
-                    and all(p.data_ptr() % 4 == 0 for p in pl)):
-                vec |= 1 << i
-        num, den = config.cutoff_rational
-        # the C arrays live as long as the launch does
-        self._arrays = ((ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes]),
-                        *((ctypes.c_int64 * 2)(*[g[k] for g in geometry[:2]])
-                          for k in range(3)),
-                        (ctypes.c_ubyte * 16)(*book.tolist()))
-        ptrs, row_bytes, width, extent, book_c = (ctypes.addressof(a) for a in self._arrays)
-        fam = meta.data_ptr() + 8 * head
-        self._args = (
-            self.wire, int(duplex), ptrs, row_bytes, width, extent, fam,
-            None if explicit is None else fam + 8 * records, self.plan.fams, n,
-            self.n_tiles, length, num, den, int(config.qual_threshold),
-            int(config.qual_cap), book_c, self.out.data_ptr(), n * length,
-            self.stats.data_ptr(), int(packed_out), vec,
-            self.qc.data_ptr() if self.with_qc else None)
+            self.plan = tiles.plan_tiles([s for s, _p in strands], length, grid,
+                                         _layouts[duplex], alloc)
+        with obs_trace.span("vote.launch"):
+            host = pinned[0]
+            self.n_tiles = self.plan.n_tiles
+            self.dev = dev
+            if self.n_tiles == 0:
+                self.stats = torch.zeros(4, dtype=torch.int32, device=dev)
+                self.qc = (torch.zeros((2, length), dtype=torch.int32, device=dev)
+                           if self.with_qc else None)
+                return
+            if self.with_qc:
+                self.plan.records[:, 1] |= qc_lengths.numpy().astype(np.int64) << 32
+            explicit = self.plan.explicit
+            used = head + records + (0 if explicit is None else explicit.size)
+            meta = host[:used].to(dev, non_blocking=True)
+            obs_metrics.note_transfer("h2d", 8 * used, dev)
+            self.stats = meta[:2].view(torch.int32)
+            self.qc = meta[2:2 + length].view(torch.int32).view(2, length) if self.with_qc else None
+            self._keep = planes
+            geometry = [[s.row_bytes, s.width, s.extent] for s, _p in strands]
+            geometry *= 3 - len(strands)
+            vec = 0
+            for i, (s, pl) in enumerate(strands * (3 - len(strands))):
+                if (s.width % 4 == 0 and s.row_bytes % 4 == 0
+                        and all(p.data_ptr() % 4 == 0 for p in pl)):
+                    vec |= 1 << i
+            num, den = config.cutoff_rational
+            # the C arrays live as long as the launch does
+            self._arrays = ((ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes]),
+                            *((ctypes.c_int64 * 2)(*[g[k] for g in geometry[:2]])
+                              for k in range(3)),
+                            (ctypes.c_ubyte * 16)(*book.tolist()))
+            ptrs, row_bytes, width, extent, book_c = (ctypes.addressof(a) for a in self._arrays)
+            fam = meta.data_ptr() + 8 * head
+            self._args = (
+                self.wire, int(duplex), ptrs, row_bytes, width, extent, fam,
+                None if explicit is None else fam + 8 * records, self.plan.fams, n,
+                self.n_tiles, length, num, den, int(config.qual_threshold),
+                int(config.qual_cap), book_c, self.out.data_ptr(), n * length,
+                self.stats.data_ptr(), int(packed_out), vec,
+                self.qc.data_ptr() if self.with_qc else None)
 
     def __call__(self):
         global launches, qc_launches, fused_launches
@@ -735,7 +742,7 @@ class TileLaunch:
         # the planes' card is the current device for the launch, which goes
         # to that card's current stream (a launch on another card's stream,
         # or with another card current, would fail or run on the wrong card)
-        with torch.cuda.device(self.dev):
+        with obs_trace.span("vote.launch"), torch.cuda.device(self.dev):
             rc = lib.cct_vote_tiles(*self._args, torch.cuda.current_stream(self.dev).cuda_stream)
         if self.duplex:
             fused_launches += 1

@@ -33,6 +33,7 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.utils.phred import N, PAD
 from consensuscruncher_tpu_torch.utils.ragged import fill_runs, scatter_runs
 
@@ -273,10 +274,16 @@ def bucket_member_blocks(
     rectangularization (truncate to the modal length, pad short members
     with (N, qual 0)) runs as scatter passes at flush time.  A bucket
     flushes at ``max_batch`` families or ``member_limit`` member rows.
+    The ``batching.flush`` span covers a block's bucketing and each
+    batch's assembly, and closes before the batch is handed on.
     """
     buckets: dict[tuple[int, int], _BlockBucket] = {}
 
     def flush(key: tuple[int, int]) -> MemberBatch:
+        with obs_trace.span("batching.flush"):
+            return assemble(key)
+
+    def assemble(key: tuple[int, int]) -> MemberBatch:
         lb = key[0]
         bucket = buckets.pop(key)
         n = len(bucket.keys)
@@ -307,55 +314,60 @@ def bucket_member_blocks(
         )
 
     for block, fam_idx, keys in items:
-        fam_idx = np.asarray(fam_idx, dtype=np.int64)
-        tl = block.target_len[fam_idx]
-        lbs = np.maximum(
-            LEN_QUANTUM, ((tl + LEN_QUANTUM - 1) // LEN_QUANTUM) * LEN_QUANTUM
-        )
-        # Size-class axis: families also split by pow2 family-size class, as
-        # in the reference's batching (which sizes its gather-dense member
-        # cap by the class), so a batch holds families of similar depth.
-        # Final output bytes are unchanged (the sorting writers' total
-        # order is content-keyed, never batch order).
-        szs = block.sizes[fam_idx].astype(np.int64)
-        scs = np.maximum(1, 1 << np.maximum(
-            0, np.int64(np.ceil(np.log2(np.maximum(szs, 1))))))
-        # 40-bit class field: family sizes are int32, so sc < 2^32 always —
-        # the length bucket can never be corrupted by a deep family.  The
-        # extra buckets (len x ~5 size classes) pin partially-filled
-        # scatter chunks a little longer, but each class still flushes on
-        # the same MEMBER_LIMIT, so residency stays bounded.
-        comb = lbs.astype(np.int64) << 40 | scs
-        for ck in np.unique(comb):
-            lb, sc = int(ck >> 40), int(ck & ((1 << 40) - 1))
-            m = comb == ck
-            fams = fam_idx[m]
-            counts = block.sizes[fams].astype(np.int64)
-            starts = block.fam_off[fams]
-            tot = int(counts.sum())
-            rel = np.arange(tot, dtype=np.int64) - np.repeat(
-                np.concatenate([[0], np.cumsum(counts[:-1])]), counts
+        with obs_trace.span("batching.flush"):
+            fam_idx = np.asarray(fam_idx, dtype=np.int64)
+            tl = block.target_len[fam_idx]
+            lbs = np.maximum(
+                LEN_QUANTUM, ((tl + LEN_QUANTUM - 1) // LEN_QUANTUM) * LEN_QUANTUM
             )
-            midx = np.repeat(starts, counts) + rel
-            bucket = buckets.setdefault((lb, sc), _BlockBucket())
-            dst_row = bucket.members + np.arange(tot, dtype=np.int64)
-            mtarget = np.repeat(block.target_len[fams], counts)
-            chunk_of = block.mem_chunk[midx]
-            for ci in np.unique(chunk_of):
-                cm = chunk_of == ci
-                codes_data, qual_data = block.data_chunks[int(ci)]
-                bucket.chunks.append((
-                    codes_data, qual_data,
-                    block.mem_start[midx[cm]], block.mem_len[midx[cm]],
-                    mtarget[cm], dst_row[cm],
-                ))
-            sel = np.nonzero(m)[0]
-            bucket.keys.extend(keys[int(j)] for j in sel)
-            bucket.sizes.append(block.sizes[fams])
-            bucket.lengths.append(block.target_len[fams])
-            bucket.members += tot
-            if len(bucket.keys) >= max_batch or bucket.members >= member_limit:
-                yield flush((lb, sc))
+            # Size-class axis: families also split by pow2 family-size class, as
+            # in the reference's batching (which sizes its gather-dense member
+            # cap by the class), so a batch holds families of similar depth.
+            # Final output bytes are unchanged (the sorting writers' total
+            # order is content-keyed, never batch order).
+            szs = block.sizes[fam_idx].astype(np.int64)
+            scs = np.maximum(1, 1 << np.maximum(
+                0, np.int64(np.ceil(np.log2(np.maximum(szs, 1))))))
+            # 40-bit class field: family sizes are int32, so sc < 2^32 always —
+            # the length bucket can never be corrupted by a deep family.  The
+            # extra buckets (len x ~5 size classes) pin partially-filled
+            # scatter chunks a little longer, but each class still flushes on
+            # the same MEMBER_LIMIT, so residency stays bounded.
+            comb = lbs.astype(np.int64) << 40 | scs
+            classes = np.unique(comb)
+        for ck in classes:
+            with obs_trace.span("batching.flush"):
+                lb, sc = int(ck >> 40), int(ck & ((1 << 40) - 1))
+                m = comb == ck
+                fams = fam_idx[m]
+                counts = block.sizes[fams].astype(np.int64)
+                starts = block.fam_off[fams]
+                tot = int(counts.sum())
+                rel = np.arange(tot, dtype=np.int64) - np.repeat(
+                    np.concatenate([[0], np.cumsum(counts[:-1])]), counts
+                )
+                midx = np.repeat(starts, counts) + rel
+                bucket = buckets.setdefault((lb, sc), _BlockBucket())
+                dst_row = bucket.members + np.arange(tot, dtype=np.int64)
+                mtarget = np.repeat(block.target_len[fams], counts)
+                chunk_of = block.mem_chunk[midx]
+                for ci in np.unique(chunk_of):
+                    cm = chunk_of == ci
+                    codes_data, qual_data = block.data_chunks[int(ci)]
+                    bucket.chunks.append((
+                        codes_data, qual_data,
+                        block.mem_start[midx[cm]], block.mem_len[midx[cm]],
+                        mtarget[cm], dst_row[cm],
+                    ))
+                sel = np.nonzero(m)[0]
+                bucket.keys.extend(keys[int(j)] for j in sel)
+                bucket.sizes.append(block.sizes[fams])
+                bucket.lengths.append(block.target_len[fams])
+                bucket.members += tot
+                full = len(bucket.keys) >= max_batch or bucket.members >= member_limit
+                batch = assemble((lb, sc)) if full else None
+            if batch is not None:
+                yield batch
     for key in sorted(buckets):
         yield flush(key)
 

@@ -41,6 +41,7 @@ import torch
 
 from consensuscruncher_tpu_torch.device import resolve_device
 from consensuscruncher_tpu_torch.obs import metrics as obs_metrics
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.ops import consensus_vote
 from consensuscruncher_tpu_torch.ops.consensus_vote import ConsensusConfig
 from consensuscruncher_tpu_torch.ops.duplex import duplex_vote
@@ -373,28 +374,33 @@ def _pipeline_step(mesh: Mesh, config: ConsensusConfig, wire: str, length: int |
     strand batches, ``(n, F, W)`` wire rows, join one member stream
     (strand A's families at rows ``i * F``, strand B's after them) and
     vote in one launch of the fused kernel with its stats; planes gather
-    and stats sum on the mesh's first device."""
+    and stats sum on the mesh's first device.  The ``mesh.inputs`` span
+    covers a shard's inputs: its views (or uploads), the strands joined,
+    the sizes and starts."""
 
     def step(a_a, b_a, sizes_a, a_b, b_b, sizes_b):
         """``b_*``: the raw wire's quals planes, or the packed wires'
         codebook (the same for both strands)."""
         shards = []
         for dev, rows in _shards(mesh, np.shape(sizes_a)[0]):
-            n, f, _w = np.shape(a_a[rows])
-            flat = [_upload(x, rows, dev, torch.uint8).reshape(n * f, -1) for x in (a_a, a_b)]
-            if wire == "raw":
-                flat_q = [_upload(x, rows, dev, torch.uint8).reshape(n * f, -1)
-                          for x in (b_a, b_b)]
-                second = torch.cat(flat_q)
-            else:
-                second = torch.as_tensor(b_a)  # the codebook rides in the launch
-            sizes = torch.cat([torch.as_tensor(s[rows]).to(torch.int64)
-                               for s in (sizes_a, sizes_b)])
-            starts = torch.arange(n, dtype=torch.int64) * f
+            with obs_trace.span("mesh.inputs"):
+                n, f, _w = np.shape(a_a[rows])
+                flat = [_upload(x, rows, dev, torch.uint8).reshape(n * f, -1)
+                        for x in (a_a, a_b)]
+                if wire == "raw":
+                    flat_q = [_upload(x, rows, dev, torch.uint8).reshape(n * f, -1)
+                              for x in (b_a, b_b)]
+                    second = torch.cat(flat_q)
+                else:
+                    second = torch.as_tensor(b_a)  # the codebook rides in the launch
+                sizes = torch.cat([torch.as_tensor(s[rows]).to(torch.int64)
+                                   for s in (sizes_a, sizes_b)])
+                starts = torch.arange(n, dtype=torch.int64) * f
+                members = torch.cat(flat)
+                starts = torch.cat([starts, starts + n * f])
             planes, stats = consensus_vote.duplex_wire(
-                wire, torch.cat(flat), second, sizes, config,
-                length=flat[0].shape[1] if length is None else length,
-                starts=torch.cat([starts, starts + n * f]))
+                wire, members, second, sizes, config,
+                length=flat[0].shape[1] if length is None else length, starts=starts)
             shards.append((planes, stats))
         planes = _gather([p for p, _s in shards], 1)
         return (*planes, _sum([s for _p, s in shards]))

@@ -35,6 +35,7 @@ of them:
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -42,6 +43,7 @@ import numpy as np
 from consensuscruncher_tpu_torch.core import qnames as qnames_mod
 from consensuscruncher_tpu_torch.core import tags as tags_mod
 from consensuscruncher_tpu_torch.utils.ragged import gather_runs
+from consensuscruncher_tpu_torch.obs import trace as obs_trace
 from consensuscruncher_tpu_torch.io.bam import (
     BamHeader,
     BamRead,
@@ -185,6 +187,18 @@ _BAD_REASONS = (None, "unmapped", "mate_unmapped", "secondary",
 
 
 
+def _block_span(fn):
+    """``fn`` run in the ``grouping.block`` span: classifying a batch or
+    building a block, never across a ``yield``."""
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with obs_trace.span("grouping.block"):
+            return fn(*args, **kwargs)
+
+    return spanned
+
+
+@_block_span
 def _classify_batch(batch, bdelim_byte: int):
     """Vectorized classify_bad + barcode locate for one batch.
 
@@ -850,6 +864,7 @@ def _header_name_pool(header: BamHeader):
     return cached
 
 
+@_block_span
 def _build_block(sources: list[_BlockSrc], header: BamHeader) -> FamilyBlock:
     """Vectorized family construction over one or more row sources."""
     def col(fn):
@@ -987,43 +1002,44 @@ def stream_family_blocks(
         good = np.nonzero(reason == 0)[0]
         if good.size == 0:
             continue
-        rid = batch.ref_id[good]
-        pos = batch.pos[good]
-        ok = (rid[1:] > rid[:-1]) | ((rid[1:] == rid[:-1]) & (pos[1:] >= pos[:-1]))
-        if not ok.all():
-            i = int(np.argmin(ok)) + 1
-            read = batch.materialize(int(good[i]))
-            raise NotCoordinateSorted(
-                f"input BAM is not coordinate-sorted: {read.qname} at "
-                f"{read.ref}:{read.pos} after ref_id={int(rid[i - 1])} "
-                f"pos={int(pos[i - 1])} — run sort first"
-            )
-        first_key = (int(rid[0]), int(pos[0]))
-        if carry_key is not None and first_key < carry_key:
-            read = batch.materialize(int(good[0]))
-            raise NotCoordinateSorted(
-                f"input BAM is not coordinate-sorted: {read.qname} at "
-                f"{read.ref}:{read.pos} after ref_id={carry_key[0]} "
-                f"pos={carry_key[1]} — run sort first"
-            )
-        # barcode matrix for good rows
-        qm = batch.qname_matrix
-        w = qm.shape[1]
-        wb = int(bclen[good].max(initial=0))
-        cols = np.arange(wb, dtype=np.int64)
-        src = last[good][:, None] + 1 + cols[None, :]
-        valid = cols[None, :] < bclen[good][:, None]
-        bcm = np.where(valid, qm[good[:, None], np.minimum(src, w - 1)], 0).astype(np.uint8)
+        with obs_trace.span("grouping.block"):
+            rid = batch.ref_id[good]
+            pos = batch.pos[good]
+            ok = (rid[1:] > rid[:-1]) | ((rid[1:] == rid[:-1]) & (pos[1:] >= pos[:-1]))
+            if not ok.all():
+                i = int(np.argmin(ok)) + 1
+                read = batch.materialize(int(good[i]))
+                raise NotCoordinateSorted(
+                    f"input BAM is not coordinate-sorted: {read.qname} at "
+                    f"{read.ref}:{read.pos} after ref_id={int(rid[i - 1])} "
+                    f"pos={int(pos[i - 1])} — run sort first"
+                )
+            first_key = (int(rid[0]), int(pos[0]))
+            if carry_key is not None and first_key < carry_key:
+                read = batch.materialize(int(good[0]))
+                raise NotCoordinateSorted(
+                    f"input BAM is not coordinate-sorted: {read.qname} at "
+                    f"{read.ref}:{read.pos} after ref_id={carry_key[0]} "
+                    f"pos={carry_key[1]} — run sort first"
+                )
+            # barcode matrix for good rows
+            qm = batch.qname_matrix
+            w = qm.shape[1]
+            wb = int(bclen[good].max(initial=0))
+            cols = np.arange(wb, dtype=np.int64)
+            src = last[good][:, None] + 1 + cols[None, :]
+            valid = cols[None, :] < bclen[good][:, None]
+            bcm = np.where(valid, qm[good[:, None], np.minimum(src, w - 1)], 0).astype(np.uint8)
 
-        # defer the trailing coordinate (it may continue in the next batch)
-        tail_mask = (rid == rid[-1]) & (pos == pos[-1])
-        n_tail = int(tail_mask.sum())
-        body_n = good.size - n_tail
-        body_src = (
-            _BlockSrc(batch, good[:body_n], bcm[:body_n], bclen[good[:body_n]])
-            if body_n else None
-        )
-        tail_src = _BlockSrc(batch, good[body_n:], bcm[body_n:], bclen[good[body_n:]])
+            # defer the trailing coordinate (it may continue in the next batch)
+            tail_mask = (rid == rid[-1]) & (pos == pos[-1])
+            n_tail = int(tail_mask.sum())
+            body_n = good.size - n_tail
+            body_src = (
+                _BlockSrc(batch, good[:body_n], bcm[:body_n], bclen[good[:body_n]])
+                if body_n else None
+            )
+            tail_src = _BlockSrc(batch, good[body_n:], bcm[body_n:], bclen[good[body_n:]])
 
         if body_n:
             if carry and first_key == carry_key:
@@ -1122,36 +1138,37 @@ def duplex_pair_blocks(creader, header: BamHeader) -> Iterator[PairBlock]:
     carry: list[tuple] | None = []
     carry_key = None
     for batch in creader.batches():
-        ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
-        if not ok.all():
-            raise ForeignTagLayout("foreign tag layout (no XT/XF prefix)")
-        n = batch.n
-        rid, pos = batch.ref_id, batch.pos
-        if n:
-            sorted_ok = (rid[1:] > rid[:-1]) | ((rid[1:] == rid[:-1]) & (pos[1:] >= pos[:-1]))
-            if not sorted_ok.all():
-                i = int(np.argmin(sorted_ok)) + 1
-                read = batch.materialize(i)
+        with obs_trace.span("grouping.block"):
+            ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
+            if not ok.all():
+                raise ForeignTagLayout("foreign tag layout (no XT/XF prefix)")
+            n = batch.n
+            rid, pos = batch.ref_id, batch.pos
+            if n:
+                sorted_ok = (rid[1:] > rid[:-1]) | ((rid[1:] == rid[:-1]) & (pos[1:] >= pos[:-1]))
+                if not sorted_ok.all():
+                    i = int(np.argmin(sorted_ok)) + 1
+                    read = batch.materialize(i)
+                    raise NotCoordinateSorted(
+                        f"consensus BAM is not coordinate-sorted: {read.qname} at "
+                        f"{read.ref}:{read.pos}"
+                    )
+            first_key = (int(rid[0]), int(pos[0])) if n else None
+            if carry_key is not None and first_key is not None and first_key < carry_key:
+                read = batch.materialize(0)
                 raise NotCoordinateSorted(
                     f"consensus BAM is not coordinate-sorted: {read.qname} at "
-                    f"{read.ref}:{read.pos}"
+                    f"{read.ref}:{read.pos} after ref_id={carry_key[0]} pos={carry_key[1]}"
                 )
-        first_key = (int(rid[0]), int(pos[0])) if n else None
-        if carry_key is not None and first_key is not None and first_key < carry_key:
-            read = batch.materialize(0)
-            raise NotCoordinateSorted(
-                f"consensus BAM is not coordinate-sorted: {read.qname} at "
-                f"{read.ref}:{read.pos} after ref_id={carry_key[0]} pos={carry_key[1]}"
-            )
-        # barcode matrix for the whole batch
-        bcm = _barcode_matrix(batch.buf, bc_start, bc_len)
+            # barcode matrix for the whole batch
+            bcm = _barcode_matrix(batch.buf, bc_start, bc_len)
 
-        rows = np.arange(n, dtype=np.int64)
-        tail_mask = (rid == rid[-1]) & (pos == pos[-1]) if n else np.zeros(0, bool)
-        n_tail = int(tail_mask.sum())
-        body_n = n - n_tail
-        src_new_body = (batch, rows[:body_n], bcm[:body_n], bc_len[:body_n], xf[:body_n])
-        src_new_tail = (batch, rows[body_n:], bcm[body_n:], bc_len[body_n:], xf[body_n:])
+            rows = np.arange(n, dtype=np.int64)
+            tail_mask = (rid == rid[-1]) & (pos == pos[-1]) if n else np.zeros(0, bool)
+            n_tail = int(tail_mask.sum())
+            body_n = n - n_tail
+            src_new_body = (batch, rows[:body_n], bcm[:body_n], bc_len[:body_n], xf[:body_n])
+            src_new_tail = (batch, rows[body_n:], bcm[body_n:], bc_len[body_n:], xf[body_n:])
 
         if body_n:
             if carry and first_key == carry_key:
@@ -1175,6 +1192,7 @@ def duplex_pair_blocks(creader, header: BamHeader) -> Iterator[PairBlock]:
         yield _build_pair_block(carry, header)
 
 
+@_block_span
 def _build_pair_block(sources: list[tuple], header: BamHeader) -> PairBlock:
     def col(fn):
         return np.concatenate([fn(s) for s in sources])
@@ -1394,6 +1412,7 @@ def _barcode_matrix(buf: np.ndarray, bc_start: np.ndarray, bc_len: np.ndarray) -
     ).astype(np.uint8)
 
 
+@_block_span
 def _rescue_src_prep(batch) -> tuple:
     """(rows, bcm, bclen, xf) of the XT/XF-parsed rows of a batch."""
     ok, bc_start, bc_len, xf = _parse_xt_xf(batch)
@@ -1454,24 +1473,27 @@ def singleton_rescue_blocks(s_creader, x_creader, header: BamHeader) -> Iterator
             heads[si] = next(streams[si], None)
         done_streams = heads[0] is None and heads[1] is None
         emit_pieces: list[tuple] = []
-        for srctype, batch, rows, bcm, bclen, xf in pieces:
-            if done_streams or boundary is None:
-                emit_pieces.append((srctype, batch, rows, bcm, bclen, xf))
-                continue
-            key_ge = (batch.ref_id[rows] > boundary[0]) | (
-                (batch.ref_id[rows] == boundary[0]) & (batch.pos[rows] >= boundary[1])
-            )
-            cut = int(np.argmax(key_ge)) if key_ge.any() else len(rows)
-            if cut:
-                emit_pieces.append((srctype, batch, rows[:cut], bcm[:cut], bclen[:cut], xf[:cut]))
-            if cut < len(rows):
-                carry.append((srctype, batch, rows[cut:], bcm[cut:], bclen[cut:], xf[cut:]))
+        with obs_trace.span("grouping.block"):
+            for srctype, batch, rows, bcm, bclen, xf in pieces:
+                if done_streams or boundary is None:
+                    emit_pieces.append((srctype, batch, rows, bcm, bclen, xf))
+                    continue
+                key_ge = (batch.ref_id[rows] > boundary[0]) | (
+                    (batch.ref_id[rows] == boundary[0]) & (batch.pos[rows] >= boundary[1])
+                )
+                cut = int(np.argmax(key_ge)) if key_ge.any() else len(rows)
+                if cut:
+                    emit_pieces.append((srctype, batch, rows[:cut], bcm[:cut], bclen[:cut],
+                                        xf[:cut]))
+                if cut < len(rows):
+                    carry.append((srctype, batch, rows[cut:], bcm[cut:], bclen[cut:], xf[cut:]))
         if emit_pieces:
             yield _build_rescue_block(emit_pieces, header)
     if carry:
         yield _build_rescue_block(carry, header)
 
 
+@_block_span
 def _build_rescue_block(pieces: list[tuple], header: BamHeader) -> RescueBlock:
     def col(fn):
         return np.concatenate([fn(p) for p in pieces])

@@ -510,26 +510,27 @@ def run_sscs(
             hist.add_array(sizes)
             multi = np.nonzero(sizes >= 2)[0]
             stats.incr("singletons", block.n_fam - len(multi))
-            for j in np.nonzero(sizes == 1)[0]:
-                j = int(j)
-                batch, idx = block.tmpl_src(j)
-                if batch.tags_start[idx] == batch.rec_off[idx + 1]:
-                    # tag-less record: rename + retag as batched blob surgery
-                    single_surgery.add(
-                        batch, idx,
-                        bytes(block.qname_data[block.qname_off[j]:block.qname_off[j + 1]]),
-                        b"XTZ" + bytes(block.bcm[j, : block.bclen[j]]) + b"\x00XFi" + xf1,
-                    )
-                    continue
-                # existing tags: dict-replace semantics (surgery only
-                # appends); flush first to preserve file order
-                single_surgery.flush()
-                out = batch.materialize(idx)
-                out.qname = block.qname(j)
-                out.tags = dict(out.tags)
-                out.tags["XT"] = ("Z", block.barcode(j))
-                out.tags["XF"] = ("i", 1)
-                singleton_writer.write(out)
+            with obs_trace.span("sscs.emit"):  # the block's singleton records
+                for j in np.nonzero(sizes == 1)[0]:
+                    j = int(j)
+                    batch, idx = block.tmpl_src(j)
+                    if batch.tags_start[idx] == batch.rec_off[idx + 1]:
+                        # tag-less record: rename + retag as batched blob surgery
+                        single_surgery.add(
+                            batch, idx,
+                            bytes(block.qname_data[block.qname_off[j]:block.qname_off[j + 1]]),
+                            b"XTZ" + bytes(block.bcm[j, : block.bclen[j]]) + b"\x00XFi" + xf1,
+                        )
+                        continue
+                    # existing tags: dict-replace semantics (surgery only
+                    # appends); flush first to preserve file order
+                    single_surgery.flush()
+                    out = batch.materialize(idx)
+                    out.qname = block.qname(j)
+                    out.tags = dict(out.tags)
+                    out.tags["XT"] = ("Z", block.barcode(j))
+                    out.tags["XF"] = ("i", 1)
+                    singleton_writer.write(out)
             if len(multi):
                 yield block, multi, [(block, int(j)) for j in multi]
 
@@ -549,7 +550,11 @@ def run_sscs(
 
     def emit_batch(keys, lengths, out_b, out_q):
         """Array-level consensus emission: one encode pass per same-block
-        run of a device batch."""
+        run of a device batch, in the ``sscs.emit`` span."""
+        with obs_trace.span("sscs.emit"):
+            emit_runs(keys, lengths, out_b, out_q)
+
+    def emit_runs(keys, lengths, out_b, out_q):
         lpad = out_b.shape[1]
         flat_b, flat_q = out_b.reshape(-1), out_q.reshape(-1)
         for block, i, k, js in block_runs(keys):

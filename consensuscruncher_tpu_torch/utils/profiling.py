@@ -73,13 +73,18 @@ class Counters:
 
 def counter_marks() -> dict[str, int]:
     """The process-wide counters whose change over a stage its
-    ``cumulative`` block reports: kernel builds, bytes to and from the
-    card, and the BGZF deflate wall and bytes written."""
+    ``cumulative`` block reports, and over a run ``run.metrics.json``:
+    kernel builds, bytes to and from the card, the BGZF deflate time and
+    bytes written, and the SSCS vote calls' member-positions and output
+    positions."""
     io = bgzf.write_stats()
     moved = obs_metrics.transfer_bytes()
+    voted = obs_metrics.vote_work()
     return {"recompiles": obs_metrics.recompiles(), "bytes_h2d": moved["h2d"],
             "bytes_d2h": moved["d2h"], "deflate_wall_us": io["deflate_wall_us"],
-            "bytes_bam_written": io["bytes_written"]}
+            "bytes_bam_written": io["bytes_written"],
+            "vote_member_positions": voted["member_positions"],
+            "vote_output_positions": voted["output_positions"]}
 
 
 def add_counter_deltas(cum: Counters, marks: dict[str, int]) -> None:

@@ -11,7 +11,9 @@ package's (CPU), and the counters and trace behind them.
 - ``note_transfer`` counts only copies to or from a CUDA device;
   ``recompiles`` counts the libraries ``cuda_lib.build`` compiled.
 - ``CUMULATIVE_KEYS``, ``Counters``, ``metrics_doc`` and
-  ``TimeTracker.as_phases`` equal the JAX ones; the manifest records no sidecar.
+  ``TimeTracker.as_phases`` equal the JAX ones, but for the port's own
+  counters after the JAX keys (zero unless counted); the manifest records
+  no sidecar.
 - ``--profile DIR`` writes a Chrome trace whose run span covers the run;
   ``trace_summary`` takes the union of the device intervals.
 """
@@ -44,6 +46,8 @@ SIDECARS = ("sscs/s.metrics.json", "singleton/s.singleton.metrics.json",
 # counters that depend on the data alone (no wall time, no device)
 COUNTED = ("families_in", "families_out", "batches_dispatched", "resident_pair_votes",
            "staged_pair_votes", "bytes_bam_written")
+# the port's own cumulative counters, registered after the JAX package's
+PORT_ONLY = ("vote_member_positions", "vote_output_positions")
 
 
 def _load(path):
@@ -65,7 +69,7 @@ def test_sidecars_match_jax(runs, rel):
     mine, theirs = _load(runs / "torch" / "s" / rel), _load(runs / "jax" / "s" / rel)
     assert sorted(mine) == sorted(theirs)
     assert list(mine["phases_s"]) == list(theirs["phases_s"])
-    assert sorted(mine["cumulative"]) == sorted(theirs["cumulative"])
+    assert sorted(mine["cumulative"]) == sorted(list(theirs["cumulative"]) + list(PORT_ONLY))
     assert (mine["backend"], mine["jax_backend"]) == ("cpu", None)
     assert mine["stage"] == theirs["stage"]
     for key in COUNTED:
@@ -137,7 +141,8 @@ def test_recompiles_count_kernel_builds(tmp_path, monkeypatch):
 
 
 def test_counters_and_docs_match_jax():
-    assert registry.CUMULATIVE_KEYS == jax_registry.CUMULATIVE_KEYS
+    assert registry.CUMULATIVE_KEYS == jax_registry.CUMULATIVE_KEYS + PORT_ONLY
+    port_zeros = dict.fromkeys(PORT_ONLY, 0)
     mine, theirs = profiling.Counters(), jax_profiling.Counters()
     for c in (mine, theirs):
         c.add("families_in", 5)
@@ -145,10 +150,12 @@ def test_counters_and_docs_match_jax():
         c.high_water("queue_depth_hwm", 2)
         with pytest.raises(KeyError):
             c.add("not_a_counter")
-    assert mine.snapshot() == theirs.snapshot()
+    assert mine.snapshot() == {**theirs.snapshot(), **port_zeros}
     args = ("SSCS", {"consensus": 1.5, "sort": 0.5}, {"backend": "x", "n_reads": 100},
             {"families_in": 5})
-    assert profiling.metrics_doc(*args) == jax_profiling.metrics_doc(*args)
+    want = jax_profiling.metrics_doc(*args)
+    want["cumulative"] = {**want["cumulative"], **port_zeros}
+    assert profiling.metrics_doc(*args) == want
     a, b = TimeTracker(), JaxTimeTracker()
     for t in (a, b):
         t._t0 = 0.0

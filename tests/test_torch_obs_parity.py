@@ -111,9 +111,11 @@ def _metrics_doc():
     }
 
 
-#: help texts the port rewords (what the port counts, not what JAX does)
+#: help texts the port rewords (what the port counts, not what JAX does),
+#: and the port's own counters, which the JAX registry has no help text for
 REWORDED = ("cct_recompiles_total", "cct_bytes_h2d_total", "cct_bytes_d2h_total",
-            "cct_device_dispatch_s")
+            "cct_device_dispatch_s", "cct_deflate_wall_us_total",
+            "cct_vote_member_positions_total", "cct_vote_output_positions_total")
 
 
 def _mask_reworded(text):
